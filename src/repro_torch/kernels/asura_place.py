@@ -1,0 +1,185 @@
+"""Wrappers of the hand-written CUDA placement kernels (``csrc/asura_place.cu``).
+
+``place_fused_cuda`` replaces the reference's ``place_fused_pallas``;
+``place_replicas_cuda`` replaces ``place_replicas_pallas`` and also emits
+the serving path's stats vector.  Both:
+
+  * take the plain-torch twin (``ref.py``) only for CPU tensors; for CUDA
+    tensors they launch the kernel or raise -- no fallback;
+  * check device, dtype, contiguity and shape first (ids and tables are
+    ``uint32`` tensors, the seg->node map ``int32``);
+  * allocate outputs with ``torch.empty`` and launch on the current
+    stream without synchronising, raising if the launch reports a CUDA
+    error;
+  * add one to ``LAUNCHES[<kernel>]`` per kernel launch, and nowhere else.
+
+Ids are not padded: the kernels mask the ragged edge themselves.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build, ref
+
+LAUNCHES = {"place_fused": 0, "place_replicas": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("asura_place")
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.asura_place_fused.argtypes = [p] * 6 + [i64] + [i32] * 5 + [p]
+    lib.asura_place_fused.restype = i32
+    lib.asura_place_replicas.argtypes = [p] * 7 + [i64] + [i32] * 6 + [p]
+    lib.asura_place_replicas.restype = i32
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, device, length=None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, ids are on {device}")
+    if t.dim() != 1 or (length is not None and t.shape[0] != length):
+        raise ValueError(f"{name} must be 1-D of length {length}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_ladder(n_segs: int, top_level: int, s_log2: int, max_draws: int) -> None:
+    if not 1 <= n_segs < 2**31:
+        raise ValueError(f"table must hold 1 .. 2**31-1 segments, got {n_segs}")
+    if top_level < 0 or s_log2 < 1 or s_log2 + top_level > 31:
+        raise ValueError(
+            f"need top_level >= 0, s_log2 >= 1, s_log2 + top_level <= 31; got "
+            f"{top_level}, {s_log2}"
+        )
+    if max_draws < 0:
+        raise ValueError(f"max_draws must be >= 0, got {max_draws}")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, fn: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
+
+
+def place_fused_cuda(
+    ids: torch.Tensor,
+    len32: torch.Tensor,
+    cum_hi: torch.Tensor,
+    cum_lo: torch.Tensor,
+    node_of: torch.Tensor,
+    *,
+    top_level: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    emit_nodes: bool = False,
+) -> torch.Tensor:
+    """Total placement -> (n,) int32 segments, or nodes with ``emit_nodes``.
+
+    ``len32`` / ``cum_hi`` / ``cum_lo`` are the (n_segs,) uint32 length
+    table and u64 length-cumsum halves, ``node_of`` the (n_segs,) int32
+    seg->node map."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs = len32.shape[0] if isinstance(len32, torch.Tensor) else 0
+    for name, t, dt in (
+        ("len32", len32, torch.uint32), ("cum_hi", cum_hi, torch.uint32),
+        ("cum_lo", cum_lo, torch.uint32), ("node_of", node_of, torch.int32),
+    ):
+        _check(name, t, dt, dev, n_segs)
+    _check_ladder(n_segs, top_level, s_log2, max_draws)
+    if dev.type == "cpu":
+        return ref.place_fused_ref(
+            ids, len32, cum_hi, cum_lo, node_of, top_level=top_level,
+            s_log2=s_log2, max_draws=max_draws, emit_nodes=emit_nodes,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"place_fused_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    rc = _lib().asura_place_fused(
+        ids.data_ptr(), len32.data_ptr(), cum_hi.data_ptr(), cum_lo.data_ptr(),
+        node_of.data_ptr(), out.data_ptr(), n, n_segs, top_level, s_log2,
+        max_draws, int(emit_nodes), _stream(dev),
+    )
+    _raise_on(rc, "asura_place_fused")
+    LAUNCHES["place_fused"] += 1
+    return out
+
+
+def place_replicas_cuda(
+    ids: torch.Tensor,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    *,
+    top_level: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    n_replicas: int = 1,
+    emit_nodes: bool = False,
+    emit_stats: bool = False,
+):
+    """Section 5.A replication -> (n, R) int32, primary first, -1 for
+    unfilled slots; segments, or nodes with ``emit_nodes``.
+
+    ``emit_stats`` also returns the (DEPTH_BINS + 1,) uint32 vector
+    ``[depth_hist..., nonconverged]`` (sums mod 2**32)."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs = len32.shape[0] if isinstance(len32, torch.Tensor) else 0
+    _check("len32", len32, torch.uint32, dev, n_segs)
+    _check("node_of", node_of, torch.int32, dev, n_segs)
+    _check_ladder(n_segs, top_level, s_log2, max_draws)
+    R = int(n_replicas)
+    if R < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if dev.type == "cpu":
+        return ref.place_replicas_fused_ref(
+            ids, len32, node_of, top_level=top_level, s_log2=s_log2,
+            max_draws=max_draws, n_replicas=R, emit_nodes=emit_nodes,
+            emit_stats=emit_stats,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"place_replicas_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty((n, R), dtype=torch.int32, device=dev)
+    stats = (
+        torch.zeros(ref.DEPTH_BINS + 1, dtype=torch.int32, device=dev)
+        if emit_stats else None
+    )
+    if n > 0:
+        # R > 8: each lane keeps its picks in its own rows of these
+        scratch = (
+            [torch.empty((n, R), dtype=torch.int32, device=dev) for _ in range(2)]
+            if R > 8 else [None, None]
+        )
+        rc = _lib().asura_place_replicas(
+            ids.data_ptr(), len32.data_ptr(), node_of.data_ptr(), out.data_ptr(),
+            *(None if s is None else s.data_ptr() for s in scratch),
+            None if stats is None else stats.data_ptr(),
+            n, n_segs, top_level, s_log2, max_draws, R, int(emit_nodes),
+            _stream(dev),
+        )
+        _raise_on(rc, "asura_place_replicas")
+        LAUNCHES["place_replicas"] += 1
+    if emit_stats:
+        return out, stats.view(torch.uint32)
+    return out

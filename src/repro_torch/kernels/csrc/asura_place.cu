@@ -1,0 +1,276 @@
+// ASURA STEP 2 on Hopper: one thread per datum id.
+//
+// Replaces the two TPU kernels of the reference's kernels/asura_place.py:
+//   * asura_place_fused    <- place_fused_pallas (body _place_total_tile):
+//       total single placement -- bounded lazy-ladder draw loop, the
+//       section 3.2 tail on chip (a level top+1 draw, the 95-bit product,
+//       a side="right" search over the u64 length cumsum), optional
+//       seg->node gather;
+//   * asura_place_replicas <- place_replicas_pallas (body
+//       _place_replicas_tile): section 5.A, the first R hits on distinct
+//       nodes within max_draws * max(1, R) draws, -1 for unfilled slots,
+//       optional node output and the [depth_hist..., nonconverged] stats
+//       vector the serving path folds into its metrics slab.
+//
+// What bounds it on an H100.  Per id the kernel moves 8 bytes (a u32 id
+// in, an i32 out; 4 * R out for replicas) plus table gathers that hit
+// L1/L2 (a 4096-node table is ~28 KB per array), and does about two
+// consulted ladder levels per draw, each level two fmix32 hashes plus
+// the seed and counter mixing (~20 int32 ALU ops), at ~1.5 draws per
+// placement on a half-full table.  That is ~60 int32 ops against
+// 8 bytes: at 16.7 T int32 ops/s against 3.35 TB/s the ALU bound is
+// ~2x the memory bound, so the kernel is operation-bound and the ids
+// stream through once.
+//
+// What the design does about it.  The TPU kernels run a (rows, 128)
+// tile in lockstep: every lane pays every draw until the slowest lane of
+// the tile hits, and every ladder level until the deepest lane exits.
+// Here each thread runs its own lane's loop and stops at its own hit, so
+// the work is the data's own (lanes' draws depend only on
+// (id, level, counter[level]), so the results are unchanged).  The
+// per-level counters live in a thread-local array (top_level + 1 <= 31
+// entries); tables are read through the read-only data cache.  R <= 8
+// keeps the picked (segment, node) pairs in registers; larger R keeps
+// them in the lane's own row of the output buffers, so R has no cap.
+// Stats are derived per lane from its counters after the loop (the
+// number of draws of depth >= d is counter[top - d + 1]), summed in a
+// per-block shared histogram and flushed with one u32 atomicAdd per bin.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kKmult = 0x85EBCA77u;
+constexpr int kDepthBins = 34;
+constexpr int kMaxLevels = 32;
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t draw_u32(uint32_t id, uint32_t level,
+                                             uint32_t counter) {
+  const uint32_t seed = fmix32(id + kGolden * (level + 1u));
+  return fmix32(seed ^ (counter * kKmult));
+}
+
+// One ASURA number: descend from top_level while the draw's MSB is clear,
+// ticking each consulted level's counter; k = floor, f = fraction * 2**32.
+__device__ __forceinline__ void next_asura(uint32_t id, uint32_t* ctr,
+                                           int top_level, int s_log2,
+                                           uint32_t& k, uint32_t& f) {
+  int level = top_level;
+  uint32_t h = draw_u32(id, level, ctr[level]);
+  ctr[level] += 1u;
+  while (level > 0 && h < 0x80000000u) {
+    --level;
+    h = draw_u32(id, level, ctr[level]);
+    ctr[level] += 1u;
+  }
+  k = h >> (32 - s_log2 - level);
+  f = h << (s_log2 + level);
+}
+
+__device__ __forceinline__ bool hits(uint32_t k, uint32_t f, int n_segs,
+                                     const uint32_t* __restrict__ len32) {
+  return k < static_cast<uint32_t>(n_segs) && f < __ldg(len32 + k);
+}
+
+// searchsorted(cum, u, side="right") over the u64 cumsum halves.
+__device__ int resolve_tail(uint32_t id, int top_level, int n_segs,
+                            const uint32_t* __restrict__ cum_hi,
+                            const uint32_t* __restrict__ cum_lo) {
+  const uint64_t h = draw_u32(id, top_level + 1, 0u);
+  const uint64_t total = (static_cast<uint64_t>(__ldg(cum_hi + n_segs - 1)) << 32) |
+                         __ldg(cum_lo + n_segs - 1);
+  const uint64_t u = h * (total >> 32) + ((h * (total & 0xFFFFFFFFull)) >> 32);
+  int lo = 0, hi = n_segs;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const uint64_t c = (static_cast<uint64_t>(__ldg(cum_hi + mid)) << 32) |
+                       __ldg(cum_lo + mid);
+    if (c <= u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+place_fused_kernel(const uint32_t* __restrict__ ids,
+                   const uint32_t* __restrict__ len32,
+                   const uint32_t* __restrict__ cum_hi,
+                   const uint32_t* __restrict__ cum_lo,
+                   const int32_t* __restrict__ node_of,
+                   int32_t* __restrict__ out, int64_t n, int n_segs,
+                   int top_level, int s_log2, int max_draws, int emit_nodes) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t id = ids[i];
+  uint32_t ctr[kMaxLevels];
+  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  int seg = -1;
+  for (int d = 0; d < max_draws; ++d) {
+    uint32_t k, f;
+    next_asura(id, ctr, top_level, s_log2, k, f);
+    if (hits(k, f, n_segs, len32)) {
+      seg = static_cast<int>(k);
+      break;
+    }
+  }
+  if (seg < 0) seg = resolve_tail(id, top_level, n_segs, cum_hi, cum_lo);
+  out[i] = emit_nodes ? __ldg(node_of + seg) : seg;
+}
+
+// RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
+// RMAX == 0: kept in the lane's rows of segs_buf / nodes_buf (any R).
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads)
+place_replicas_kernel(const uint32_t* __restrict__ ids,
+                      const uint32_t* __restrict__ len32,
+                      const int32_t* __restrict__ node_of,
+                      int32_t* __restrict__ out, int32_t* __restrict__ segs_buf,
+                      int32_t* __restrict__ nodes_buf,
+                      uint32_t* __restrict__ stats, int64_t n, int n_segs,
+                      int top_level, int s_log2, int max_draws, int R,
+                      int emit_nodes) {
+  __shared__ uint32_t block_hist[kDepthBins + 1];
+  if (stats != nullptr) {
+    for (int b = threadIdx.x; b <= kDepthBins; b += blockDim.x) block_hist[b] = 0u;
+    __syncthreads();
+  }
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const uint32_t id = ids[i];
+    uint32_t ctr[kMaxLevels];
+    for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+    int32_t rseg[RMAX > 0 ? RMAX : 1];
+    int32_t rnode[RMAX > 0 ? RMAX : 1];
+#pragma unroll
+    for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
+    int32_t* gseg = RMAX == 0 ? segs_buf + i * R : nullptr;
+    int32_t* gnode = RMAX == 0 ? nodes_buf + i * R : nullptr;
+    int found = 0;
+    const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
+    for (int64_t d = 0; d < cap && found < R; ++d) {
+      uint32_t k, f;
+      next_asura(id, ctr, top_level, s_log2, k, f);
+      if (!hits(k, f, n_segs, len32)) continue;
+      const int32_t node = __ldg(node_of + k);
+      bool dup = false;
+      if constexpr (RMAX > 0) {
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (rnode[r] == node);
+#pragma unroll
+        for (int r = 0; r < RMAX; ++r) {
+          if (!dup && r == found) {
+            rseg[r] = static_cast<int32_t>(k);
+            rnode[r] = node;
+          }
+        }
+      } else {
+        for (int r = 0; r < found && !dup; ++r) dup = gnode[r] == node;
+        if (!dup) {
+          gseg[found] = static_cast<int32_t>(k);
+          gnode[found] = node;
+        }
+      }
+      if (!dup) ++found;
+    }
+    int32_t* row = out + i * R;
+    if constexpr (RMAX > 0) {
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r < R) row[r] = r < found ? (emit_nodes ? rnode[r] : rseg[r]) : -1;
+      }
+    } else {
+      const int32_t* src = emit_nodes ? gnode : gseg;
+      for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
+    }
+    if (stats != nullptr) {
+      // draws of depth >= d = ctr[top - d + 1]; depth d = top - level + 1
+      for (int level = top_level; level >= 0; --level) {
+        const uint32_t here = ctr[level] - (level > 0 ? ctr[level - 1] : 0u);
+        if (here) atomicAdd(&block_hist[top_level - level + 1], here);
+      }
+      if (found < R) atomicAdd(&block_hist[kDepthBins], static_cast<uint32_t>(R - found));
+    }
+  }
+  if (stats != nullptr) {
+    __syncthreads();
+    for (int b = threadIdx.x; b <= kDepthBins; b += blockDim.x) {
+      if (block_hist[b]) atomicAdd(stats + b, block_hist[b]);
+    }
+  }
+}
+
+template <int RMAX>
+void launch_replicas(dim3 grid, cudaStream_t stream, const uint32_t* ids,
+                     const uint32_t* len32, const int32_t* node_of, int32_t* out,
+                     int32_t* segs_buf, int32_t* nodes_buf, uint32_t* stats,
+                     int64_t n, int n_segs, int top_level, int s_log2,
+                     int max_draws, int R, int emit_nodes) {
+  place_replicas_kernel<RMAX><<<grid, kThreads, 0, stream>>>(
+      ids, len32, node_of, out, segs_buf, nodes_buf, stats, n, n_segs,
+      top_level, s_log2, max_draws, R, emit_nodes);
+}
+
+dim3 grid_for(int64_t n) {
+  return dim3(static_cast<unsigned int>((n + kThreads - 1) / kThreads));
+}
+
+}  // namespace
+
+extern "C" int asura_place_fused(const void* ids, const void* len32,
+                                 const void* cum_hi, const void* cum_lo,
+                                 const void* node_of, void* out, int64_t n,
+                                 int n_segs, int top_level, int s_log2,
+                                 int max_draws, int emit_nodes, void* stream) {
+  place_fused_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ids), static_cast<const uint32_t*>(len32),
+      static_cast<const uint32_t*>(cum_hi), static_cast<const uint32_t*>(cum_lo),
+      static_cast<const int32_t*>(node_of), static_cast<int32_t*>(out), n,
+      n_segs, top_level, s_log2, max_draws, emit_nodes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// segs_buf / nodes_buf: (n, R) int32 scratch, used (and required) only
+// when R > 8.  stats: (DEPTH_BINS + 1,) zeroed u32 accumulator, or null.
+extern "C" int asura_place_replicas(const void* ids, const void* len32,
+                                    const void* node_of, void* out,
+                                    void* segs_buf, void* nodes_buf, void* stats,
+                                    int64_t n, int n_segs, int top_level,
+                                    int s_log2, int max_draws, int R,
+                                    int emit_nodes, void* stream) {
+  const dim3 grid = grid_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* i = static_cast<const uint32_t*>(ids);
+  auto* l = static_cast<const uint32_t*>(len32);
+  auto* no = static_cast<const int32_t*>(node_of);
+  auto* o = static_cast<int32_t*>(out);
+  auto* sb = static_cast<int32_t*>(segs_buf);
+  auto* nb = static_cast<int32_t*>(nodes_buf);
+  auto* st = static_cast<uint32_t*>(stats);
+  if (R <= 1) {
+    launch_replicas<1>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  } else if (R <= 2) {
+    launch_replicas<2>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  } else if (R <= 4) {
+    launch_replicas<4>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  } else if (R <= 8) {
+    launch_replicas<8>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  } else {
+    launch_replicas<0>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,222 @@
+"""Public entry points for batched ASURA placement and replication.
+
+Two tiers, as in the reference:
+
+  * ``*_on_table_device`` -- the device-resident path: placement, the
+    non-converged tail and, for the node variants, the seg->node gather
+    run in one kernel launch and return a device tensor with no host sync
+    (the path the ``PlacementEngine`` device variants and the serving
+    driver use);
+  * ``place_on_table`` / ``place_replicas_on_table`` -- host-facing: the
+    same launch plus exactly one device->host copy of the result.
+
+``table_prep`` / ``node_table_prep`` / ``tail_prep`` build the device
+tables once per table version on the host; ``asura_place*`` are the
+table-deriving conveniences.  Tables are not lane-padded: the kernels
+test ``k < n_segs`` against the real table length.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.asura import (
+    DEFAULT_PARAMS,
+    AsuraParams,
+    _upper_bound,
+    lengths_to_u32,
+    tail_cumsum_halves,
+)
+from ..device import resolve_device
+from .asura_place import place_fused_cuda, place_replicas_cuda
+from .u32 import as_u32, to_u32
+
+__all__ = [
+    "as_ids",
+    "table_prep",
+    "node_table_prep",
+    "tail_prep",
+    "place_on_table",
+    "place_on_table_device",
+    "place_nodes_on_table_device",
+    "place_replicas_on_table",
+    "place_replicas_on_table_device",
+    "asura_place",
+    "asura_place_nodes",
+    "asura_place_replicas",
+]
+
+
+def as_ids(datum_ids, device) -> torch.Tensor:
+    """Datum ids -> a contiguous 1-D ``uint32`` tensor on ``device``.
+
+    Integer tensors of any dtype are taken mod 2**32 where they lie (no
+    host round trip); host sequences are cast as NumPy casts to uint32."""
+    if isinstance(datum_ids, torch.Tensor):
+        t = datum_ids if datum_ids.dtype == torch.uint32 else to_u32(as_u32(datum_ids))
+        return t.reshape(-1).to(device).contiguous()
+    arr = np.ascontiguousarray(np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32)))
+    return torch.from_numpy(arr).to(device)
+
+
+def _u32_tensor(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)).to(device)
+
+
+def table_prep(seg_lengths, params: AsuraParams = DEFAULT_PARAMS, *, device=None):
+    """Host-side: canonical u32 length table on ``device`` + the static top
+    level (``lengths_to_u32`` validates lengths in [0, 1))."""
+    lengths = np.asarray(seg_lengths, dtype=np.float64)
+    top_level = params.level_for(_upper_bound(lengths))
+    return _u32_tensor(lengths_to_u32(lengths), resolve_device(device)), top_level
+
+
+def node_table_prep(seg_to_node, *, device=None) -> torch.Tensor:
+    """Host-side: int32 seg->node map on ``device`` (-1 on holes)."""
+    node_of = np.ascontiguousarray(np.asarray(seg_to_node, dtype=np.int32))
+    return torch.from_numpy(node_of).to(resolve_device(device))
+
+
+def tail_prep(len32, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host-side: the u64 length-cumsum as two u32 halves on ``device``,
+    computed once per table version (DESIGN.md section 3.2)."""
+    if isinstance(len32, torch.Tensor):
+        len32 = len32.cpu().numpy()
+    cum_hi, cum_lo = tail_cumsum_halves(np.asarray(len32, dtype=np.uint32))
+    dev = resolve_device(device)
+    return _u32_tensor(cum_hi, dev), _u32_tensor(cum_lo, dev)
+
+
+def place_on_table_device(
+    datum_ids,
+    len32: torch.Tensor,
+    cum_hi: torch.Tensor,
+    cum_lo: torch.Tensor,
+    node_of: torch.Tensor | None = None,
+    *,
+    top_level: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+    emit_nodes: bool = False,
+) -> torch.Tensor:
+    """Device-resident total placement -> (batch,) int32 on the tables'
+    device; node ids with ``emit_nodes`` (needs ``node_of``)."""
+    if emit_nodes and node_of is None:
+        raise ValueError("emit_nodes=True requires the node table")
+    if node_of is None:
+        node_of = torch.full(len32.shape, -1, dtype=torch.int32, device=len32.device)
+    return place_fused_cuda(
+        as_ids(datum_ids, len32.device), len32, cum_hi, cum_lo, node_of,
+        top_level=top_level, s_log2=params.s_log2, max_draws=params.max_draws,
+        emit_nodes=emit_nodes,
+    )
+
+
+def place_nodes_on_table_device(
+    datum_ids, len32, cum_hi, cum_lo, node_of, **kwargs
+) -> torch.Tensor:
+    """Device-resident placement straight to node ids (fused gather)."""
+    return place_on_table_device(
+        datum_ids, len32, cum_hi, cum_lo, node_of, emit_nodes=True, **kwargs
+    )
+
+
+def place_on_table(
+    datum_ids,
+    len32: torch.Tensor,
+    *,
+    top_level: int,
+    cum_hi: torch.Tensor | None = None,
+    cum_lo: torch.Tensor | None = None,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Placement against a prebuilt table -> int64 segments on the host
+    (one device->host copy).  The tail tables are derived here if not
+    given."""
+    if cum_hi is None or cum_lo is None:
+        cum_hi, cum_lo = tail_prep(len32, device=len32.device)
+    segs = place_on_table_device(
+        datum_ids, len32, cum_hi, cum_lo, top_level=top_level, params=params
+    )
+    return segs.cpu().numpy().astype(np.int64)
+
+
+def place_replicas_on_table_device(
+    datum_ids,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    n_replicas: int,
+    *,
+    top_level: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+    emit_nodes: bool = False,
+    emit_stats: bool = False,
+):
+    """Device-resident replica placement -> (batch, R) int32 (segments, or
+    nodes with ``emit_nodes``); -1 marks unfilled slots, which the device
+    path documents instead of checking (a check would sync).
+    ``emit_stats`` also returns the uint32 ``[depth_hist..., nonconverged]``
+    vector."""
+    return place_replicas_cuda(
+        as_ids(datum_ids, len32.device), len32, node_of,
+        top_level=top_level, s_log2=params.s_log2, max_draws=params.max_draws,
+        n_replicas=n_replicas, emit_nodes=emit_nodes, emit_stats=emit_stats,
+    )
+
+
+def place_replicas_on_table(
+    datum_ids,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    n_replicas: int,
+    *,
+    top_level: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Replica placement -> (batch, R) int64 segments on the host; raises
+    when a lane did not find R distinct nodes, as the NumPy path does."""
+    out = place_replicas_on_table_device(
+        datum_ids, len32, node_of, n_replicas, top_level=top_level, params=params
+    ).cpu().numpy().astype(np.int64)
+    if (out < 0).any():
+        raise RuntimeError("replication did not converge; too few distinct nodes?")
+    return out
+
+
+def asura_place(
+    datum_ids, seg_lengths, params: AsuraParams = DEFAULT_PARAMS, *, device=None
+) -> torch.Tensor:
+    """Place a batch of ids -> (batch,) int32 segments on ``device``."""
+    len32, top_level = table_prep(seg_lengths, params, device=device)
+    cum_hi, cum_lo = tail_prep(len32, device=len32.device)
+    return place_on_table_device(
+        datum_ids, len32, cum_hi, cum_lo, top_level=top_level, params=params
+    )
+
+
+def asura_place_nodes(
+    datum_ids, seg_lengths, seg_to_node, params: AsuraParams = DEFAULT_PARAMS,
+    *, device=None,
+) -> torch.Tensor:
+    """Batch placement straight to node ids (fused gather) on ``device``."""
+    len32, top_level = table_prep(seg_lengths, params, device=device)
+    cum_hi, cum_lo = tail_prep(len32, device=len32.device)
+    node_of = node_table_prep(seg_to_node, device=len32.device)
+    return place_nodes_on_table_device(
+        datum_ids, len32, cum_hi, cum_lo, node_of, top_level=top_level,
+        params=params,
+    )
+
+
+def asura_place_replicas(
+    datum_ids, seg_lengths, seg_to_node, n_replicas: int,
+    params: AsuraParams = DEFAULT_PARAMS, *, device=None,
+) -> torch.Tensor:
+    """Replica placement -> (batch, R) int32 segments, primary first
+    (raises on non-convergence)."""
+    len32, top_level = table_prep(seg_lengths, params, device=device)
+    node_of = node_table_prep(seg_to_node, device=len32.device)
+    segs = place_replicas_on_table(
+        datum_ids, len32, node_of, n_replicas, top_level=top_level, params=params
+    )
+    return torch.from_numpy(segs.astype(np.int32)).to(len32.device)

@@ -1,0 +1,320 @@
+"""Batched device-resident serving pipeline (DESIGN.md section 12).
+
+The port of the reference's ``RequestStreamDriver`` on one card.  One
+``step()`` serves one generated batch:
+
+  1. generate: counter-based threefry words per GLOBAL lane and exact-u32
+     CDF sampling (``serve.traffic``) -- no host RNG in the loop;
+  2. route: the batch goes through the section-5.A replica kernel
+     (``place_replicas_cuda`` with the fused node output, and with its
+     stats vector when instrumented) -- where the reference routes
+     through its jnp twin, the port routes through the kernel, and the
+     result is the same bit for bit;
+  3. select: ``primary``, ``random`` or ``pow2`` (power-of-two-choices
+     against the start-of-batch per-node counters);
+  4. count: a scatter-add histogram into a preallocated zeros tensor
+     (``bincount`` would read its max on the host), the queue recurrence
+     ``q' = max(q + arrivals - service, 0)`` and the queue-history ring.
+
+Nothing in ``step()`` reads a device value on the host: the stream
+position is a host int (the batch key is folded in on the host), and the
+state stays on the device.  ``superstep(k)`` is k calls of the same
+one-batch body, so it equals k ``step()`` calls by construction.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..kernels.asura_place import place_replicas_cuda
+from ..kernels.ref import DEPTH_BINS
+from ..kernels.u32 import to_u32
+from ..obs.trace import TraceLedger
+from .traffic import TrafficModel, prng_key
+
+POLICIES = ("primary", "random", "pow2")
+
+DEFAULT_BATCH = 1 << 16
+DEFAULT_KEYS = 1 << 20
+DEFAULT_HIST = 256  # queue-history ring rows (p99 window)
+
+_BIG = 2**31 - 1  # an invalid candidate's load: always loses
+
+
+def route_statics(engine, algorithm: str | None = None):
+    """(tables, statics) for the replica-routing body: ``tables`` are the
+    device operands, ``statics`` the hashable key that fully determines
+    the body."""
+    engine._resolve_algorithm(algorithm)
+    art = engine._device_artifact()
+    tables = (art.len32_dev, art.node_of_dev)
+    statics = ("asura", art.top_level, engine.params.s_log2, engine.params.max_draws)
+    return tables, statics
+
+
+def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = False):
+    """``(ids, len32, node_of) -> (batch, R) int32`` replica nodes (and the
+    uint32 ``[depth_hist..., nonconverged]`` stats with ``emit_stats``).
+    ``ids`` are u32 values in int64 or a uint32 tensor."""
+    _, top_level, s_log2, max_draws = statics
+
+    def owners(ids, len32, node_of):
+        if ids.dtype != torch.uint32:
+            ids = to_u32(ids)
+        return place_replicas_cuda(
+            ids, len32, node_of, top_level=top_level, s_log2=s_log2,
+            max_draws=max_draws, n_replicas=n_replicas, emit_nodes=True,
+            emit_stats=emit_stats,
+        )
+
+    return owners
+
+
+def select_replica(owners, sel, counts, *, policy: str, n_replicas: int):
+    """Pick one holder per request -> (batch,) int32 chosen nodes.
+
+    ``owners`` is (batch, R) int32 with -1 for unfilled slots (an invalid
+    candidate always loses; a fully-invalid row falls back to the clamped
+    primary).  ``pow2`` draws two DISTINCT slots from the selection word
+    and takes the one with the smaller start-of-batch counter (strict <,
+    first-slot tie-break); ``random`` one slot uniformly; ``primary`` (or
+    R == 1) slot 0."""
+    prim = owners[:, 0].clamp(min=0)
+    if policy == "primary" or n_replicas == 1:
+        return prim
+    R = n_replicas
+    if policy == "random":
+        slot = (sel % R).unsqueeze(1)
+        chosen = torch.gather(owners, 1, slot)[:, 0]
+        return torch.where(chosen >= 0, chosen, prim)
+    if policy != "pow2":
+        raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
+    i = sel % R
+    j = (i + 1 + (sel >> 16) % (R - 1)) % R
+    a = torch.gather(owners, 1, i.unsqueeze(1))[:, 0]
+    b = torch.gather(owners, 1, j.unsqueeze(1))[:, 0]
+    la = torch.where(a >= 0, counts[a.clamp(min=0).long()], _BIG)
+    lb = torch.where(b >= 0, counts[b.clamp(min=0).long()], _BIG)
+    chosen = torch.where(lb < la, b, a)
+    return torch.where(chosen >= 0, chosen, prim)
+
+
+class RequestStreamDriver:
+    """Stateful batched serving simulator bound to one ``PlacementEngine``.
+
+    Device state (tensors on the engine's device, int32; the host reads
+    them only through the metric accessors):
+
+      * ``counts`` -- (n_bins,) cumulative served requests per node,
+      * ``queue``  -- (n_bins,) current queue depth per node
+        (``service_rate`` requests drain per node per step),
+      * ``qhist``  -- (max_hist, n_bins) queue-depth ring (p99).
+
+    ``step_traces`` counts bindings of the one-batch body to a routing
+    configuration (a new table version binds anew) -- the tripwire that
+    repeated steps reuse one binding.
+    """
+
+    def __init__(
+        self,
+        engine,
+        *,
+        batch: int = DEFAULT_BATCH,
+        n_keys: int = DEFAULT_KEYS,
+        law: str = "zipf",
+        alpha: float = 1.1,
+        hot_fraction: float = 0.9,
+        hot_keys: int = 64,
+        n_replicas: int = 3,
+        policy: str = "pow2",
+        seed: int = 0,
+        service_rate: int | None = None,
+        max_hist: int = DEFAULT_HIST,
+        n_bins: int | None = None,
+        algorithm: str | None = None,
+        metrics=None,
+    ):
+        if policy not in POLICIES:
+            raise ValueError(f"policy must be one of {POLICIES}, got {policy!r}")
+        self.engine = engine
+        self.algorithm = engine._resolve_algorithm(algorithm)
+        self.device = engine.device
+        self.batch = int(batch)
+        self.n_replicas = int(n_replicas)
+        self.policy = policy
+        self.max_hist = int(max_hist)
+        self.traffic = TrafficModel(
+            n_keys, law=law, alpha=alpha,
+            hot_fraction=hot_fraction, hot_keys=hot_keys, seed=seed,
+        )
+        nodes = getattr(engine.cluster, "nodes", None)
+        if n_bins is not None:
+            self.n_bins = int(n_bins)
+        elif nodes:
+            self.n_bins = int(max(nodes)) + 1
+        else:  # table-only cluster: size off the seg->node map
+            self.n_bins = int(np.max(engine.artifact().node_of)) + 1
+        n_active = len(nodes) if nodes else self.n_bins
+        if service_rate is None:
+            # 25% capacity headroom over the mean arrival rate
+            service_rate = max(1, math.ceil(1.25 * self.batch / max(1, n_active)))
+        self.service_rate = int(service_rate)
+        self._key = prng_key(seed)
+        dev = self.device
+        self._service = torch.full((self.n_bins,), self.service_rate,
+                                   dtype=torch.int32, device=dev)
+        self._lanes = torch.arange(self.batch, dtype=torch.int64, device=dev)
+        self._ones = torch.ones(self.batch, dtype=torch.int32, device=dev)
+        self._thresholds = self.traffic.thresholds_on(dev)
+        self.ledger = TraceLedger()  # instance-scoped tripwire counts
+        self.metrics = metrics
+        self._instrumented = metrics is not None and metrics.enabled
+        if self._instrumented:
+            self._register_metrics()
+            metrics.slab()
+        self._bodies: dict = {}
+        self._checked_version = None
+        self._route()  # upload and check the tables now, not in a step
+        self.reset()
+
+    def _register_metrics(self) -> None:
+        """Claim this driver's slab windows (append-only; idempotent)."""
+        reg = self.metrics
+        self._routed_name = reg.counter(
+            f"serve.routed.{self.algorithm}.{self.policy}"
+        )
+        reg.histogram("serve.served", self.n_bins)
+        reg.histogram("asura.ladder_depth", DEPTH_BINS)
+        reg.counter("asura.nonconverged")
+
+    @property
+    def step_traces(self) -> int:
+        """One-batch body bindings (the rebinding tripwire) -- a ledger
+        counter behind the reference's attribute name."""
+        return self.ledger.counter("serve.step_traces")
+
+    # -- state ----------------------------------------------------------------
+
+    def reset(self) -> None:
+        """Zero the load/queue state and rewind the request stream."""
+        dev = self.device
+        self.counts = torch.zeros(self.n_bins, dtype=torch.int32, device=dev)
+        self.queue = torch.zeros(self.n_bins, dtype=torch.int32, device=dev)
+        self.qhist = torch.zeros((self.max_hist, self.n_bins), dtype=torch.int32,
+                                 device=dev)
+        self._step = 0
+        self.steps_done = 0
+
+    # -- the batch body -------------------------------------------------------
+
+    def _body(self, statics: tuple):
+        body = self._bodies.get(statics)
+        if body is None:
+            self.ledger.incr("serve.step_traces")
+            body = self._bodies[statics] = replica_owners_body(
+                statics, self.n_replicas, emit_stats=self._instrumented
+            )
+        return body
+
+    def _serve_batch(self, owners_fn, tables) -> torch.Tensor:
+        """generate -> route -> select -> count for stream position
+        ``self._step``; returns the chosen nodes."""
+        ids, sel = TrafficModel.draw(
+            self._key, self._step, self._lanes, self._thresholds,
+            self.traffic.id_salt,
+        )
+        if self._instrumented:
+            owners, stats = owners_fn(ids, *tables)
+        else:
+            owners = owners_fn(ids, *tables)
+        chosen = select_replica(
+            owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
+        )
+        hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
+        hist.scatter_add_(0, chosen.long(), self._ones)
+        if self._instrumented:
+            reg = self.metrics
+            slab = reg.slab()
+            reg.add(slab, self._routed_name, self.batch)
+            reg.add_hist(slab, "serve.served", hist)
+            reg.add_hist(slab, "asura.ladder_depth", stats[:DEPTH_BINS])
+            reg.add(slab, "asura.nonconverged", stats[DEPTH_BINS])
+        self.counts = self.counts + hist
+        self.queue = torch.clamp(self.queue + hist - self._service, min=0)
+        self.qhist[self._step % self.max_hist] = self.queue
+        self._step += 1
+        self.steps_done += 1
+        return chosen
+
+    def _route(self):
+        """(body, tables) for the cluster's current version.  A new version
+        is checked on the host once: a node id outside the ``n_bins`` load
+        planes raises here (the reference drops its counts silently; on the
+        card an out-of-range scatter would be a device-side fault)."""
+        tables, statics = route_statics(self.engine, self.algorithm)
+        if self.engine.cluster.version != self._checked_version:
+            art = self.engine.artifact()
+            top = int(art.node_of.max())
+            if top >= self.n_bins:
+                raise ValueError(
+                    f"node id {top} is outside this driver's {self.n_bins} load "
+                    "bins; build the driver with a larger n_bins"
+                )
+            self._checked_version = art.version
+        return self._body(statics), tables
+
+    def step(self) -> torch.Tensor:
+        """Serve one generated batch -> (batch,) int32 chosen nodes on the
+        device.  No host sync: the state and the result stay on the device."""
+        return self._serve_batch(*self._route())
+
+    def superstep(self, k: int) -> torch.Tensor:
+        """Serve K generated batches -> (k, batch) int32 chosen nodes; equal
+        to K ``step()`` calls (the same body, K times)."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"superstep needs k >= 1, got {k}")
+        body, tables = self._route()
+        return torch.stack([self._serve_batch(body, tables) for _ in range(k)])
+
+    # -- host-facing metrics (each accessor is ONE deliberate sync) -----------
+
+    def _active_bins(self) -> np.ndarray:
+        nodes = getattr(self.engine.cluster, "nodes", None)
+        if nodes:
+            return np.asarray(sorted(int(n) for n in nodes), dtype=np.int64)
+        return np.arange(self.n_bins, dtype=np.int64)
+
+    def load_counts(self) -> np.ndarray:
+        return self.counts.cpu().numpy()
+
+    def load_skew(self) -> float:
+        """max/mean served load over the live nodes (1.0 = perfectly even)."""
+        c = self.load_counts()[self._active_bins()].astype(np.float64)
+        mean = c.mean()
+        return float(c.max() / mean) if mean > 0 else 0.0
+
+    def queue_p99(self) -> float:
+        """p99 queue depth over (recorded step, live node) samples."""
+        rows = min(self.steps_done, self.max_hist)
+        if rows == 0:
+            return 0.0
+        q = self.qhist.cpu().numpy()[:rows][:, self._active_bins()]
+        return float(np.percentile(q, 99))
+
+    def snapshot(self) -> dict:
+        snap = {
+            "counts": self.load_counts(),
+            "queue": self.queue.cpu().numpy(),
+            "steps": self.steps_done,
+            "skew": self.load_skew(),
+            "q_p99": self.queue_p99(),
+        }
+        self.ledger.event(
+            "serve.snapshot", self.algorithm,
+            steps=self.steps_done, skew=snap["skew"], q_p99=snap["q_p99"],
+        )
+        return snap

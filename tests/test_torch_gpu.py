@@ -1,0 +1,131 @@
+"""The hand-written CUDA kernels on the card, held to their plain-torch twins.
+
+Every test here needs a CUDA card and nvcc (the kernels have no CPU mode),
+is marked ``gpu`` and skips without a card.  The file imports only torch,
+numpy and the port, so it also runs on a card's host that has no jax:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Exact equality throughout: the whole stack is integer math.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import PlacementEngine, make_cluster, make_uniform_cluster
+from repro_torch.core.asura import AsuraParams
+from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels.asura_place import place_fused_cuda, place_replicas_cuda
+from repro_torch.kernels.u32 import as_u32
+from repro_torch.obs import MetricsRegistry
+from repro_torch.serve import RequestStreamDriver
+
+CAPS = [0.3, 1.7, 2.0, 0.9, 1.0, 0.5, 1.25, 0.75, 3.0, 0.6]
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ids(n, device, seed=0):
+    ids = np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint32)
+    return torch.from_numpy(ids).to(device)
+
+
+def _artifact(caps, device, params=AsuraParams()):
+    return PlacementEngine(make_cluster(caps, params), device=device)._device_artifact()
+
+
+@pytest.mark.parametrize("max_draws", [128, 1, 0])
+def test_place_fused_kernel_matches_twin(cuda_device, max_draws):
+    art = _artifact(CAPS, cuda_device, AsuraParams(max_draws=max_draws))
+    tabs = (art.len32_dev, art.cum_hi_dev, art.cum_lo_dev, art.node_of_dev)
+    ids = _ids(100_003, cuda_device, seed=max_draws)
+    before = LAUNCHES["place_fused"]
+    for emit in (False, True):
+        kw = dict(top_level=art.top_level, s_log2=1, max_draws=max_draws, emit_nodes=emit)
+        assert torch.equal(place_fused_cuda(ids, *tabs, **kw),
+                           ref.place_fused_ref(ids, *tabs, **kw))
+    assert LAUNCHES["place_fused"] == before + 2
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+def test_place_replicas_kernel_matches_twin(cuda_device, R):
+    art = _artifact([1.0] * 64, cuda_device)
+    ids = _ids(100_003, cuda_device, seed=R)
+    before = LAUNCHES["place_replicas"]
+    for emit in (False, True):
+        kw = dict(top_level=art.top_level, s_log2=1, max_draws=128, n_replicas=R,
+                  emit_nodes=emit, emit_stats=True)
+        got, stats = place_replicas_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+        want, want_stats = ref.place_replicas_fused_ref(
+            ids, art.len32_dev, art.node_of_dev, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(as_u32(stats), as_u32(want_stats))
+    assert LAUNCHES["place_replicas"] == before + 2
+
+
+def test_kernels_handle_empty_and_ragged_batches(cuda_device):
+    art = _artifact(CAPS, cuda_device)
+    tabs = (art.len32_dev, art.cum_hi_dev, art.cum_lo_dev, art.node_of_dev)
+    for n in (0, 1, 255, 257):
+        ids = _ids(n, cuda_device, seed=n)
+        got = place_fused_cuda(ids, *tabs, top_level=art.top_level)
+        assert torch.equal(got, ref.place_fused_ref(
+            ids, *tabs, top_level=art.top_level, s_log2=1, max_draws=128,
+            emit_nodes=False))
+        got_r = place_replicas_cuda(ids, art.len32_dev, art.node_of_dev,
+                                    top_level=art.top_level, n_replicas=2)
+        assert got_r.shape == (n, 2)
+
+
+def test_engine_on_card_matches_cpu_without_host_sync(cuda_device):
+    eng = PlacementEngine(make_cluster(CAPS), device=cuda_device)
+    eng.artifact()  # the one upload, outside the guard
+    ids = _ids(100_000, cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nodes = eng.place_nodes_device(ids)
+        segs = eng.place_device(ids)
+        reps = eng.place_replica_nodes_device(ids, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    cpu = PlacementEngine(make_cluster(CAPS), device="cpu")
+    host_ids = ids.cpu()
+    assert torch.equal(nodes.cpu(), cpu.place_nodes_device(host_ids))
+    assert torch.equal(segs.cpu(), cpu.place_device(host_ids))
+    assert torch.equal(reps.cpu(), cpu.place_replica_nodes_device(host_ids, 3))
+    assert eng.uploads == 1
+
+
+def test_step_on_card_has_no_host_sync_and_matches_cpu(cuda_device):
+    cfg = dict(policy="pow2", law="zipf", batch=4096, n_keys=10_000, seed=1)
+    gpu = RequestStreamDriver(
+        PlacementEngine(make_uniform_cluster(24), device=cuda_device),
+        metrics=MetricsRegistry(device=cuda_device), **cfg,
+    )
+    cpu = RequestStreamDriver(
+        PlacementEngine(make_uniform_cluster(24), device="cpu"),
+        metrics=MetricsRegistry(device="cpu"), **cfg,
+    )
+    before = LAUNCHES["place_replicas"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        chosen = [gpu.step() for _ in range(4)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["place_replicas"] == before + 4
+    for c in chosen:
+        assert torch.equal(c.cpu(), cpu.step())
+    assert torch.equal(gpu.qhist.cpu(), cpu.qhist)
+    a, b = gpu.metrics.snapshot(), cpu.metrics.snapshot()
+    for name in a:
+        assert np.array_equal(np.asarray(a[name]), np.asarray(b[name])), name

@@ -1,0 +1,69 @@
+"""The port stands alone: it imports torch and numpy, never jax and never
+the reference package, and its chip smoke script refuses to run without a
+card or without the package beside it."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+# ``import jax`` / ``from jax...`` and any import of the reference package
+# (``repro`` but not ``repro_torch``)
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(?!_torch)\b"
+    r"|from\s+repro(?!_torch)\b)",
+    re.MULTILINE,
+)
+
+
+def _run(code_or_args, cwd=ROOT, env_extra=None):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.update(env_extra or {})
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+
+
+def test_import_loads_neither_jax_nor_the_reference():
+    proc = _run(
+        "import sys, repro_torch, repro_torch.convert, repro_torch.core, "
+        "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.obs, "
+        "repro_torch.serve\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+    assert _FORBIDDEN.search("from repro.core import Cluster")
+    assert _FORBIDDEN.search("    import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from repro_torch.core import Cluster")
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    proc = _run([str(ROOT / "chip_smoke.py")], env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_exits_nonzero_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run([str(tmp_path / "chip_smoke.py")], cwd=tmp_path,
+                env_extra={"PYTHONPATH": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

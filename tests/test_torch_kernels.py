@@ -1,0 +1,348 @@
+"""The port's placement kernels against the reference, bit for bit.
+
+On the CPU the wrappers run their plain-torch twins, which are held here
+to the reference's jnp refs, its Pallas kernels (interpret mode) and its
+NumPy oracles with exact equality -- the whole stack is integer math, so
+the tolerance is zero.  The CUDA kernels themselves are held to the twins
+on the card by ``test_torch_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import make_cluster, make_uniform_cluster
+from repro.core.asura import (
+    AsuraParams,
+    place_batch,
+    place_batch_u32,
+    place_replicas_u32,
+    resolve_tail_np,
+    tail_cumsum_halves,
+)
+from repro.core.rng import draw_u32_np
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import LAUNCHES, ref
+from repro_torch.kernels.asura_place import place_fused_cuda, place_replicas_cuda
+from repro_torch.kernels.u32 import add32, as_u32, mul32, mulhi32, shl32, to_u32
+
+CLUSTERS = {
+    "uniform_small": [1.0] * 4,
+    "uniform_128": [1.0] * 128,
+    "mixed": [0.3, 1.7, 2.0, 0.9, 1.0, 0.5],
+    "one_node_frac": [0.6],
+    "heavy_tail": [4.0] + [0.25] * 20,
+}
+TOP_LEVELS = (0, 5, 19)
+
+
+def _ids(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint32)
+
+
+def _t(a):
+    """NumPy -> torch, u32 arrays as uint32 tensors."""
+    return torch.from_numpy(np.array(a))
+
+
+def _table_with_top(top_level: int, seed: int = 0):
+    """(len32, node_of) whose ladder top level is ``top_level`` (s_log2=1):
+    the upper bound lands in (2**top, 2**(top+1)]."""
+    rng = np.random.default_rng(seed)
+    n = {0: 2, 5: 50, 19: 2**19 + 5}[top_level]
+    lengths = rng.uniform(0.3, 0.999, n)
+    assert AsuraParams().level_for(n - 1 + lengths[-1]) == top_level
+    len32 = np.round(lengths * 2**32).astype(np.uint32)
+    node_of = (np.arange(n) % max(2, n // 3)).astype(np.int32)
+    return len32, node_of
+
+
+def _tail_tables(len32):
+    hi, lo = tail_cumsum_halves(len32)
+    return _t(hi), _t(lo)
+
+
+# ---------------------------------------------------------------------------
+# the u32 rule and the hashes
+# ---------------------------------------------------------------------------
+
+
+def test_u32_helpers_exact():
+    rng = np.random.default_rng(1)
+    a = np.concatenate([[0, 1, 2**31 - 1, 2**31, 2**32 - 1],
+                        rng.integers(0, 2**32, 5000)]).astype(np.uint64)
+    b = np.concatenate([[2**32 - 1, 0, 2**31, 7, 2**32 - 1],
+                        rng.integers(0, 2**32, 5000)]).astype(np.uint64)
+    ta, tb = _t(a.astype(np.int64)), _t(b.astype(np.int64))
+    m = np.uint64(0xFFFFFFFF)
+    assert np.array_equal(add32(ta, tb).numpy().astype(np.uint64), (a + b) & m)
+    assert np.array_equal(mul32(ta, tb).numpy().astype(np.uint64), (a * b) & m)
+    assert np.array_equal(shl32(ta, 13).numpy().astype(np.uint64), (a << np.uint64(13)) & m)
+    hi = [(int(x) * int(y)) >> 32 for x, y in zip(a, b)]
+    assert mulhi32(ta, tb).tolist() == hi
+    u = to_u32(ta)
+    assert u.dtype == torch.uint32
+    assert np.array_equal(u.numpy(), a.astype(np.uint32))
+    assert np.array_equal(as_u32(u).numpy(), a.astype(np.int64))
+    assert np.array_equal(as_u32(u.view(torch.int32)).numpy(), a.astype(np.int64))
+
+
+@pytest.mark.parametrize("level", [0, 3, 30, 31])
+def test_fmix32_and_draw_match_reference(level):
+    ids = _ids(4096, seed=level)
+    ctr = _ids(4096, seed=level + 100)
+    want = np.asarray(jref.draw_u32(jnp.asarray(ids), level, jnp.asarray(ctr)))
+    got = ref.draw_u32(as_u32(_t(ids)), level, as_u32(_t(ctr)))
+    assert np.array_equal(got.numpy().astype(np.uint32), want)
+    assert np.array_equal(want, draw_u32_np(ids, level, ctr))
+    got_t = ref.draw_u32(as_u32(_t(ids)), torch.full((4096,), level), as_u32(_t(ctr)))
+    assert np.array_equal(got_t.numpy().astype(np.uint32), want)
+    fm = ref.fmix32(as_u32(_t(ids))).numpy().astype(np.uint32)
+    assert np.array_equal(fm, np.asarray(jref.fmix32(jnp.asarray(ids))))
+
+
+# ---------------------------------------------------------------------------
+# the ladder, single placement and the tail
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("top_level", TOP_LEVELS)
+def test_next_asura_matches_reference(top_level):
+    """Three successive draws, the third with half the lanes inactive:
+    k, frac, counters and depth equal the reference's lockstep ladder."""
+    n = 1000
+    ids = _ids(n, seed=top_level)
+    j_ctr = jnp.zeros((top_level + 1, n), jnp.uint32)
+    t_ctr = torch.zeros((top_level + 1, n), dtype=torch.int64)
+    active = np.arange(n) % 2 == 0
+    for draw in range(3):
+        act = active if draw == 2 else None
+        jk, jf, j_ctr, jd = jref.next_asura(
+            jnp.asarray(ids), j_ctr, top_level, 1, emit_depth=True,
+            active=None if act is None else jnp.asarray(act),
+        )
+        tk, tf, t_ctr, td = ref.next_asura(
+            as_u32(_t(ids)), t_ctr, top_level, 1, emit_depth=True,
+            active=None if act is None else _t(act),
+        )
+        assert np.array_equal(tk.numpy(), np.asarray(jk))
+        assert np.array_equal(tf.numpy(), np.asarray(jf).astype(np.int64))
+        assert np.array_equal(td.numpy(), np.asarray(jd))
+        assert np.array_equal(t_ctr.numpy(), np.asarray(j_ctr).astype(np.int64))
+
+
+@pytest.mark.parametrize("top_level", TOP_LEVELS)
+def test_place_ref_matches_reference(top_level):
+    len32, _ = _table_with_top(top_level)
+    ids = _ids(1500, seed=top_level)
+    want = np.asarray(jref.place_ref(jnp.asarray(ids), jnp.asarray(len32),
+                                     top_level=top_level))
+    got = ref.place_ref(_t(ids), _t(len32), top_level=top_level)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, place_batch_u32(ids, len32, top_level))
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTERS))
+def test_place_fused_twin_matches_numpy(name):
+    c = make_cluster(CLUSTERS[name])
+    len32, top = jops.table_prep(c.seg_lengths())
+    n_segs = len(c.seg_lengths())
+    len32 = np.asarray(len32)[:n_segs]
+    node_of = c.seg_to_node().astype(np.int32)
+    ids = _ids(2048, seed=len(name))
+    want = place_batch(ids, c.seg_lengths())
+    hi, lo = _tail_tables(len32)
+    for emit in (False, True):
+        got = place_fused_cuda(_t(ids), _t(len32), hi, lo, _t(node_of),
+                               top_level=top, emit_nodes=emit)
+        assert np.array_equal(got.numpy(), node_of[want] if emit else want)
+
+
+@pytest.mark.parametrize("max_draws", [0, 1])
+def test_forced_tail_matches_numpy(max_draws):
+    """max_draws=0 sends every lane through the tail (on the 100-node table
+    h * T needs up to 95 bits); max_draws=1 leaves a mixed population."""
+    params = AsuraParams(max_draws=max_draws)
+    c = (make_uniform_cluster(100, params=params) if max_draws == 0
+         else make_cluster([0.1, 0.2, 0.05], params=params))
+    ids = _ids(2048, seed=max_draws)
+    want = place_batch(ids, c.seg_lengths(), params)
+    len32, top = jops.table_prep(c.seg_lengths(), params)
+    len32 = np.asarray(len32)[: len(c.seg_lengths())]
+    hi, lo = _tail_tables(len32)
+    node_of = c.seg_to_node().astype(np.int32)
+    for emit in (False, True):
+        got = place_fused_cuda(_t(ids), _t(len32), hi, lo, _t(node_of),
+                               top_level=top, max_draws=max_draws, emit_nodes=emit)
+        assert np.array_equal(got.numpy(), node_of[want] if emit else want)
+
+
+def test_place_fused_wrapper_matches_pallas_partial_tail():
+    """The CPU wrapper equals the reference's fused Pallas kernel (interpret
+    mode) on a mixed converged / tail-resolved population, nodes out."""
+    params = AsuraParams(max_draws=1)
+    c = make_cluster([0.1, 0.2, 0.05, 0.9, 0.4], params=params)
+    ids = _ids(2048, seed=11)
+    len32_j, top = jops.table_prep(c.seg_lengths(), params)
+    node_j = jops.node_table_prep(c.seg_to_node())
+    hi_j, lo_j = jops.tail_prep(len32_j)
+    want = np.asarray(jops.place_on_table_device(
+        ids, len32_j, hi_j, lo_j, node_j, top_level=top, params=params,
+        use_pallas=True, emit_nodes=True,
+    ))
+    n_segs = len(c.seg_lengths())
+    len32 = np.asarray(len32_j)[:n_segs]
+    hi, lo = _tail_tables(len32)
+    got = place_fused_cuda(
+        _t(ids), _t(len32), hi, lo, _t(c.seg_to_node().astype(np.int32)),
+        top_level=top, max_draws=1, emit_nodes=True,
+    )
+    assert np.array_equal(got.numpy(), want)
+    segs = place_batch(ids, c.seg_lengths(), params)
+    assert np.array_equal(want, c.seg_to_node()[segs])
+
+
+def test_resolve_tail_matches_numpy_with_holes():
+    rng = np.random.default_rng(5)
+    lengths = rng.uniform(0.0, 0.999, 300)
+    lengths[rng.random(300) < 0.3] = 0.0  # holes: zero-length segments
+    len32 = np.round(lengths * 2**32).astype(np.uint32)
+    ids = _ids(3000, seed=6)
+    segs = np.where(rng.random(3000) < 0.5, -1, 7).astype(np.int64)
+    want = resolve_tail_np(ids, segs, len32, 8)
+    hi, lo = _tail_tables(len32)
+    got = ref.resolve_tail_dev(_t(ids), _t(segs), hi, lo, 8)
+    assert np.array_equal(got.numpy(), want)
+    assert (len32[want[segs < 0]] > 0).all()
+
+
+# ---------------------------------------------------------------------------
+# replication (section 5.A) and its stats vector
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("top_level,R", [(5, 1), (5, 2), (5, 3), (19, 2)])
+def test_place_replicas_ref_matches_reference(top_level, R):
+    len32, node_of = _table_with_top(top_level, seed=R)
+    ids = _ids(1000, seed=R)
+    kw = dict(top_level=top_level, s_log2=1, max_draws=128, n_replicas=R)
+    want, want_hist = jref.place_replicas_ref(
+        jnp.asarray(ids), jnp.asarray(len32), jnp.asarray(node_of),
+        emit_stats=True, **kw,
+    )
+    got, hist = ref.place_replicas_ref(_t(ids), _t(len32), _t(node_of),
+                                       emit_stats=True, **kw)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(hist.numpy(), np.asarray(want_hist).astype(np.int64))
+    assert np.array_equal(
+        got.numpy(), place_replicas_u32(ids, len32, node_of, R, top_level)
+    )
+
+
+@pytest.mark.parametrize("R,emit_nodes", [(1, True), (2, False), (3, True)])
+def test_place_replicas_wrapper_matches_pallas_and_stats(R, emit_nodes):
+    """The CPU wrapper equals the reference's Pallas kernel (interpret
+    mode), and its stats vector equals the reference's fused ref's."""
+    c = make_cluster(CLUSTERS["heavy_tail"])
+    len32_j, top = jops.table_prep(c.seg_lengths())
+    node_j = jops.node_table_prep(c.seg_to_node())
+    ids = _ids(2048, seed=R)
+    want = np.asarray(jops.place_replicas_on_table_device(
+        ids, len32_j, node_j, R, top_level=top, use_pallas=True,
+        emit_nodes=emit_nodes,
+    ))
+    want_out, want_stats = jops._place_replicas_fused_ref(
+        jnp.asarray(ids), len32_j, node_j, top_level=top, s_log2=1,
+        max_draws=128, n_replicas=R, emit_nodes=emit_nodes, emit_stats=True,
+    )
+    assert np.array_equal(want, np.asarray(want_out))
+    n_segs = len(c.seg_lengths())
+    got, stats = place_replicas_cuda(
+        _t(ids), _t(np.asarray(len32_j)[:n_segs]),
+        _t(c.seg_to_node().astype(np.int32)), top_level=top, n_replicas=R,
+        emit_nodes=emit_nodes, emit_stats=True,
+    )
+    assert got.dtype == torch.int32 and stats.dtype == torch.uint32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(stats.numpy(), np.asarray(want_stats))
+
+
+def test_nonconverged_slots_counted_per_slot():
+    """R above the number of distinct nodes: unfilled slots are -1 and the
+    stats' last entry counts SLOTS over (batch, R), as the reference does."""
+    c = make_cluster([1.0, 0.7])
+    len32_j, top = jops.table_prep(c.seg_lengths())
+    node_j = jops.node_table_prep(c.seg_to_node())
+    ids = _ids(300, seed=9)
+    kw = dict(top_level=top, s_log2=1, max_draws=4, n_replicas=3,
+              emit_nodes=True, emit_stats=True)
+    want, want_stats = jops._place_replicas_fused_ref(
+        jnp.asarray(ids), len32_j, node_j, **kw
+    )
+    n_segs = len(c.seg_lengths())
+    got, stats = place_replicas_cuda(
+        _t(ids), _t(np.asarray(len32_j)[:n_segs]),
+        _t(c.seg_to_node().astype(np.int32)), **kw,
+    )
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(stats.numpy(), np.asarray(want_stats))
+    assert int(stats[-1]) == int((got < 0).sum()) >= 300
+
+
+def test_wide_r_matches_numpy():
+    """R = 12 (above the kernel's register rows) on the CPU twin."""
+    c = make_uniform_cluster(40)
+    len32, top = jops.table_prep(c.seg_lengths())
+    ids = _ids(500, seed=12)
+    want = place_replicas_u32(ids, np.asarray(len32)[:40], c.seg_to_node(), 12, top)
+    got = place_replicas_cuda(
+        _t(ids), _t(np.asarray(len32)[:40]), _t(c.seg_to_node().astype(np.int32)),
+        top_level=top, n_replicas=12,
+    )
+    assert np.array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# wrapper contract
+# ---------------------------------------------------------------------------
+
+
+def _small_tables():
+    c = make_cluster(CLUSTERS["mixed"])
+    len32, top = jops.table_prep(c.seg_lengths())
+    n = len(c.seg_lengths())
+    len32 = np.asarray(len32)[:n]
+    hi, lo = _tail_tables(len32)
+    return _t(len32), hi, lo, _t(c.seg_to_node().astype(np.int32)), top
+
+
+def test_wrappers_check_their_inputs():
+    len32, hi, lo, node_of, top = _small_tables()
+    ids = _t(_ids(16))
+    with pytest.raises(TypeError):
+        place_fused_cuda(ids.to(torch.int64), len32, hi, lo, node_of, top_level=top)
+    with pytest.raises(TypeError):
+        place_fused_cuda(ids, len32, hi, lo, node_of.to(torch.int64), top_level=top)
+    with pytest.raises(ValueError):
+        place_fused_cuda(ids, len32, hi[:-1], lo, node_of, top_level=top)
+    with pytest.raises(ValueError):
+        place_fused_cuda(ids.reshape(4, 4), len32, hi, lo, node_of, top_level=top)
+    with pytest.raises(ValueError):
+        place_fused_cuda(ids, len32, hi, lo, node_of, top_level=31)
+    with pytest.raises(ValueError):
+        place_replicas_cuda(ids, len32, node_of, top_level=top, n_replicas=0)
+    with pytest.raises(ValueError):
+        place_replicas_cuda(ids[::2], len32, node_of, top_level=top)
+
+
+def test_cpu_calls_take_the_twin_and_launch_nothing():
+    len32, hi, lo, node_of, top = _small_tables()
+    before = dict(LAUNCHES)
+    ids = _t(_ids(64))
+    out = place_fused_cuda(ids, len32, hi, lo, node_of, top_level=top)
+    out_r = place_replicas_cuda(ids, len32, node_of, top_level=top, n_replicas=2)
+    assert out.shape == (64,) and out_r.shape == (64, 2)
+    assert LAUNCHES == before

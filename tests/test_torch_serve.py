@@ -1,0 +1,264 @@
+"""The port's serving stack against the reference's, bit for bit.
+
+  * threefry2x32 words equal ``jax.random`` (the reference's partitionable
+    ``fold_in(fold_in(key, step), lane)`` then ``bits``), lanes >= 2**31
+    included;
+  * ``RequestStreamDriver`` equals the reference driver over 3 steps for
+    every policy and every traffic law: chosen nodes, counts, queue, the
+    queue ring and the metrics slab; ``superstep(k)`` equals k steps;
+  * ``Router`` equals the reference router; the metrics slab and the trace
+    ledger keep the reference's semantics.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import PlacementEngine as JEngine
+from repro.core import make_cluster as j_make_cluster
+from repro.obs import MetricsRegistry as JMetrics
+from repro.obs import TraceLedger as JLedger
+from repro.serve import RequestStreamDriver as JDriver
+from repro.serve import Router as JRouter
+from repro.serve import TrafficModel as JTraffic
+from repro.serve.stream import select_replica as j_select
+from repro_torch import convert
+from repro_torch.core import PlacementEngine
+from repro_torch.obs import MetricsRegistry, TraceLedger
+from repro_torch.serve import LAWS, POLICIES, RequestStreamDriver, Router, TrafficModel
+from repro_torch.serve.stream import select_replica
+from repro_torch.serve.traffic import fold_in, prng_key
+
+CAPS = [0.5, 1.5, 1.0, 2.0, 0.75, 1.25, 1.0, 0.6, 1.9, 1.1, 0.8, 1.4]
+CFG = dict(batch=512, n_keys=1000, n_replicas=3, seed=5)
+
+
+def _pair(**kw):
+    """(reference driver, port driver on the CPU) on the same cluster."""
+    ref_c = j_make_cluster(CAPS)
+    ref_c.remove_node(4)  # a dead node: its bin stays in the layout
+    c = convert.cluster_from_reference_json(ref_c.to_json())
+    jm, tm = JMetrics(), MetricsRegistry(device="cpu")
+    jd = JDriver(JEngine(ref_c, backend="ref"), metrics=jm, **kw)
+    td = RequestStreamDriver(PlacementEngine(c, device="cpu"), metrics=tm, **kw)
+    return jd, td, jm, tm
+
+
+def _assert_same_state(jd, td, jm, tm):
+    assert np.array_equal(np.asarray(jd.counts), td.counts.numpy())
+    assert np.array_equal(np.asarray(jd.queue), td.queue.numpy())
+    assert np.array_equal(np.asarray(jd.qhist), td.qhist.numpy())
+    js, ts = jm.snapshot(), tm.snapshot()
+    assert js.keys() == ts.keys()
+    for name in js:
+        assert np.array_equal(np.asarray(js[name]), np.asarray(ts[name])), name
+
+
+# ---------------------------------------------------------------------------
+# the generator
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,step", [(0, 0), (7, 1), (2**31 - 1, 1000)])
+def test_threefry_words_match_jax(seed, step):
+    lanes = np.array([0, 1, 2, 511, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1],
+                     dtype=np.uint32)
+    want = np.asarray(JTraffic.lane_words(
+        jax.random.PRNGKey(seed), jnp.int32(step), jnp.asarray(lanes), 2))
+    got = TrafficModel.lane_words(prng_key(seed), step,
+                                  torch.from_numpy(lanes.astype(np.int64)), 2)
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_prng_key_and_fold_in_match_jax():
+    for seed in (0, 3, 2**31 - 1, -5):
+        key = jax.random.PRNGKey(seed)
+        assert prng_key(seed) == tuple(int(x) for x in np.asarray(key))
+        for data in (0, 1, 2**31 + 3):
+            want = np.asarray(jax.random.fold_in(key, np.uint32(data)))
+            assert fold_in(prng_key(seed), data) == tuple(int(x) for x in want)
+    with pytest.raises(ValueError):
+        prng_key(2**31)
+
+
+@pytest.mark.parametrize("law", LAWS)
+def test_traffic_model_matches_reference(law):
+    j, t = JTraffic(5000, law=law, seed=2), TrafficModel(5000, law=law, seed=2)
+    assert np.array_equal(j.thresholds, t.thresholds)
+    assert np.array_equal(j.pmf, t.pmf)
+    assert j.id_salt == t.id_salt
+    if law == "zipf":
+        assert np.array_equal(j.sample_ranks(9, 3000, batch=1024),
+                              t.sample_ranks(9, 3000, batch=1024, device="cpu"))
+    ranks = np.arange(5000, dtype=np.uint32)
+    ids = TrafficModel.ids_from_ranks(torch.from_numpy(ranks.astype(np.int64)), t.id_salt)
+    assert np.array_equal(ids.numpy().astype(np.uint32), j.rank_to_id_np(ranks))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_select_replica_matches_reference(policy):
+    rng = np.random.default_rng(4)
+    owners = rng.integers(0, 40, (2000, 3)).astype(np.int32)
+    owners[rng.random((2000, 3)) < 0.1] = -1  # unfilled slots
+    sel = rng.integers(0, 2**32, 2000, dtype=np.uint32)
+    counts = rng.integers(0, 100, 40).astype(np.int32)
+    want = np.asarray(j_select(jnp.asarray(owners), jnp.asarray(sel),
+                               jnp.asarray(counts), policy=policy, n_replicas=3))
+    got = select_replica(torch.from_numpy(owners), torch.from_numpy(sel.astype(np.int64)),
+                         torch.from_numpy(counts), policy=policy, n_replicas=3)
+    assert np.array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# the serving driver
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "policy,law",
+    [(p, "zipf") for p in POLICIES] + [("pow2", law) for law in LAWS if law != "zipf"],
+)
+def test_driver_matches_reference(policy, law):
+    jd, td, jm, tm = _pair(policy=policy, law=law, **CFG)
+    assert td.n_bins == jd.n_bins and td.service_rate == jd.service_rate
+    for _ in range(3):
+        want = np.asarray(jd.step())
+        got = td.step()
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+    _assert_same_state(jd, td, jm, tm)
+    assert td.load_skew() == jd.load_skew()
+    assert td.queue_p99() == jd.queue_p99()
+
+
+def test_superstep_equals_steps():
+    _, a, _, ma = _pair(policy="pow2", law="zipf", **CFG)
+    _, b, _, mb = _pair(policy="pow2", law="zipf", **CFG)
+    chosen = torch.stack([a.step() for _ in range(4)])
+    assert torch.equal(b.superstep(4), chosen)
+    for name in ("counts", "queue", "qhist"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    sa, sb = ma.snapshot(), mb.snapshot()
+    for name in sa:
+        assert np.array_equal(np.asarray(sa[name]), np.asarray(sb[name])), name
+    assert a.steps_done == b.steps_done == 4
+    with pytest.raises(ValueError):
+        b.superstep(0)
+
+
+def test_driver_accounting_and_tripwires():
+    _, td, _, tm = _pair(policy="random", law="hotset", **CFG)
+    first = [td.step() for _ in range(3)]
+    assert td.step_traces == 1 and td.engine.uploads == 1
+    counts = td.load_counts()
+    assert counts.sum() == 3 * CFG["batch"]
+    hist = np.bincount(torch.cat(first).numpy(), minlength=td.n_bins)
+    assert np.array_equal(counts, hist)
+    assert counts[4] == 0  # the removed node serves nothing
+    assert np.array_equal(tm.snapshot()["serve.served"].astype(np.int64), counts)
+    td.reset()
+    again = [td.step() for _ in range(3)]
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    td.engine.cluster.add_node(4, 1.0)  # new version, same ladder statics
+    td.step()
+    assert td.step_traces == 1 and td.engine.uploads == 2
+    snap = td.snapshot()
+    assert snap["steps"] == 4
+    assert td.ledger.events("serve.snapshot")[-1]["steps"] == 4
+    # a node outside the load planes: the port refuses on the host (the
+    # reference would drop its requests from the counts)
+    td.engine.cluster.add_node(td.n_bins, 1.0)
+    with pytest.raises(ValueError, match="n_bins"):
+        td.step()
+
+
+# ---------------------------------------------------------------------------
+# the router
+# ---------------------------------------------------------------------------
+
+
+def test_router_matches_reference():
+    caps = {i: c for i, c in enumerate(CAPS)}
+    jr, tr = JRouter(caps), Router(caps, device="cpu")
+    sessions = np.random.default_rng(8).integers(0, 2**32, 3000, dtype=np.uint32)
+    assert np.array_equal(tr.route(sessions), jr.route(sessions))
+    assert np.array_equal(tr.route_device(sessions).numpy(),
+                          np.asarray(jr.route_device(sessions)))
+    assert np.array_equal(tr.route_replicas(sessions, 3), jr.route_replicas(sessions, 3))
+    for _ in range(3):
+        got = tr.route_replicas_device(sessions, 3)
+    assert np.array_equal(got.numpy(), np.asarray(jr.route_replicas_device(sessions, 3)))
+    assert tr.table_uploads == 1
+    assert np.array_equal(tr.my_sessions(2, sessions), jr.my_sessions(2, sessions))
+    # a membership change: one more upload, still equal
+    for r in (jr, tr):
+        r.cluster.remove_node(3)
+        r.cluster.add_node(50, 1.0)
+    assert tr.cluster.to_json() == jr.cluster.to_json()
+    assert np.array_equal(tr.route_replicas(sessions, 2), jr.route_replicas(sessions, 2))
+    assert tr.table_uploads == 2
+    with pytest.raises(NotImplementedError, match="A6"):
+        Router({0: {1: 1.0}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        Router(caps, algorithm="ch", device="cpu")
+
+
+def test_router_stream_driver_matches_reference():
+    caps = {i: c for i, c in enumerate(CAPS)}
+    jd = JRouter(caps).stream_driver(policy="pow2", **CFG)
+    td = Router(caps, device="cpu").stream_driver(policy="pow2", **CFG)
+    for _ in range(2):
+        assert np.array_equal(td.step().numpy(), np.asarray(jd.step()))
+
+
+# ---------------------------------------------------------------------------
+# telemetry copies
+# ---------------------------------------------------------------------------
+
+
+def test_metrics_slab_is_u32_and_drains_once():
+    jm, tm = JMetrics(), MetricsRegistry(device="cpu")
+    for reg in (jm, tm):
+        reg.counter("c")
+        reg.histogram("h", 4)
+        assert reg.histogram("h", 4) == "h"
+        with pytest.raises(ValueError):
+            reg.histogram("h", 5)
+    js = jm.add(jm.slab(), "c", jnp.uint32(2**32 - 1))
+    js = jm.add(js, "c", 3)
+    js = jm.add_hist(js, "h", jnp.asarray([1, 2, 3], jnp.uint32))
+    jm.set_slab(js)
+    ts = tm.add(tm.slab(), "c", 2**32 - 1)
+    tm.add(ts, "c", torch.tensor(3))
+    tm.add_hist(ts, "h", torch.tensor([1, 2, 3], dtype=torch.int32))
+    tm.counter("late")  # growth keeps the live windows
+    jm.counter("late")
+    a, b = jm.snapshot(), tm.snapshot()
+    assert a.keys() == b.keys()
+    for name in a:
+        assert np.array_equal(np.asarray(a[name]), np.asarray(b[name])), name
+    assert b["c"] == 2  # mod 2**32
+    assert int(tm.slab().sum()) == 0  # drained
+    off = MetricsRegistry(enabled=False, device="cpu")
+    off.counter("x")
+    assert off.names == () and off.snapshot() == {}
+
+
+def test_trace_ledger_matches_reference():
+    ticks = iter(range(100))
+    clock = lambda: float(next(ticks))  # noqa: E731
+    jl, tl = JLedger(clock=clock), TraceLedger(clock=clock)
+    for led in (jl, tl):
+        led.incr("engine.uploads")
+        led.incr("engine.uploads", 2)
+        led.event("engine.upload", "asura", version=np.int64(3))
+        with led.span("build", version=1):
+            pass
+    assert tl.counters == jl.counters == {"engine.uploads": 3}
+    strip = lambda evs: [{k: v for k, v in e.items() if k != "ts"} for e in evs]  # noqa: E731
+    assert strip(tl.events()) == strip(jl.events())
+    assert tl.prometheus_text().replace("repro_torch_", "") == \
+        jl.prometheus_text().replace("repro_", "")
