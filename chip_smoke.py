@@ -28,13 +28,33 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
      instrumented, 16 steps under sync-debug "error"; counts, live nodes
      and the metrics slab checked, and everything equal to a CPU driver
      (the twins) at the same seed;
-  6. one JSON line per kernel set: launches on the main path, time at the
-     phase-4 shape, the twin's time, and the least time the card could
-     take for the same work.
+  7. the two-version diff kernels (B3, B4) against their twins on the
+     card, exact: the 4096-node cluster before and after adding a node of
+     capacity 1.0, before and after removing one, and an add that reuses
+     the freed hole, on 2**20 + 13 ids; a small cluster whose add lifts
+     the top level; a forced tail (max_draws 1); B4 at R = 1, 3, 12;
+  8. migration main path on the 4096-node cluster: ``MigrationPlanner``
+     ``plan_stream`` over 2**24 tracked ids in 16 chunks of 2**20 (add
+     event, CUDA events, sync-debug "error"), ``plan`` with and without
+     the ADDITION-NUMBER prefilter (identical plans), ``plan_replicas`` at
+     R = 3 for the add and for a removal, ASURA's invariants on every plan
+     (an add moves rows only to the new node, a removal only from the
+     removed one); then ``ReplicaRouter.begin_scale_migration`` (add,
+     R = 3, ingress 64) over the 2**20 serving keys and one instrumented
+     ``serve_migrating`` batch (65,536, Zipf 1.1, pow2) per mover round
+     until the window drains, plus one ``superstep_migrating(4)`` held to
+     4 ``serve_migrating`` calls of a second driver.  The same sequence at
+     2**18 tracked ids and batch 4096 runs on the card and on the CPU (the
+     twins); plans, round matrices, chosen nodes, counts, queue, qhist and
+     the metrics slab must agree bit for bit;
+  6. (printed last) one JSON line per kernel (B1-B4): launches on the main
+     paths (phases 4, 5 and 8), time at 2**24 ids, the twin's time, and
+     the least time the card could take for the same work.
 
-``--profile`` also traces 4 serving steps with ``torch.profiler`` and
-prints the device busy time per step, the idle share and the kernels that
-fill it (PERF.md section 5).
+``--profile`` also traces 4 serving steps, and 4 ``serve_migrating``
+batches on the drained window, with ``torch.profiler`` and prints the
+device busy time per batch, the idle share and the kernels that fill it
+(PERF.md section 5).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
@@ -78,7 +98,15 @@ SOURCE = "src/repro_torch/kernels/csrc/asura_place.cu"
 REPLACES = {
     "place_fused": "src/repro/kernels/asura_place.py:510",
     "place_replicas": "src/repro/kernels/asura_place.py:396",
+    "diff_nodes": "src/repro/kernels/asura_place.py:578",
+    "diff_replicas": "src/repro/kernels/asura_place.py:669",
 }
+KERNELS = tuple(REPLACES)
+PLAN_CHUNKS = 16  # plan_stream chunks (2**20 ids each at 2**24 tracked ids)
+WINDOW_INGRESS = 64  # rows the new node may receive per mover round
+MIN_ROUNDS = 8
+SMALL_TRACKED = 1 << 18  # the card-vs-CPU run of phase 8
+SMALL_BATCH = 4096
 
 
 def require(cond, msg: str) -> None:
@@ -112,6 +140,39 @@ def mismatches(torch, a, b) -> tuple[int, int]:
     return int((diff != 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+class uncounted:
+    """Launches inside this block (checks against twins, timing) are put
+    back out of the main path's launch counts on exit."""
+
+    def __init__(self, launches: dict):
+        self.launches = launches
+
+    def __enter__(self):
+        self.saved = dict(self.launches)
+
+    def __exit__(self, *exc):
+        self.launches.update(self.saved)
+        return False
+
+
+class sync_guard:
+    """``torch.cuda.set_sync_debug_mode("error")`` on a CUDA device; a
+    no-op on the CPU."""
+
+    def __init__(self, torch, dev):
+        self.torch, self.on = torch, dev.type == "cuda"
+
+    def __enter__(self):
+        if self.on:
+            self.torch.cuda.synchronize()
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode(0)
+        return False
+
+
 def ladder_work(torch, stats, top_level: int) -> tuple[int, int]:
     """(consulted levels, draws) from a [depth_hist..., nonconv] vector."""
     from repro_torch.kernels.ref import DEPTH_BINS
@@ -122,18 +183,19 @@ def ladder_work(torch, stats, top_level: int) -> tuple[int, int]:
     return int((hist * depth).sum()), int(hist.sum())
 
 
-def profile_steps(torch, driver, steps: int) -> dict:
+def profile_steps(torch, step, steps: int) -> dict:
     """Device busy time per serving step and the kernels that fill it, from
-    a ``torch.profiler`` trace of ``steps`` steps (after one untraced)."""
+    a ``torch.profiler`` trace of ``steps`` calls of ``step`` (after one
+    untraced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    driver.step()
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            driver.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list[float]] = {}
@@ -148,6 +210,18 @@ def profile_steps(torch, driver, steps: int) -> dict:
         "kernels_per_step": sum(len(v) for v in by_name.values()) / steps,
         "top": [(name[:60], sum(v) / steps / 1e3, len(v) // steps) for name, v in top],
     }
+
+
+def print_profile(prof: dict) -> None:
+    busy, wall = prof["busy_ms_per_step"], prof["wall_ms_per_step"]
+    if busy > 0:
+        print(f"  profiler: {wall:.4f} ms wall / {busy:.4f} ms device busy per step "
+              f"(idle share {1 - busy / wall:.4f}), "
+              f"{prof['kernels_per_step']:.0f} kernels per step")
+        for name, ms_step, n in prof["top"]:
+            print(f"    {ms_step:9.4f} ms/step {n:4d}x  {name}")
+    else:
+        print("  profiler: device time not measured (no CUDA events in the trace)")
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -175,7 +249,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {"place_fused": 0, "place_replicas": 0}
+    worst = {name: 0 for name in KERNELS}
 
     def hold(name: str, what: str, got, want) -> None:
         bad, err = mismatches(torch, got, want)
@@ -253,7 +327,8 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     print(f"  launches {bulk_launches}, uploads {engine.uploads}")
     require(engine.uploads == 1, f"engine uploaded {engine.uploads} tables")
-    require(all(v > 0 for v in bulk_launches.values()), "a kernel was not launched")
+    require(bulk_launches["place_fused"] > 0 and bulk_launches["place_replicas"] > 0,
+            "a kernel was not launched")
     ms = {k: statistics.median(s.elapsed_time(e) for s, e in v[1:]) for k, v in ev.items()}
     for k in ms:
         print(f"  {k:15s} median {ms[k]:.4f} ms over {TIMED_CALLS} calls, "
@@ -355,30 +430,348 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     print(f"  equal to the CPU driver (twins) in chosen, counts, queue, qhist and slab "
           f"({time.perf_counter() - t0:.1f} s on the host)")
     if profile:
-        prof = profile_steps(torch, RequestStreamDriver(engine, **cfg), 4)
-        busy, wall = prof["busy_ms_per_step"], prof["wall_ms_per_step"]
-        if busy > 0:
-            print(f"  profiler: {wall:.4f} ms wall / {busy:.4f} ms device busy per step "
-                  f"(idle share {1 - busy / wall:.4f}), "
-                  f"{prof['kernels_per_step']:.0f} kernels per step")
-            for name, ms_step, n in prof["top"]:
-                print(f"    {ms_step:9.4f} ms/step {n:4d}x  {name}")
-        else:
-            print("  profiler: device time not measured (no CUDA events in the trace)")
+        print_profile(profile_steps(torch, RequestStreamDriver(engine, **cfg).step, 4))
+
+    # -- phase 7: diff kernels vs twins ---------------------------------------
+    diff_work = phase7(torch, np, dev, caps[LADDER_NODES], ids, hold)
+
+    # -- phase 8: migration main path ----------------------------------------
+    print(f"phase 8: migration path, {LADDER_NODES} nodes, {BULK_IDS} tracked ids, "
+          f"{SERVE_KEYS} keys, batch {SERVE_BATCH}")
+    ap.reset_launches()
+    big = migration_path(torch, np, dev, caps[LADDER_NODES], n_tracked=BULK_IDS,
+                         n_keys=SERVE_KEYS, batch=SERVE_BATCH, seed=seed,
+                         profile=profile)
+    mig_launches = big.pop("launches")
+    print(f"  launches {mig_launches}")
+    require(mig_launches["diff_nodes"] > 0 and mig_launches["diff_replicas"] > 0
+            and mig_launches["place_replicas"] > 0,
+            "the migration path did not launch B2, B3 and B4")
+    print(f"phase 8b: the same sequence at {SMALL_TRACKED} tracked ids, batch "
+          f"{SMALL_BATCH}, on the card and on the CPU")
+    t0 = time.perf_counter()
+    card, host = (
+        migration_path(torch, np, where, caps[LADDER_NODES], n_tracked=SMALL_TRACKED,
+                       n_keys=SMALL_TRACKED, batch=SMALL_BATCH, seed=seed, quiet=True)
+        for where in (dev, torch.device("cpu"))
+    )
+    card.pop("launches")
+    host.pop("launches")
+    require(card.keys() == host.keys(), "phase 8b results differ in keys")
+    for key, a in card.items():
+        b = host[key]
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        require(same, f"phase 8b: {key} differs between the card and the CPU")
+    print(f"  equal on the card and the CPU in {len(card)} results, {card['rounds']} rounds "
+          f"(plans, round matrices, chosen, counts, queue, qhist, slab; "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # -- B3 / B4 times at 2**24 ids -----------------------------------------
+    ms.update(diff_work["ms"])
+    plain.update(diff_work["plain"])
+    work.update(diff_work["work"])
 
     # -- phase 6: the kernels line -------------------------------------------
     kernels = []
-    for name in ("place_fused", "place_replicas"):
+    for name in KERNELS:
         b_ms, b_by = bound(*work[name])
+        launches = bulk_launches[name] + serve_launches[name] + mig_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": bulk_launches[name] + serve_launches[name],
+            "launches": launches,
             "max_abs_err": worst[name], "ms": ms[name], "plain_ms": plain[name],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-        print(f"phase 6: {name}: 0 mismatches, {ms[name]:.4f} ms vs bound {b_ms:.4f} ms "
-              f"({b_by}), twin {plain[name]:.2f} ms")
+        print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
+              f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms")
     return {"kernels": kernels}
+
+
+def phase7(torch, np, dev, caps, ids, hold) -> dict:
+    """B3 and B4 against their twins on the card; then their times, twin
+    times and work at 2**24 ids on the add event."""
+    from repro_torch.core import AsuraParams, PlacementEngine, make_cluster
+    from repro_torch.kernels import asura_place as ap
+    from repro_torch.kernels import ref
+
+    n = len(caps)
+    victim = n // 2
+
+    def event_artifacts(caps, params, event):
+        """(art_a, art_b) around ``event(cluster)``, v pinned first."""
+        cluster = make_cluster(caps, params)
+        engine = PlacementEngine(cluster, device=dev)
+        engine.artifact()
+        v0 = cluster.version
+        event(cluster)
+        return engine._device_artifact_for(v0), engine._device_artifact_for(cluster.version)
+
+    def add(c):
+        c.add_node(n, 1.0)
+
+    def remove(c):
+        c.remove_node(victim)
+
+    cases = [
+        ("add", caps, AsuraParams(), add),
+        ("remove", caps, AsuraParams(), remove),
+        ("tail max_draws=1 add", caps, AsuraParams(max_draws=1), add),
+        ("top change 14 -> 17 segs", [0.75] * 14, AsuraParams(),
+         lambda c: c.add_node(14, 3.0)),
+    ]
+    print(f"phase 7: diff_nodes_cuda / diff_replicas_cuda vs twins, {ids.shape[0]} ids, exact")
+    arts = {}
+    for name, cc, params, event in cases:
+        arts[name] = (event_artifacts(cc, params, event), params)
+    # the reused hole: from the removal's table, an add reuses the number
+    cluster = make_cluster(caps)
+    cluster.remove_node(victim)
+    engine = PlacementEngine(cluster, device=dev)
+    engine.artifact()
+    v_holes = cluster.version
+    new = cluster.add_node(n, 0.7)
+    require(new[0] < n, f"the add did not reuse a freed number: {new}")
+    arts["reuse hole"] = ((engine._device_artifact_for(v_holes),
+                           engine._device_artifact_for(cluster.version)), AsuraParams())
+    (a, b), _ = arts["top change 14 -> 17 segs"]
+    require(a.top_level != b.top_level, "the top-change case kept its top level")
+    print(f"  top levels {a.top_level} -> {b.top_level}; segments "
+          + ", ".join(f"{k}: {x.n_segs}->{y.n_segs}" for k, ((x, y), _) in arts.items()))
+    for name, ((a, b), params) in arts.items():
+        kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=params.s_log2,
+                  max_draws=params.max_draws)
+        tabs = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
+                b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev)
+        hold("diff_nodes", name, ap.diff_nodes_cuda(ids, *tabs, **kw),
+             ref.diff_fused_ref(ids, *tabs, **kw))
+        rtabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
+        for R in (1, 3, 12):
+            sub = ids if R < 12 else ids[: 1 << 16]
+            hold("diff_replicas", f"{name} R={R}",
+                 ap.diff_replicas_cuda(sub, *rtabs, n_replicas=R, **kw),
+                 ref.diff_replicas_fused_ref(sub, *rtabs, n_replicas=R, **kw))
+
+    # times at 2**24 ids on the add event, and the work this data needs
+    (a, b), params = arts["add"]
+    bulk = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 2**32, BULK_IDS, dtype=np.uint32)).to(dev)
+    kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=1, max_draws=128)
+    tabs = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
+            b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev)
+    rtabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
+    out = {"ms": {}, "plain": {}, "work": {}}
+    with uncounted(ap.LAUNCHES):
+        out["ms"]["diff_nodes"] = statistics.median(cuda_ms(
+            torch, lambda: ap.diff_nodes_cuda(bulk, *tabs, **kw), TIMED_CALLS))
+        out["ms"]["diff_replicas"] = statistics.median(cuda_ms(
+            torch, lambda: ap.diff_replicas_cuda(bulk, *rtabs, n_replicas=3, **kw),
+            TIMED_CALLS))
+        out["plain"]["diff_nodes"] = statistics.median(cuda_ms(
+            torch, lambda: ref.diff_fused_ref(bulk, *tabs, **kw), 2))
+        out["plain"]["diff_replicas"] = statistics.median(cuda_ms(
+            torch, lambda: ref.diff_replicas_fused_ref(bulk, *rtabs, n_replicas=3, **kw), 2))
+        fused_ops, rep_ops, segs = 0, 0, 0
+        for art in (a, b):
+            lk = dict(top_level=art.top_level, s_log2=1, max_draws=128, emit_stats=True)
+            _, st1 = ap.place_replicas_cuda(bulk, art.len32_dev, art.node_of_dev,
+                                            n_replicas=1, **lk)
+            _, st3 = ap.place_replicas_cuda(bulk, art.len32_dev, art.node_of_dev,
+                                            n_replicas=3, **lk)
+            levels1, draws1 = ladder_work(torch, st1, art.top_level)
+            tail1 = int(st1[ref.DEPTH_BINS].view(torch.int32))
+            levels3, draws3 = ladder_work(torch, st3, art.top_level)
+            search = (art.n_segs - 1).bit_length()
+            fused_ops += (OPS_PER_LEVEL * (levels1 + tail1) + OPS_PER_DRAW * draws1
+                          + 6 * search * tail1)
+            rep_ops += OPS_PER_LEVEL * levels3 + (OPS_PER_DRAW + 3) * draws3
+            segs += art.n_segs
+            print(f"  work on v{art.version} ({art.n_segs} segs): R=1 {levels1} levels / "
+                  f"{draws1} draws / {tail1} tail lanes; R=3 {levels3} levels / {draws3} draws")
+    out["work"]["diff_nodes"] = (4 * BULK_IDS + 2 * 4 * BULK_IDS + 16 * segs, fused_ops)
+    out["work"]["diff_replicas"] = (4 * BULK_IDS + 2 * 4 * 3 * BULK_IDS + 8 * segs, rep_ops)
+    for k in ("diff_nodes", "diff_replicas"):
+        print(f"  {k:15s} median {out['ms'][k]:.4f} ms over {TIMED_CALLS} calls on "
+              f"{BULK_IDS} ids (R=3 for replicas), twin {out['plain'][k]:.2f} ms")
+    return out
+
+
+def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: int,
+                   seed: int, quiet: bool = False, profile: bool = False) -> dict:
+    """The migration sequence of phase 8 on ``dev`` -> its results (host
+    arrays and ints, for the card-vs-CPU comparison) and ``launches``, the
+    kernel launch counts of the run (checks against twins excluded)."""
+    from repro_torch.core import make_cluster
+    from repro_torch.kernels import asura_place as ap
+    from repro_torch.migrate import MigrationPlanner
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import Router, TrafficModel
+
+    say = (lambda *a, **k: None) if quiet else print
+    cuda = dev.type == "cuda"
+    res: dict = {}
+    n = len(caps)
+    victim = n // 2
+    total_cap = float(np.sum(caps)) + 1.0
+    start_launches = dict(ap.LAUNCHES)
+
+    # -- bulk planning: add node n (capacity 1.0), then remove the victim --
+    cluster = make_cluster(caps, device=dev)
+    engine = cluster.engine
+    engine.artifact()
+    v0 = cluster.version
+    new_segs = cluster.add_node(n, 1.0)
+    v1 = cluster.version
+    engine.artifact()  # pin v1 before the removal
+    cluster.remove_node(victim)
+    v2 = cluster.version
+    tracked = np.random.default_rng(seed + 8).integers(0, 2**32, n_tracked, dtype=np.uint32)
+    planner = MigrationPlanner(engine)
+    chunk = n_tracked // PLAN_CHUNKS
+    chunks = list(planner.chunked(torch.from_numpy(tracked).to(dev), chunk))
+    if cuda:
+        s_ev, e_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with sync_guard(torch, dev):
+        if cuda:
+            s_ev.record()
+        parts = [p[1:] for p in planner.plan_stream(chunks, v0, v1)]
+        if cuda:
+            e_ev.record()
+    if cuda:
+        torch.cuda.synchronize()
+        res_ms = s_ev.elapsed_time(e_ev)
+        with sync_guard(torch, dev), uncounted(ap.LAUNCHES):
+            s_ev.record()
+            fused = [p[1:] for p in planner.plan_stream(chunks, v0, v1, fuse=PLAN_CHUNKS)]
+            e_ev.record()
+        torch.cuda.synchronize()
+        fused_ms = s_ev.elapsed_time(e_ev)
+        for a, b in zip(parts, fused):
+            require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                    "plan_stream fuse=16 differs from fuse=1")
+    moved = torch.cat([m for m, _, _ in parts])
+    src = torch.cat([x for _, x, _ in parts])
+    dst = torch.cat([x for _, _, x in parts])
+    n_moved = int(moved.sum())
+    require(bool((dst[moved] == n).all()), "plan_stream: an add moved a row elsewhere")
+    res["stream_src"], res["stream_dst"] = src.cpu().numpy(), dst.cpu().numpy()
+    if cuda:
+        say(f"  plan_stream: {PLAN_CHUNKS} chunks of {chunk}: {n_moved} moved "
+            f"({n_moved / n_tracked:.6f} of ids; the new node holds "
+            f"{1.0 / total_cap:.6f} of the capacity), {res_ms:.4f} ms (CUDA events); "
+            f"fuse={PLAN_CHUNKS} (one launch) {fused_ms:.4f} ms, equal")
+    t0 = time.perf_counter()
+    plan = planner.plan(tracked, v0, v1)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_pre = planner.plan(tracked, v0, v1, max_new_seg=max(new_segs))
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_add = planner.plan_replicas(tracked, v0, v1, 3)
+    rep_rm = planner.plan_replicas(tracked, v1, v2, 3)
+    t_rep = time.perf_counter() - t0
+    fields = ("ids", "src", "dst", "index", "slot", "src_slot")
+    for f in fields:
+        require(np.array_equal(getattr(plan, f), getattr(plan_pre, f)),
+                f"the prefiltered plan differs in {f}")
+    require(plan.n_moves == n_moved, "plan and plan_stream disagree")
+    require(bool((plan.dst == n).all()), "add plan: a row moves elsewhere than the new node")
+    require(bool((rep_add.dst == n).all()), "add replica plan: a row moves elsewhere")
+    require(bool((rep_rm.src == victim).all()), "removal plan: a row moves from a live node")
+    require(rep_rm.n_moves > 0 and rep_add.n_moves > 0, "an event moved nothing")
+    say(f"  plan {t_plan:.3f} s, prefiltered plan {t_pre:.3f} s (identical, "
+        f"{plan.n_moves} rows); plan_replicas R=3 add + removal {t_rep:.3f} s")
+    say(f"  invariants hold: add rows all to node {n}, removal rows all from node "
+        f"{victim}; replica moved share add {rep_add.moved_fraction:.6f} vs capacity "
+        f"share {1.0 / total_cap:.6f}, removal {rep_rm.moved_fraction:.6f} vs "
+        f"{caps[victim] / total_cap:.6f}")
+    for name, p in (("plan", plan), ("rep_add", rep_add), ("rep_rm", rep_rm)):
+        for f in fields:
+            res[f"{name}.{f}"] = getattr(p, f)
+
+    # -- live window: serve through an add, R = 3 ----------------------------
+    router = Router({i: float(c) for i, c in enumerate(caps)}, device=dev)
+    cfg = dict(batch=batch, n_keys=n_keys, law="zipf", alpha=1.1, n_replicas=3,
+               policy="pow2", seed=seed, n_bins=n + 1)
+    metrics = MetricsRegistry(device=dev)
+    driver = router.stream_driver(metrics=metrics, **cfg)
+    second = router.stream_driver(metrics=MetricsRegistry(device=dev), **cfg)
+    keys = TrafficModel.ids_from_ranks(
+        torch.arange(n_keys, dtype=torch.int64), driver.traffic.id_salt
+    ).numpy().astype(np.uint32)
+    t0 = time.perf_counter()
+    mig = router.begin_scale_migration(keys, add=(n, 1.0), n_replicas=3,
+                                       ingress=WINDOW_INGRESS)
+    t_begin = time.perf_counter() - t0
+    say(f"  window: {mig.state.plan.n_moves} replica rows to move ({t_begin:.3f} s to plan)")
+    rounds, chosen_all, ids_all, ev = 0, [], [], []
+    while not mig.done:
+        res[f"round{rounds}"] = repr(sorted(mig.round().items()))
+        rounds += 1
+        mig.state.pending_replicas_device()  # the round's one upload
+        with sync_guard(torch, dev):
+            if cuda:
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+            ids, chosen = driver.serve_migrating(mig)
+            if cuda:
+                e.record()
+                ev.append((s, e))
+            if rounds == 2:
+                ids4, chosen4 = driver.superstep_migrating(mig, 4)
+            with uncounted(ap.LAUNCHES):  # the second driver only checks
+                if rounds == 2:
+                    one = [second.serve_migrating(mig) for _ in range(5)]
+                else:
+                    second.serve_migrating(mig)
+        with uncounted(ap.LAUNCHES):
+            served = mig.route_replicas_device(ids)
+            require(bool((served >= 0).all()), "a served set holds -1")
+            require(bool(((served[:, 0] != served[:, 1]) & (served[:, 0] != served[:, 2])
+                          & (served[:, 1] != served[:, 2])).all()),
+                    "a served set repeats a node")
+            require(bool((served == chosen[:, None]).any(dim=1).all()),
+                    "a chosen node is outside its served set")
+        if rounds == 2:
+            require(torch.equal(one[0][1], chosen), "the second driver drifted")
+            require(torch.equal(torch.stack([c for _, c in one[1:]]), chosen4)
+                    and torch.equal(torch.stack([i for i, _ in one[1:]]), ids4),
+                    "superstep_migrating(4) differs from 4 serve_migrating calls")
+            chosen_all.append(chosen4.reshape(-1))
+            ids_all.append(ids4.reshape(-1))
+        chosen_all.append(chosen)
+        ids_all.append(ids)
+    launches = {k: v - start_launches[k] for k, v in ap.LAUNCHES.items()}
+    require(rounds >= MIN_ROUNDS or quiet, f"the window drained in {rounds} rounds")
+    steps = driver.steps_done
+    counts = driver.load_counts()
+    require(int(counts.sum()) == steps * batch, f"counts sum {counts.sum()} != {steps} x {batch}")
+    for name in ("counts", "queue", "qhist"):
+        require(torch.equal(getattr(driver, name), getattr(second, name)),
+                f"the two drivers differ in {name}")
+    res["rounds"] = rounds
+    res["chosen"] = torch.cat(chosen_all).cpu().numpy()
+    res["ids"] = torch.cat(ids_all).cpu().numpy()
+    res["counts"] = counts
+    res["queue"] = driver.queue.cpu().numpy()
+    res["qhist"] = driver.qhist.cpu().numpy()
+    for name, v in metrics.snapshot().items():
+        res[f"slab.{name}"] = np.asarray(v)
+    if cuda:
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for s, e in ev]
+        say(f"  {rounds} rounds, one serve_migrating batch each (+ superstep_migrating(4) "
+            f"at round 2, equal to 4 serve_migrating calls of a second driver); "
+            f"serve_migrating mean {statistics.mean(ms):.4f} ms, median "
+            f"{statistics.median(ms):.4f} ms (CUDA events); {steps} batches, "
+            f"load_skew {driver.load_skew():.6f}")
+        say(f"  served sets pairwise distinct, free of -1, chosen inside; B2 launches "
+            f"per window batch {launches['place_replicas'] / steps:.3f}")
+    res["launches"] = launches
+    if profile and cuda:
+        print("  profiler over serve_migrating on the drained window (uncounted):")
+        with uncounted(ap.LAUNCHES):
+            print_profile(profile_steps(torch, lambda: second.serve_migrating(mig), 4))
+    return res
 
 
 def main() -> int:

@@ -21,8 +21,11 @@ test is a pure uint32 operation on the raw draw ``h``
     frac32  = (h << (s + l)) mod 2**32,  hit = frac32 < len32[k]
 
 so no float round-off can reorder a boundary between implementations.
-The section 2.D migration metadata (addition / remove numbers) is not
-part of this slice.
+The section 2.D migration metadata is here too: ``placement_trace``,
+``addition_number`` / ``remove_numbers`` (scalar oracles),
+``addition_numbers_batch`` / ``remove_numbers_batch`` (their vectorized
+twins) and ``align_replica_sets`` (the per-slot replica-set alignment
+the migration planner's device path reproduces bit for bit).
 """
 
 from __future__ import annotations
@@ -235,6 +238,93 @@ def place_replicas_scalar(
     return segs
 
 
+# ---------------------------------------------------------------------------
+# Section 2.D metadata: ADDITION NUMBER and REMOVE NUMBERS
+# ---------------------------------------------------------------------------
+
+
+def placement_trace(
+    datum_id: int,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int = 1,
+    params: AsuraParams = DEFAULT_PARAMS,
+    extra_levels: int = 0,
+) -> tuple[list[int], list[float], list[bool]]:
+    """Replica segments plus the full anterior ASURA-number trace.
+
+    Returns (replica_segments, numbers, used) where ``numbers`` is every
+    ASURA random number generated up to and including the finally selected
+    one (at top level = level_for(n) + extra_levels, i.e. optionally with the
+    range extended for the ADDITION-NUMBER search) and ``used[i]`` marks the
+    numbers that selected a replica.
+    """
+    lengths = np.asarray(seg_lengths, dtype=np.float64)
+    len32 = lengths_to_u32(lengths)
+    node_of = np.asarray(seg_to_node)
+    n_segs = len(len32)
+    top = params.level_for(_upper_bound(lengths)) + extra_levels
+    stream = _AsuraStream(datum_id, top, params)
+    numbers: list[float] = []
+    used: list[bool] = []
+    segs: list[int] = []
+    nodes_seen: set[int] = set()
+    guard = 0
+    while len(segs) < n_replicas:
+        guard += 1
+        if guard > 1_000_000:
+            raise RuntimeError("trace did not converge")
+        k, frac32 = stream.next()
+        numbers.append(k + frac32 / _2_32)
+        hit = k < n_segs and frac32 < int(len32[k]) and int(node_of[k]) not in nodes_seen
+        used.append(bool(hit))
+        if hit:
+            nodes_seen.add(int(node_of[k]))
+            segs.append(k)
+    return segs, numbers, used
+
+
+def addition_number(
+    datum_id: int,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int = 1,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> int:
+    """Section 2.D ADDITION NUMBER.
+
+    floor of the smallest ASURA number anterior to the finally selected one
+    that did not select a replica.  If every anterior number was used, the
+    range is extended (extra levels) until an unused anterior number exists;
+    extension only inserts numbers, never reorders existing ones, so the
+    trace stays consistent (section 2.B).
+    """
+    extra = 0
+    while True:
+        _, numbers, used = placement_trace(
+            datum_id, seg_lengths, seg_to_node, n_replicas, params, extra_levels=extra
+        )
+        unused = [v for v, u in zip(numbers[:-1], used[:-1]) if not u]
+        if unused:
+            return int(min(unused))
+        extra += 1
+        if extra > 32:
+            raise RuntimeError("could not find an unused anterior number")
+
+
+def remove_numbers(
+    datum_id: int,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int = 1,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> list[int]:
+    """Section 2.D REMOVE NUMBERS: floors of the replica-selecting numbers."""
+    _, numbers, used = placement_trace(
+        datum_id, seg_lengths, seg_to_node, n_replicas, params
+    )
+    return sorted(int(v) for v, u in zip(numbers, used) if u)
+
 def _lvl_term(level: int) -> np.uint32:
     # computed in python ints: scalar uint32 multiplies warn on overflow
     return np.uint32((GOLDEN * (level + 1)) & 0xFFFFFFFF)
@@ -372,3 +462,158 @@ def place_replicas_u32(
     if not (found >= n_replicas).all():
         raise RuntimeError("replication did not converge; too few distinct nodes?")
     return result
+
+
+def place_batch(
+    datum_ids: np.ndarray,
+    seg_lengths: Sequence[float],
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Vectorized STEP 2 for a batch of datum ids -> segment numbers.
+
+    Bit-identical to ``place_scalar`` lane-by-lane (tested).  Lanes that fail
+    to hit within ``params.max_draws`` draws (probability < 2**-53 per lane
+    for hole fractions <= 1/2) fall back to the exact-integer uniform draw
+    over the occupied mass (``resolve_tail_np``) -- total and uniform but
+    outside the movement-optimality guarantee; see DESIGN.md section 3.2.
+    """
+    ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
+    lengths = np.asarray(seg_lengths, dtype=np.float64)
+    len32 = lengths_to_u32(lengths)
+    top = params.level_for(_upper_bound(lengths))
+    result = place_batch_u32(ids, len32, top, params)
+    return resolve_tail_np(ids, result, len32, top)
+
+
+def place_replicas_batch(
+    datum_ids: np.ndarray,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """(batch, n_replicas) segment numbers; first column is the primary.
+
+    Vectorized analogue of ``place_replicas_scalar`` (bit-identical; tested).
+    """
+    lengths = np.asarray(seg_lengths, dtype=np.float64)
+    len32 = lengths_to_u32(lengths)
+    top = params.level_for(_upper_bound(lengths))
+    return place_replicas_u32(
+        datum_ids, len32, np.asarray(seg_to_node), n_replicas, top, params
+    )
+
+
+def addition_numbers_batch(
+    datum_ids: np.ndarray,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int = 1,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Vectorized section 2.D ADDITION NUMBER for a batch of datum ids.
+
+    Runs the replica trace for every lane at once, tracking the minimum
+    *unused* anterior ASURA number as an exact (k << 32 | frac32) uint64 key
+    (value ordering is identical to the float ordering of the scalar trace,
+    without float64 round-off).  Lanes whose trace needs the rare
+    range-extension path (every anterior number used) or does not converge in
+    the bounded loop fall back to the exact scalar ``addition_number``.
+    Matches ``addition_number`` lane-by-lane (tested).
+    """
+    ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
+    lengths = np.asarray(seg_lengths, dtype=np.float64)
+    len32 = lengths_to_u32(lengths)
+    node_of = np.asarray(seg_to_node)
+    n_segs = len(len32)
+    top = params.level_for(_upper_bound(lengths))
+    batch = ids.shape[0]
+    counters = np.zeros((top + 1, batch), dtype=np.uint32)
+    found = np.zeros(batch, dtype=np.int64)
+    picked_nodes = np.full((batch, n_replicas), -1, dtype=np.int64)
+    no_min = np.uint64(0xFFFFFFFFFFFFFFFF)
+    min_unused = np.full(batch, no_min, dtype=np.uint64)
+    for _ in range(params.max_draws * max(1, n_replicas)):
+        active = found < n_replicas
+        if not active.any():
+            break
+        k, frac = _next_asura_batch(ids, counters, top, params)
+        k_safe = np.minimum(k, n_segs - 1)
+        hit = (k < n_segs) & (frac < len32[k_safe])
+        node_k = node_of[k_safe]
+        dup = np.any((picked_nodes >= 0) & (picked_nodes == node_k[:, None]), axis=1)
+        used = active & hit & ~dup
+        key = (k.astype(np.uint64) << np.uint64(32)) | frac.astype(np.uint64)
+        unused = active & ~used
+        min_unused = np.where(unused, np.minimum(min_unused, key), min_unused)
+        rows = np.nonzero(used)[0]
+        picked_nodes[rows, found[rows]] = node_k[rows]
+        found[rows] += 1
+    an = (min_unused >> np.uint64(32)).astype(np.int64)
+    needs_scalar = (found < n_replicas) | (min_unused == no_min)
+    for i in np.nonzero(needs_scalar)[0]:
+        an[i] = addition_number(int(ids[i]), lengths, node_of, n_replicas, params)
+    return an
+
+
+def remove_numbers_batch(
+    datum_ids: np.ndarray,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    n_replicas: int = 1,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Vectorized section 2.D REMOVE NUMBERS -> (batch, R) sorted segments.
+
+    A datum's remove numbers are the floors of its replica-SELECTING ASURA
+    numbers, and the floor of a selecting number IS the selected segment --
+    so the batch is one vectorized replica placement plus a row sort,
+    replacing the per-id scalar trace (``remove_numbers``).  Row-identical
+    to the scalar (tested).
+    """
+    segs = place_replicas_batch(
+        datum_ids, seg_lengths, seg_to_node, n_replicas, params
+    )
+    return np.sort(segs, axis=1)
+
+
+def align_replica_sets(
+    before: np.ndarray, after: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-slot minimal alignment of two replica-node sets (the host spec).
+
+    ``before`` / ``after`` are (batch, R) replica-node sets (each row
+    pairwise-distinct, primary first) of the same ids under versions v and
+    v+1.  Slots index the AFTER set.  Returns ``(moved, src, src_slot)``:
+
+      * ``moved[b, r]``    -- slot r's owner actually changed, i.e.
+        ``after[b, r]`` is not a member of ``before[b, :]`` (so exactly
+        ``|after \\ before|`` slots move -- the section-5 minimal replica
+        mass; common nodes that merely changed position move nothing),
+      * ``src[b, r]``      -- where slot r's bytes live under v: for a moved
+        slot the rank-matched VACATED node (the k-th new after-slot pairs
+        with the k-th lost before-slot, both in slot order -- the set
+        differences have equal size, so the match is total), else
+        ``after[b, r]`` itself (it holds the datum throughout),
+      * ``src_slot[b, r]`` -- the BEFORE-set position of ``src`` for moved
+        slots (rollback re-indexes the reverse plan with it), else r.
+
+    Pure exact integer ops, formulated identically to the jitted device
+    twin (``kernels.ops.align_replica_sets``) so the two are bit-identical.
+    """
+    before = np.asarray(before)
+    after = np.asarray(after)
+    n_replicas = after.shape[1]
+    new = ~(after[:, :, None] == before[:, None, :]).any(axis=2)
+    lost = ~(before[:, :, None] == after[:, None, :]).any(axis=2)
+    new_i = new.astype(np.int64)
+    lost_i = lost.astype(np.int64)
+    rank_new = np.cumsum(new_i, axis=1) - new_i
+    rank_lost = np.cumsum(lost_i, axis=1) - lost_i
+    match = lost[:, None, :] & (rank_lost[:, None, :] == rank_new[:, :, None])
+    picked_src = np.where(match, before[:, None, :], 0).sum(axis=2)
+    slots = np.arange(n_replicas, dtype=np.int64)
+    picked_slot = np.where(match, slots[None, None, :], 0).sum(axis=2)
+    src = np.where(new, picked_src, after)
+    src_slot = np.where(new, picked_slot, slots[None, :])
+    return new, src, src_slot

@@ -21,6 +21,14 @@ Host-facing methods (``place``, ``place_nodes``, ``place_replicas``,
 the ``*_device`` variants return tensors on the engine's device with no
 host sync (placement, tail and seg->node gather in one launch).
 
+The version-pinned surface serves a migration window: ``artifact_for``
+returns a cached older version (and raises ``KeyError`` for an evicted
+one -- the cluster has moved on, so it is never rebuilt), the ``*_at``
+methods place under it, ``diff_nodes_device`` / ``diff_replicas_device``
+place every id under two versions in one launch (the planner's
+primitives), and ``addition_numbers_device`` / ``remove_numbers_batch``
+compute the section 2.D metadata.
+
 The engine is duck-typed on the cluster (``version``, ``params``,
 ``seg_lengths()``, ``seg_to_node()``).  The baselines' algorithms and
 hierarchical clusters are not ported yet and raise.
@@ -43,6 +51,7 @@ from .asura import (
     AsuraParams,
     _upper_bound,
     lengths_to_u32,
+    align_replica_sets,
     place_batch_u32,
     place_replicas_u32,
     resolve_tail_np,
@@ -179,6 +188,33 @@ class PlacementEngine:
             self._artifacts[art.version] = art
         return art
 
+    def artifact_for(self, version: int) -> TableArtifact:
+        """The table artifact of a SPECIFIC version (migration windows).
+
+        The current version is built on demand; any other version must
+        still be in the LRU (place at it before mutating the cluster).  An
+        evicted version cannot be rebuilt -- the cluster has moved on -- so
+        this raises ``KeyError`` rather than re-deriving the wrong table."""
+        if version == self.cluster.version:
+            return self.artifact()
+        art = self._artifacts.get(version)
+        if art is None:
+            raise KeyError(
+                f"asura table version {version} not cached (LRU holds "
+                f"{list(self._artifacts)}); place at that version before "
+                "mutating"
+            )
+        self._artifacts.move_to_end(version)
+        return art
+
+    def _device_artifact_for(self, version: int) -> TableArtifact:
+        """``artifact_for`` with device tables (same materialization)."""
+        art = self.artifact_for(version)
+        if not art.has_device_tables:
+            art = with_device_tables(art, self.device)
+            self._artifacts[art.version] = art
+        return art
+
     # -- host-facing STEP 2 --------------------------------------------------
 
     @staticmethod
@@ -265,4 +301,173 @@ class PlacementEngine:
         return place_replicas_on_table_device(
             datum_ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params, emit_nodes=True,
+        )
+
+    # -- version-pinned placement (migration windows) ------------------------
+
+    def place_at(self, datum_ids, version: int) -> np.ndarray:
+        """Batch placement under a cached table version -> int64 segments
+        (tail-resolved): what ``place`` gave while that version was
+        current."""
+        art = self.artifact_for(version)
+        ids = self._host_ids(datum_ids)
+        if self.backend == "numpy":
+            segs = place_batch_u32(ids, art.len32, art.top_level, self.params)
+            return resolve_tail_np(ids, segs, art.len32, art.top_level)
+        return self.place_device_at(ids, version).cpu().numpy().astype(np.int64)
+
+    def place_nodes_at(
+        self, datum_ids, version: int, algorithm: str | None = None
+    ) -> np.ndarray:
+        """Batch placement under a cached version -> int64 node ids."""
+        self._resolve_algorithm(algorithm)
+        if self.backend == "numpy":
+            return self.artifact_for(version).node_of[self.place_at(datum_ids, version)]
+        ids = self._host_ids(datum_ids)
+        return self.place_nodes_device_at(ids, version).cpu().numpy().astype(np.int64)
+
+    def place_replicas_at(self, datum_ids, version: int, n_replicas: int) -> np.ndarray:
+        """(batch, R) segment numbers under a cached version, primary
+        first (raises when a lane did not find R distinct nodes)."""
+        art = self.artifact_for(version)
+        ids = self._host_ids(datum_ids)
+        if self.backend == "numpy":
+            return place_replicas_u32(
+                ids, art.len32, art.node_of, n_replicas, art.top_level, self.params
+            )
+        from ..kernels.ops import place_replicas_on_table
+
+        art = self._device_artifact_for(version)
+        return place_replicas_on_table(
+            ids, art.len32_dev, art.node_of_dev, n_replicas,
+            top_level=art.top_level, params=self.params,
+        )
+
+    def place_replica_nodes_at(
+        self, datum_ids, version: int, n_replicas: int
+    ) -> np.ndarray:
+        """(batch, R) node ids under a cached version, primary first -- the
+        window's replica read rule places the v+1 sets through this."""
+        art = self.artifact_for(version)
+        return art.node_of[self.place_replicas_at(datum_ids, version, n_replicas)]
+
+    def remove_numbers_batch(
+        self, datum_ids, n_replicas: int, version: int | None = None
+    ) -> np.ndarray:
+        """Section 2.D REMOVE NUMBERS -> (batch, R) sorted segments: the
+        floors of a datum's replica-selecting numbers are its replicas'
+        segments, so this is one replica placement plus a row sort."""
+        segs = self.place_replicas_at(
+            datum_ids, self.cluster.version if version is None else version,
+            n_replicas,
+        )
+        return np.sort(np.asarray(segs, dtype=np.int64), axis=1)
+
+    def place_device_at(self, datum_ids, version: int) -> torch.Tensor:
+        """``place_device`` under a cached version (no host sync)."""
+        from ..kernels.ops import place_on_table_device
+
+        art = self._device_artifact_for(version)
+        return place_on_table_device(
+            datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
+            art.node_of_dev, top_level=art.top_level, params=self.params,
+        )
+
+    def place_nodes_device_at(
+        self, datum_ids, version: int, algorithm: str | None = None
+    ) -> torch.Tensor:
+        """``place_nodes_device`` under a cached version (no host sync)."""
+        from ..kernels.ops import place_nodes_on_table_device
+
+        self._resolve_algorithm(algorithm)
+        art = self._device_artifact_for(version)
+        return place_nodes_on_table_device(
+            datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
+            art.node_of_dev, top_level=art.top_level, params=self.params,
+        )
+
+    def place_replica_nodes_device_at(
+        self, datum_ids, version: int, n_replicas: int
+    ) -> torch.Tensor:
+        """``place_replica_nodes_device`` under a cached version (no host
+        sync; -1 marks unfilled slots)."""
+        from ..kernels.ops import place_replicas_on_table_device
+
+        art = self._device_artifact_for(version)
+        return place_replicas_on_table_device(
+            datum_ids, art.len32_dev, art.node_of_dev, n_replicas,
+            top_level=art.top_level, params=self.params, emit_nodes=True,
+        )
+
+    # -- migration planner primitives ----------------------------------------
+
+    def diff_nodes_device(self, datum_ids, v_from: int, v_to: int):
+        """Two-version placement diff -> ``(moved, src, dst)`` tensors on the
+        engine's device: both cached versions in one launch, no host sync."""
+        from ..kernels.ops import diff_nodes_on_tables_device
+
+        a = self._device_artifact_for(v_from)
+        b = self._device_artifact_for(v_to)
+        return diff_nodes_on_tables_device(
+            datum_ids,
+            a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
+            b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev,
+            top_a=a.top_level, top_b=b.top_level, params=self.params,
+        )
+
+    def diff_replicas_device(
+        self, datum_ids, v_from: int, v_to: int, n_replicas: int
+    ):
+        """Two-version REPLICA-SET diff -> ``(moved, src, dst, src_slot)``,
+        each (batch, R) on the engine's device, no host sync: both sets in
+        one launch, then the per-slot alignment (``moved`` iff the slot's
+        owner changed; ``src`` the vacated v-side node; ``src_slot`` its
+        v-set position)."""
+        from ..kernels.ops import diff_replicas_on_tables_device
+
+        a = self._device_artifact_for(v_from)
+        b = self._device_artifact_for(v_to)
+        return diff_replicas_on_tables_device(
+            datum_ids, a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev,
+            top_a=a.top_level, top_b=b.top_level, n_replicas=n_replicas,
+            params=self.params,
+        )
+
+    def diff_replicas_at(
+        self, datum_ids, v_from: int, v_to: int, n_replicas: int
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Host-facing ``diff_replicas_device``: ``(moved, src, dst,
+        src_slot)`` as NumPy arrays (int64 nodes).  The numpy backend runs
+        both replica sweeps on the host and aligns with the host spec
+        (``core.asura.align_replica_sets``)."""
+        ids = self._host_ids(datum_ids)
+        if self.backend == "numpy":
+            before = self.place_replica_nodes_at(ids, v_from, n_replicas)
+            after = self.place_replica_nodes_at(ids, v_to, n_replicas)
+            moved, src, src_slot = align_replica_sets(before, after)
+            return moved, src, after, src_slot
+        moved, src, dst, src_slot = self.diff_replicas_device(
+            ids, v_from, v_to, n_replicas
+        )
+        return (
+            moved.cpu().numpy(),
+            src.cpu().numpy().astype(np.int64),
+            dst.cpu().numpy().astype(np.int64),
+            src_slot.cpu().numpy(),
+        )
+
+    def addition_numbers_device(
+        self, datum_ids, version: int | None = None, n_replicas: int = 1
+    ) -> torch.Tensor:
+        """Section 2.D ADDITION NUMBERs against a cached version (default:
+        current) -> (batch,) int32 on the engine's device; -1 means
+        "unknown, treat as candidate" (the planner's add-node prefilter)."""
+        from ..kernels.ops import addition_numbers_on_table_device
+
+        if version is None:
+            version = self.cluster.version
+        art = self._device_artifact_for(version)
+        return addition_numbers_on_table_device(
+            datum_ids, art.len32_dev, art.node_of_dev, top_level=art.top_level,
+            n_replicas=n_replicas, params=self.params,
         )

@@ -5,6 +5,20 @@
 ``nvcc`` build at first use.  Nothing is compiled at import time.
 """
 
-from .asura_place import LAUNCHES, place_fused_cuda, place_replicas_cuda, reset_launches
+from .asura_place import (
+    LAUNCHES,
+    diff_nodes_cuda,
+    diff_replicas_cuda,
+    place_fused_cuda,
+    place_replicas_cuda,
+    reset_launches,
+)
 
-__all__ = ["LAUNCHES", "place_fused_cuda", "place_replicas_cuda", "reset_launches"]
+__all__ = [
+    "LAUNCHES",
+    "diff_nodes_cuda",
+    "diff_replicas_cuda",
+    "place_fused_cuda",
+    "place_replicas_cuda",
+    "reset_launches",
+]

@@ -2,7 +2,10 @@
 
 ``place_fused_cuda`` replaces the reference's ``place_fused_pallas``;
 ``place_replicas_cuda`` replaces ``place_replicas_pallas`` and also emits
-the serving path's stats vector.  Both:
+the serving path's stats vector; ``diff_nodes_cuda`` and
+``diff_replicas_cuda`` replace ``diff_nodes_pallas`` and
+``diff_replicas_pallas`` (the migration planner's two-version diffs).
+All four:
 
   * take the plain-torch twin (``ref.py``) only for CPU tensors; for CUDA
     tensors they launch the kernel or raise -- no fallback;
@@ -25,7 +28,7 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"place_fused": 0, "place_replicas": 0}
+LAUNCHES = {"place_fused": 0, "place_replicas": 0, "diff_nodes": 0, "diff_replicas": 0}
 
 
 def reset_launches() -> None:
@@ -41,6 +44,10 @@ def _lib() -> ctypes.CDLL:
     lib.asura_place_fused.restype = i32
     lib.asura_place_replicas.argtypes = [p] * 7 + [i64] + [i32] * 6 + [p]
     lib.asura_place_replicas.restype = i32
+    lib.asura_diff_nodes.argtypes = [p] * 10 + [i64] + [i32] * 6 + [p]
+    lib.asura_diff_nodes.restype = i32
+    lib.asura_diff_replicas.argtypes = [p] * 8 + [i64] + [i32] * 7 + [p]
+    lib.asura_diff_replicas.restype = i32
     return lib
 
 
@@ -182,4 +189,118 @@ def place_replicas_cuda(
         LAUNCHES["place_replicas"] += 1
     if emit_stats:
         return out, stats.view(torch.uint32)
+    return out
+
+
+def _check_table(tag: str, dev, len32, node_of, cum_hi=None, cum_lo=None) -> int:
+    """Check one table set (``len32`` u32, optional tail halves u32,
+    ``node_of`` i32, all of one length) -> its length."""
+    n_segs = len32.shape[0] if isinstance(len32, torch.Tensor) else 0
+    _check(f"len32_{tag}", len32, torch.uint32, dev, n_segs)
+    if cum_hi is not None:
+        _check(f"cum_hi_{tag}", cum_hi, torch.uint32, dev, n_segs)
+        _check(f"cum_lo_{tag}", cum_lo, torch.uint32, dev, n_segs)
+    _check(f"node_{tag}", node_of, torch.int32, dev, n_segs)
+    return n_segs
+
+
+def diff_nodes_cuda(
+    ids: torch.Tensor,
+    len32_a: torch.Tensor,
+    cum_hi_a: torch.Tensor,
+    cum_lo_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    cum_hi_b: torch.Tensor,
+    cum_lo_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+) -> torch.Tensor:
+    """Two-version total placement -> (2, n) int32 nodes: row 0 under
+    table A (version v), row 1 under table B (v+1).  The tables may differ
+    in length and top level."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs_a = _check_table("a", dev, len32_a, node_a, cum_hi_a, cum_lo_a)
+    n_segs_b = _check_table("b", dev, len32_b, node_b, cum_hi_b, cum_lo_b)
+    _check_ladder(n_segs_a, top_a, s_log2, max_draws)
+    _check_ladder(n_segs_b, top_b, s_log2, max_draws)
+    if dev.type == "cpu":
+        return ref.diff_fused_ref(
+            ids, len32_a, cum_hi_a, cum_lo_a, node_a,
+            len32_b, cum_hi_b, cum_lo_b, node_b,
+            top_a=top_a, top_b=top_b, s_log2=s_log2, max_draws=max_draws,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"diff_nodes_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    rc = _lib().asura_diff_nodes(
+        ids.data_ptr(), len32_a.data_ptr(), cum_hi_a.data_ptr(),
+        cum_lo_a.data_ptr(), node_a.data_ptr(), len32_b.data_ptr(),
+        cum_hi_b.data_ptr(), cum_lo_b.data_ptr(), node_b.data_ptr(),
+        out.data_ptr(), n, n_segs_a, n_segs_b, top_a, top_b, s_log2,
+        max_draws, _stream(dev),
+    )
+    _raise_on(rc, "asura_diff_nodes")
+    LAUNCHES["diff_nodes"] += 1
+    return out
+
+
+def diff_replicas_cuda(
+    ids: torch.Tensor,
+    len32_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    n_replicas: int = 1,
+) -> torch.Tensor:
+    """Two-version replica placement -> (2, n, R) int32 replica-node sets
+    (primary first, -1 for unfilled slots): index 0 under table A
+    (version v), index 1 under table B (v+1)."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs_a = _check_table("a", dev, len32_a, node_a)
+    n_segs_b = _check_table("b", dev, len32_b, node_b)
+    _check_ladder(n_segs_a, top_a, s_log2, max_draws)
+    _check_ladder(n_segs_b, top_b, s_log2, max_draws)
+    R = int(n_replicas)
+    if R < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if dev.type == "cpu":
+        return ref.diff_replicas_fused_ref(
+            ids, len32_a, node_a, len32_b, node_b, top_a=top_a, top_b=top_b,
+            s_log2=s_log2, max_draws=max_draws, n_replicas=R,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"diff_replicas_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty((2, n, R), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    # R > 8: each lane keeps its picks in its own rows of these (both
+    # passes reuse them)
+    scratch = (
+        [torch.empty((n, R), dtype=torch.int32, device=dev) for _ in range(2)]
+        if R > 8 else [None, None]
+    )
+    rc = _lib().asura_diff_replicas(
+        ids.data_ptr(), len32_a.data_ptr(), node_a.data_ptr(),
+        len32_b.data_ptr(), node_b.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in scratch),
+        n, n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws, R, _stream(dev),
+    )
+    _raise_on(rc, "asura_diff_replicas")
+    LAUNCHES["diff_replicas"] += 1
     return out

@@ -1,6 +1,6 @@
 // ASURA STEP 2 on Hopper: one thread per datum id.
 //
-// Replaces the two TPU kernels of the reference's kernels/asura_place.py:
+// Replaces four TPU kernels of the reference's kernels/asura_place.py:
 //   * asura_place_fused    <- place_fused_pallas (body _place_total_tile):
 //       total single placement -- bounded lazy-ladder draw loop, the
 //       section 3.2 tail on chip (a level top+1 draw, the 95-bit product,
@@ -10,7 +10,21 @@
 //       _place_replicas_tile): section 5.A, the first R hits on distinct
 //       nodes within max_draws * max(1, R) draws, -1 for unfilled slots,
 //       optional node output and the [depth_hist..., nonconverged] stats
-//       vector the serving path folds into its metrics slab.
+//       vector the serving path folds into its metrics slab;
+//   * asura_diff_nodes     <- diff_nodes_pallas (body _diff_kernel): B1's
+//       body run twice per id, against table A (version v) and then, with
+//       fresh counters, against table B (v+1) -> (2, n) nodes, the
+//       migration planner's (src, dst);
+//   * asura_diff_replicas  <- diff_replicas_pallas (body
+//       _diff_replicas_kernel): B2's body run the same way -> (2, n, R)
+//       replica-node sets (the per-slot alignment is plain torch outside).
+//
+// The two tables of a diff differ in length (an add appends segments, a
+// removal leaves length-0 holes) and may differ in top level, so each
+// pass takes its own n_segs and top level and the per-lane counter array
+// is sized for max(top_a, top_b) + 1 <= 31 levels.  A diff kernel is
+// bound exactly as its single-table kernel, with twice the work per id
+// (one id read, two results written).
 //
 // What bounds it on an H100.  Per id the kernel moves 8 bytes (a u32 id
 // in, an i32 out; 4 * R out for replicas) plus table gathers that hit
@@ -106,18 +120,14 @@ __device__ int resolve_tail(uint32_t id, int top_level, int n_segs,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-place_fused_kernel(const uint32_t* __restrict__ ids,
-                   const uint32_t* __restrict__ len32,
-                   const uint32_t* __restrict__ cum_hi,
-                   const uint32_t* __restrict__ cum_lo,
-                   const int32_t* __restrict__ node_of,
-                   int32_t* __restrict__ out, int64_t n, int n_segs,
-                   int top_level, int s_log2, int max_draws, int emit_nodes) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t id = ids[i];
-  uint32_t ctr[kMaxLevels];
+// B1's per-lane body: the bounded draw loop against one table, the tail
+// resolved on chip, the seg->node gather.  ``ctr`` holds >= top_level + 1
+// entries; they are zeroed here, so a second call restarts the stream.
+__device__ __forceinline__ int32_t place_total_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int emit_nodes) {
   for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
   int seg = -1;
   for (int d = 0; d < max_draws; ++d) {
@@ -129,11 +139,106 @@ place_fused_kernel(const uint32_t* __restrict__ ids,
     }
   }
   if (seg < 0) seg = resolve_tail(id, top_level, n_segs, cum_hi, cum_lo);
-  out[i] = emit_nodes ? __ldg(node_of + seg) : seg;
+  return emit_nodes ? __ldg(node_of + seg) : seg;
 }
 
+__global__ void __launch_bounds__(kThreads)
+place_fused_kernel(const uint32_t* __restrict__ ids,
+                   const uint32_t* __restrict__ len32,
+                   const uint32_t* __restrict__ cum_hi,
+                   const uint32_t* __restrict__ cum_lo,
+                   const int32_t* __restrict__ node_of,
+                   int32_t* __restrict__ out, int64_t n, int n_segs,
+                   int top_level, int s_log2, int max_draws, int emit_nodes) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t ctr[kMaxLevels];
+  out[i] = place_total_lane(ids[i], ctr, len32, cum_hi, cum_lo, node_of, n_segs,
+                            top_level, s_log2, max_draws, emit_nodes);
+}
+
+// B3: B1's body against table A (version v), then with fresh counters
+// against table B (v+1); out is (2, n) int32 nodes, row 0 under A.
+__global__ void __launch_bounds__(kThreads)
+diff_nodes_kernel(const uint32_t* __restrict__ ids,
+                  const uint32_t* __restrict__ len32_a,
+                  const uint32_t* __restrict__ cum_hi_a,
+                  const uint32_t* __restrict__ cum_lo_a,
+                  const int32_t* __restrict__ node_a,
+                  const uint32_t* __restrict__ len32_b,
+                  const uint32_t* __restrict__ cum_hi_b,
+                  const uint32_t* __restrict__ cum_lo_b,
+                  const int32_t* __restrict__ node_b,
+                  int32_t* __restrict__ out, int64_t n, int n_segs_a,
+                  int n_segs_b, int top_a, int top_b, int s_log2,
+                  int max_draws) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t id = ids[i];
+  uint32_t ctr[kMaxLevels];  // max(top_a, top_b) + 1 <= 31 entries used
+  out[i] = place_total_lane(id, ctr, len32_a, cum_hi_a, cum_lo_a, node_a,
+                            n_segs_a, top_a, s_log2, max_draws, 1);
+  out[n + i] = place_total_lane(id, ctr, len32_b, cum_hi_b, cum_lo_b, node_b,
+                                n_segs_b, top_b, s_log2, max_draws, 1);
+}
+
+// B2's per-lane body: the first R hits on distinct nodes within
+// max_draws * max(1, R) draws, written to ``row`` (R entries, -1 for
+// unfilled slots; segments, or nodes with ``emit_nodes``).  Returns the
+// number of slots filled; ``ctr`` is zeroed here and left holding the
+// lane's per-level draw counts.
 // RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
-// RMAX == 0: kept in the lane's rows of segs_buf / nodes_buf (any R).
+// RMAX == 0: kept in the lane's scratch rows ``gseg`` / ``gnode`` (any R).
+template <int RMAX>
+__device__ __forceinline__ int place_replicas_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
+    int32_t* gnode) {
+  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  int32_t rseg[RMAX > 0 ? RMAX : 1];
+  int32_t rnode[RMAX > 0 ? RMAX : 1];
+#pragma unroll
+  for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
+  int found = 0;
+  const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
+  for (int64_t d = 0; d < cap && found < R; ++d) {
+    uint32_t k, f;
+    next_asura(id, ctr, top_level, s_log2, k, f);
+    if (!hits(k, f, n_segs, len32)) continue;
+    const int32_t node = __ldg(node_of + k);
+    bool dup = false;
+    if constexpr (RMAX > 0) {
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (rnode[r] == node);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (!dup && r == found) {
+          rseg[r] = static_cast<int32_t>(k);
+          rnode[r] = node;
+        }
+      }
+    } else {
+      for (int r = 0; r < found && !dup; ++r) dup = gnode[r] == node;
+      if (!dup) {
+        gseg[found] = static_cast<int32_t>(k);
+        gnode[found] = node;
+      }
+    }
+    if (!dup) ++found;
+  }
+  if constexpr (RMAX > 0) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) row[r] = r < found ? (emit_nodes ? rnode[r] : rseg[r]) : -1;
+    }
+  } else {
+    const int32_t* src = emit_nodes ? gnode : gseg;
+    for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
+  }
+  return found;
+}
+
 template <int RMAX>
 __global__ void __launch_bounds__(kThreads)
 place_replicas_kernel(const uint32_t* __restrict__ ids,
@@ -151,52 +256,11 @@ place_replicas_kernel(const uint32_t* __restrict__ ids,
   }
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) {
-    const uint32_t id = ids[i];
     uint32_t ctr[kMaxLevels];
-    for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
-    int32_t rseg[RMAX > 0 ? RMAX : 1];
-    int32_t rnode[RMAX > 0 ? RMAX : 1];
-#pragma unroll
-    for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
-    int32_t* gseg = RMAX == 0 ? segs_buf + i * R : nullptr;
-    int32_t* gnode = RMAX == 0 ? nodes_buf + i * R : nullptr;
-    int found = 0;
-    const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
-    for (int64_t d = 0; d < cap && found < R; ++d) {
-      uint32_t k, f;
-      next_asura(id, ctr, top_level, s_log2, k, f);
-      if (!hits(k, f, n_segs, len32)) continue;
-      const int32_t node = __ldg(node_of + k);
-      bool dup = false;
-      if constexpr (RMAX > 0) {
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (rnode[r] == node);
-#pragma unroll
-        for (int r = 0; r < RMAX; ++r) {
-          if (!dup && r == found) {
-            rseg[r] = static_cast<int32_t>(k);
-            rnode[r] = node;
-          }
-        }
-      } else {
-        for (int r = 0; r < found && !dup; ++r) dup = gnode[r] == node;
-        if (!dup) {
-          gseg[found] = static_cast<int32_t>(k);
-          gnode[found] = node;
-        }
-      }
-      if (!dup) ++found;
-    }
-    int32_t* row = out + i * R;
-    if constexpr (RMAX > 0) {
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r) {
-        if (r < R) row[r] = r < found ? (emit_nodes ? rnode[r] : rseg[r]) : -1;
-      }
-    } else {
-      const int32_t* src = emit_nodes ? gnode : gseg;
-      for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
-    }
+    const int found = place_replicas_lane<RMAX>(
+        ids[i], ctr, len32, node_of, n_segs, top_level, s_log2, max_draws, R,
+        emit_nodes, out + i * R, RMAX == 0 ? segs_buf + i * R : nullptr,
+        RMAX == 0 ? nodes_buf + i * R : nullptr);
     if (stats != nullptr) {
       // draws of depth >= d = ctr[top - d + 1]; depth d = top - level + 1
       for (int level = top_level; level >= 0; --level) {
@@ -212,6 +276,33 @@ place_replicas_kernel(const uint32_t* __restrict__ ids,
       if (block_hist[b]) atomicAdd(stats + b, block_hist[b]);
     }
   }
+}
+
+// B4: B2's body against table A, then with fresh counters against table
+// B; out is (2, n, R) int32 replica-node sets, row-major.  For R > 8 the
+// two passes share the lane's scratch rows (the first pass has written
+// its row of ``out`` before the second starts).
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads)
+diff_replicas_kernel(const uint32_t* __restrict__ ids,
+                     const uint32_t* __restrict__ len32_a,
+                     const int32_t* __restrict__ node_a,
+                     const uint32_t* __restrict__ len32_b,
+                     const int32_t* __restrict__ node_b,
+                     int32_t* __restrict__ out, int32_t* __restrict__ segs_buf,
+                     int32_t* __restrict__ nodes_buf, int64_t n, int n_segs_a,
+                     int n_segs_b, int top_a, int top_b, int s_log2,
+                     int max_draws, int R) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t id = ids[i];
+  uint32_t ctr[kMaxLevels];  // max(top_a, top_b) + 1 <= 31 entries used
+  int32_t* gseg = RMAX == 0 ? segs_buf + i * R : nullptr;
+  int32_t* gnode = RMAX == 0 ? nodes_buf + i * R : nullptr;
+  place_replicas_lane<RMAX>(id, ctr, len32_a, node_a, n_segs_a, top_a, s_log2,
+                            max_draws, R, 1, out + i * R, gseg, gnode);
+  place_replicas_lane<RMAX>(id, ctr, len32_b, node_b, n_segs_b, top_b, s_log2,
+                            max_draws, R, 1, out + (n + i) * R, gseg, gnode);
 }
 
 template <int RMAX>
@@ -272,5 +363,60 @@ extern "C" int asura_place_replicas(const void* ids, const void* len32,
   } else {
     launch_replicas<0>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int asura_diff_nodes(const void* ids, const void* len32_a,
+                                const void* cum_hi_a, const void* cum_lo_a,
+                                const void* node_a, const void* len32_b,
+                                const void* cum_hi_b, const void* cum_lo_b,
+                                const void* node_b, void* out, int64_t n,
+                                int n_segs_a, int n_segs_b, int top_a, int top_b,
+                                int s_log2, int max_draws, void* stream) {
+  diff_nodes_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ids), static_cast<const uint32_t*>(len32_a),
+      static_cast<const uint32_t*>(cum_hi_a), static_cast<const uint32_t*>(cum_lo_a),
+      static_cast<const int32_t*>(node_a), static_cast<const uint32_t*>(len32_b),
+      static_cast<const uint32_t*>(cum_hi_b), static_cast<const uint32_t*>(cum_lo_b),
+      static_cast<const int32_t*>(node_b), static_cast<int32_t*>(out), n,
+      n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// segs_buf / nodes_buf: (n, R) int32 scratch, used (and required) only
+// when R > 8.
+extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
+                                   const void* node_a, const void* len32_b,
+                                   const void* node_b, void* out, void* segs_buf,
+                                   void* nodes_buf, int64_t n, int n_segs_a,
+                                   int n_segs_b, int top_a, int top_b,
+                                   int s_log2, int max_draws, int R,
+                                   void* stream) {
+  const dim3 grid = grid_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* i = static_cast<const uint32_t*>(ids);
+  auto* la = static_cast<const uint32_t*>(len32_a);
+  auto* na = static_cast<const int32_t*>(node_a);
+  auto* lb = static_cast<const uint32_t*>(len32_b);
+  auto* nb = static_cast<const int32_t*>(node_b);
+  auto* o = static_cast<int32_t*>(out);
+  auto* sb = static_cast<int32_t*>(segs_buf);
+  auto* gb = static_cast<int32_t*>(nodes_buf);
+#define ASURA_DIFF_REPLICAS(RM)                                                \
+  diff_replicas_kernel<RM><<<grid, kThreads, 0, s>>>(                          \
+      i, la, na, lb, nb, o, sb, gb, n, n_segs_a, n_segs_b, top_a, top_b,       \
+      s_log2, max_draws, R)
+  if (R <= 1) {
+    ASURA_DIFF_REPLICAS(1);
+  } else if (R <= 2) {
+    ASURA_DIFF_REPLICAS(2);
+  } else if (R <= 4) {
+    ASURA_DIFF_REPLICAS(4);
+  } else if (R <= 8) {
+    ASURA_DIFF_REPLICAS(8);
+  } else {
+    ASURA_DIFF_REPLICAS(0);
+  }
+#undef ASURA_DIFF_REPLICAS
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,12 @@ Two tiers, as in the reference:
   * ``place_on_table`` / ``place_replicas_on_table`` -- host-facing: the
     same launch plus exactly one device->host copy of the result.
 
+The migration planner's two-version diffs (``diff_nodes_on_tables_device``,
+``diff_replicas_on_tables_device``) place every id under two tables in
+one launch; the per-slot replica alignment after it and the ADDITION
+NUMBER trace (``addition_numbers_on_table_device``) are plain torch, as
+the reference leaves them outside its Pallas kernels.
+
 ``table_prep`` / ``node_table_prep`` / ``tail_prep`` build the device
 tables once per table version on the host; ``asura_place*`` are the
 table-deriving conveniences.  Tables are not lane-padded: the kernels
@@ -29,7 +35,13 @@ from ..core.asura import (
     tail_cumsum_halves,
 )
 from ..device import resolve_device
-from .asura_place import place_fused_cuda, place_replicas_cuda
+from .asura_place import (
+    diff_nodes_cuda,
+    diff_replicas_cuda,
+    place_fused_cuda,
+    place_replicas_cuda,
+)
+from .ref import addition_numbers_ref
 from .u32 import as_u32, to_u32
 
 __all__ = [
@@ -42,6 +54,9 @@ __all__ = [
     "place_nodes_on_table_device",
     "place_replicas_on_table",
     "place_replicas_on_table_device",
+    "diff_nodes_on_tables_device",
+    "diff_replicas_on_tables_device",
+    "addition_numbers_on_table_device",
     "asura_place",
     "asura_place_nodes",
     "asura_place_replicas",
@@ -181,6 +196,129 @@ def place_replicas_on_table(
     if (out < 0).any():
         raise RuntimeError("replication did not converge; too few distinct nodes?")
     return out
+
+
+def diff_nodes_on_tables_device(
+    datum_ids,
+    len32_a: torch.Tensor,
+    cum_hi_a: torch.Tensor,
+    cum_lo_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    cum_hi_b: torch.Tensor,
+    cum_lo_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Version diff against two prebuilt tables -> ``(moved, src, dst)``.
+
+    Every id is placed under table A (version v) and table B (v+1) in one
+    launch; ``src`` / ``dst`` are int32 node ids under v / v+1 and
+    ``moved = src != dst``.  All three stay on the tables' device with no
+    host sync -- ``plan_stream`` chains chunks of this."""
+    out = diff_nodes_cuda(
+        as_ids(datum_ids, len32_a.device),
+        len32_a, cum_hi_a, cum_lo_a, node_a,
+        len32_b, cum_hi_b, cum_lo_b, node_b,
+        top_a=top_a, top_b=top_b, s_log2=params.s_log2,
+        max_draws=params.max_draws,
+    )
+    src, dst = out[0], out[1]
+    return src != dst, src, dst
+
+
+def align_replica_sets(
+    before: torch.Tensor, after: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-slot minimal alignment of two (batch, R) replica-node sets
+    -> ``(moved, src, dst, src_slot)``, all (batch, R).
+
+    The device twin of ``core.asura.align_replica_sets`` (same exact
+    integer formulation: (batch, R, R) compares, cumsum ranks, ``where``):
+    slots index the AFTER set; ``moved[b, r]`` iff ``after[b, r]`` is not in
+    ``before[b, :]``, ``src`` is the rank-matched vacated node for moved
+    slots (``after[b, r]`` itself otherwise), ``src_slot`` its before-set
+    position (rollback re-indexing); ``dst`` is ``after`` as int32."""
+    before = before.to(torch.int32)
+    after = after.to(torch.int32)
+    R = after.shape[1]
+    new = ~(after[:, :, None] == before[:, None, :]).any(dim=2)
+    lost = ~(before[:, :, None] == after[:, None, :]).any(dim=2)
+    new_i = new.to(torch.int32)
+    lost_i = lost.to(torch.int32)
+    rank_new = torch.cumsum(new_i, dim=1) - new_i
+    rank_lost = torch.cumsum(lost_i, dim=1) - lost_i
+    match = lost[:, None, :] & (rank_lost[:, None, :] == rank_new[:, :, None])
+    zero = torch.zeros((), dtype=torch.int32, device=after.device)
+    picked_src = torch.where(match, before[:, None, :], zero).sum(dim=2, dtype=torch.int32)
+    slots = torch.arange(R, dtype=torch.int32, device=after.device)
+    picked_slot = torch.where(match, slots[None, None, :], zero).sum(dim=2, dtype=torch.int32)
+    src = torch.where(new, picked_src, after)
+    src_slot = torch.where(new, picked_slot, slots[None, :])
+    return new, src, after, src_slot
+
+
+def diff_replicas_on_tables_device(
+    datum_ids,
+    len32_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    n_replicas: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Replica-set version diff against two prebuilt tables
+    -> ``(moved, src, dst, src_slot)``, each (batch, R) on the tables'
+    device, no host sync.
+
+    Every id's full R-replica set is placed under table A (v) and table B
+    (v+1) in one launch, then the two sets are aligned per slot
+    (``align_replica_sets``): a row moves exactly when its slot's owner
+    changed -- the section-5 minimal replica mass."""
+    sets = diff_replicas_cuda(
+        as_ids(datum_ids, len32_a.device), len32_a, node_a, len32_b, node_b,
+        top_a=top_a, top_b=top_b, s_log2=params.s_log2,
+        max_draws=params.max_draws, n_replicas=n_replicas,
+    )
+    return align_replica_sets(sets[0], sets[1])
+
+
+def addition_numbers_on_table_device(
+    datum_ids,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    *,
+    top_level: int,
+    n_replicas: int = 1,
+    extra_levels: int | None = None,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> torch.Tensor:
+    """ADDITION NUMBERs against a prebuilt table -> (batch,) int32 on the
+    table's device.
+
+    Runs the trace ``extra_levels`` generator levels above the entry level
+    (default: up to 4, capped by the 2**31 segment-space bound).  The
+    extended stream only inserts numbers, each a miss (section 2.B), so the
+    minimum unused anterior number is unchanged where the unextended trace
+    has one and equals the minimally extended scalar result where it does
+    not.  -1 marks the remaining lanes (more extension needed, or no
+    convergence): callers treat -1 as "candidate", which keeps the
+    prefilter sound.  Plain torch on every device (``addition_numbers_ref``);
+    the lanes-still-tracing count it reads each draw is a host sync, so
+    this is a control-path call."""
+    if extra_levels is None:
+        extra_levels = max(0, min(4, 31 - params.s_log2 - top_level))
+    ids = as_ids(datum_ids, len32.device)
+    return addition_numbers_ref(
+        ids, len32, node_of, top_level=top_level + extra_levels,
+        s_log2=params.s_log2, max_draws=params.max_draws, n_replicas=n_replicas,
+    )
 
 
 def asura_place(

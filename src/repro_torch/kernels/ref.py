@@ -296,3 +296,106 @@ def place_replicas_fused_ref(
     out, hist = out
     nonconv = (out < 0).sum().reshape(1) & M32
     return out, to_u32(torch.cat([hist, nonconv]))
+
+
+def diff_fused_ref(
+    ids: torch.Tensor,
+    len32_a: torch.Tensor,
+    cum_hi_a: torch.Tensor,
+    cum_lo_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    cum_hi_b: torch.Tensor,
+    cum_lo_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    s_log2: int,
+    max_draws: int,
+) -> torch.Tensor:
+    """Twin of the node diff kernel: total placement with nodes out under
+    table A (version v), then under table B (v+1) -> (2, batch) int32."""
+    kw = dict(s_log2=s_log2, max_draws=max_draws, emit_nodes=True)
+    src = place_fused_ref(ids, len32_a, cum_hi_a, cum_lo_a, node_a, top_level=top_a, **kw)
+    dst = place_fused_ref(ids, len32_b, cum_hi_b, cum_lo_b, node_b, top_level=top_b, **kw)
+    return torch.stack([src, dst])
+
+
+def diff_replicas_fused_ref(
+    ids: torch.Tensor,
+    len32_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    s_log2: int,
+    max_draws: int,
+    n_replicas: int,
+) -> torch.Tensor:
+    """Twin of the replica diff kernel: R-replica node sets under table A,
+    then under table B -> (2, batch, R) int32, -1 for unfilled slots."""
+    kw = dict(s_log2=s_log2, max_draws=max_draws, n_replicas=n_replicas,
+              emit_nodes=True, emit_stats=False)
+    before = place_replicas_fused_ref(ids, len32_a, node_a, top_level=top_a, **kw)
+    after = place_replicas_fused_ref(ids, len32_b, node_b, top_level=top_b, **kw)
+    return torch.stack([before, after])
+
+
+def addition_numbers_ref(
+    ids: torch.Tensor,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    *,
+    top_level: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    n_replicas: int = 1,
+) -> torch.Tensor:
+    """Section 2.D ADDITION NUMBER per lane -> (batch,) int32.
+
+    Every lane runs the bounded replica trace, tracking the minimum
+    *unused* anterior ASURA number as an exact ``(k << 32) | frac32`` key.
+    Lanes that do not converge within ``max_draws * max(1, R)`` draws, or
+    whose every anterior number was used, return -1 ("unknown: treat as a
+    candidate", which keeps the planner's AN <= f prefilter sound); the
+    others equal ``core.asura.addition_numbers_batch``.  The reference has
+    no Pallas kernel for this trace (metadata work off the hot path), so
+    this plain-torch version runs on every device; lanes are dropped once
+    they hold R replicas (their state no longer changes).
+    """
+    ids = as_u32(ids)
+    len32 = as_u32(len32)
+    node_of = node_of.to(torch.int64)
+    n_segs = len32.shape[0]
+    n, R = ids.shape[0], n_replicas
+    dev = ids.device
+    no_min = torch.iinfo(torch.int64).max
+    result = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    alive = torch.arange(n, device=dev)
+    live_ids = ids
+    counters = torch.zeros((top_level + 1, n), dtype=torch.int64, device=dev)
+    nodes = torch.full((n, R), -1, dtype=torch.int64, device=dev)
+    found = torch.zeros(n, dtype=torch.int64, device=dev)
+    min_key = torch.full((n,), no_min, dtype=torch.int64, device=dev)
+    for _ in range(max_draws * max(1, R)):
+        if alive.numel() == 0:
+            break
+        k, f, counters = next_asura(live_ids, counters, top_level, s_log2)
+        k_safe = k.clamp(max=n_segs - 1)
+        hit = (k < n_segs) & (f < len32[k_safe])
+        node_k = node_of[k_safe]
+        dup = (nodes == node_k[:, None]).any(dim=1)
+        used = hit & ~dup
+        min_key = torch.where(used, min_key, torch.minimum(min_key, (k << 32) | f))
+        rows = torch.nonzero(used).flatten()
+        nodes[rows, found[rows]] = node_k[rows]
+        found[rows] += 1
+        done = found >= R
+        result[alive[done]] = torch.where(min_key[done] == no_min, -1, min_key[done] >> 32)
+        keep = ~done
+        alive, live_ids, counters = alive[keep], live_ids[keep], counters[:, keep]
+        nodes, found, min_key = nodes[keep], found[keep], min_key[keep]
+    return result.to(torch.int32)

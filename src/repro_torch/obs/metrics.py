@@ -10,7 +10,9 @@ bit); it is stored as ``int64`` under the rule of ``kernels/u32.py``.
 
 Metrics drain through ONE explicit ``snapshot()`` transfer, which zeroes
 the device slab and accumulates into host ``uint64`` totals.  A disabled
-registry (``enabled=False``) makes every helper a no-op.
+registry (``enabled=False``) makes every helper a no-op.  Host-plane
+counters (planner prefilter counts, migration bytes) go through
+``inc_host`` and drain through the same ``snapshot()`` dict.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ class MetricsRegistry:
         self._size = 0
         self._slab: torch.Tensor | None = None
         self._totals: dict[str, np.ndarray] = {}  # drained device totals (u64)
+        self._host: dict[str, int] = {}  # host-plane counters (inc_host)
 
     # -- layout (host side, registration time) -------------------------------
 
@@ -106,6 +109,14 @@ class MetricsRegistry:
         slab[off : off + n] = (slab[off : off + n] + as_u32(values)) & M32
         return slab
 
+    # -- host plane ------------------------------------------------------------
+
+    def inc_host(self, name: str, n=1) -> int:
+        """Host-side counter (control-path metrics: planner prefilter
+        counts, migration bytes) -- drains through the same snapshot."""
+        self._host[name] = c = self._host.get(name, 0) + int(n)
+        return c
+
     # -- drain ----------------------------------------------------------------
 
     def _drain(self) -> None:
@@ -123,13 +134,15 @@ class MetricsRegistry:
 
     def totals(self) -> dict:
         """Accumulated totals WITHOUT touching the device (what the last
-        snapshot drained)."""
+        snapshot drained, plus the host-plane counters)."""
         out: dict = {}
         for name, (_, size) in self._layout.items():
             tot = self._totals.get(name)
             if tot is None:
                 tot = np.zeros(size, np.uint64)
             out[name] = int(tot[0]) if size == 1 else tot.copy()
+        for name, v in self._host.items():
+            out[name] = int(v)
         return out
 
     def snapshot(self) -> dict:

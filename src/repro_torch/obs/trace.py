@@ -138,3 +138,32 @@ class TraceLedger:
                     for i, c in enumerate(np.asarray(v).tolist()):
                         lines.append(f'{m}_bucket{{bin="{i}"}} {int(c)}')
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+# -- the process-wide ledger (for module-level call sites) ---------------------
+
+_GLOBAL: TraceLedger | None = None
+
+
+def get_ledger() -> TraceLedger:
+    """The process-wide default ledger (created on first use)."""
+    global _GLOBAL
+    if _GLOBAL is None:
+        _GLOBAL = TraceLedger()
+    return _GLOBAL
+
+
+def set_ledger(ledger: TraceLedger) -> TraceLedger:
+    """Swap the process-wide ledger (tests inject a fresh one); returns the
+    previous one."""
+    global _GLOBAL
+    prev = get_ledger()
+    _GLOBAL = ledger
+    return prev
+
+
+def maybe_span(ledger, name: str, **fields):
+    """``ledger.span`` when a ledger is given, else a no-op context."""
+    if ledger is None:
+        return contextlib.nullcontext()
+    return ledger.span(name, **fields)

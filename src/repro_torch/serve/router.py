@@ -6,16 +6,33 @@ replica); ASURA lets any frontend compute the owner from the O(N) table,
 re-routes only a lost replica's sessions, and weights replicas by
 capacity through segment lengths.  Routing goes through the cluster's
 ``PlacementEngine``, so the table is uploaded once per membership
-version.  The baselines, hierarchical routing and scale events are not
-ported yet.
+version.
+
+Scale events: ``plan_scale_event`` applies a membership change at once and
+returns the minimal session moves; ``begin_scale_migration`` applies it as
+a LIVE migration (``migrate.LiveMigration``) whose moves drain under
+per-replica budgets while ``route_migrating`` / ``route_replicas_migrating``
+keep every request on a replica that holds its warm cache.  The baselines
+and hierarchical routing are not ported yet.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from ..core.cluster import Cluster
 from ..core.engine import PlacementEngine
+
+
+@dataclasses.dataclass
+class ScalePlan:
+    moved_sessions: dict[int, tuple[int, int]]  # session -> (src, dst)
+
+    @property
+    def n_reprefills(self) -> int:
+        return len(self.moved_sessions)
 
 
 class ReplicaRouter:
@@ -38,6 +55,7 @@ class ReplicaRouter:
         for rid, cap in replica_capacities.items():
             self.cluster.add_node(rid, cap)
         self.engine = self.cluster.engine
+        self._scale_migration = None  # at most one live window at a time
 
     def route(self, session_ids) -> np.ndarray:
         """session ids -> replica ids (vectorized, table-local)."""
@@ -72,6 +90,91 @@ class ReplicaRouter:
     def my_sessions(self, replica_id: int, session_ids) -> np.ndarray:
         ids = np.asarray(session_ids, dtype=np.uint32)
         return ids[self.route(ids) == replica_id]
+
+    def plan_scale_event(self, session_ids, *, add=None, remove=None) -> ScalePlan:
+        """Apply a membership change (``add=(replica, capacity)``,
+        ``remove=replica``) at once; return the minimal session moves."""
+        ids = np.asarray(session_ids, dtype=np.uint32)
+        before = self.route(ids)
+        if remove is not None:
+            self.cluster.remove_node(remove)
+        if add is not None:
+            self.cluster.add_node(*add)
+        after = self.route(ids)
+        moved = np.nonzero(before != after)[0]
+        return ScalePlan({int(ids[i]): (int(before[i]), int(after[i])) for i in moved})
+
+    # -- migration-window serving ----------------------------------------------
+
+    def begin_scale_migration(
+        self,
+        session_ids,
+        *,
+        add=None,
+        remove=None,
+        n_replicas: int = 1,
+        egress=None,
+        ingress=None,
+        clock=None,
+        round_seconds: float = 1.0,
+    ):
+        """Apply a membership change as a LIVE migration -> ``LiveMigration``.
+
+        The minimal session moves (cache re-prefills) drain under
+        per-replica ingress/egress budgets while ``route_migrating`` keeps
+        every request on the replica whose cache is warm: the v owner until
+        the session's re-prefill lands, the v+1 owner after.  The plan
+        diffs every session on the diff kernel: unlike the reference, an
+        add-only event skips the ADDITION-NUMBER prefilter, whose trace
+        costs more on the card than the diff it saves (the plan is the
+        same).  With ``n_replicas > 1`` the plan is the per-slot replica
+        plan and ``route_replicas_migrating`` serves the mixed-version
+        sets.  The v table is pinned in the engine's LRU before the
+        cluster mutates."""
+        from ..migrate import LiveMigration, MigrationPlanner
+
+        live = self._scale_migration
+        if live is not None and not (live.done or live.aborted):
+            raise RuntimeError("a scale migration is already in flight; drain it first")
+        ids = np.asarray(session_ids, dtype=np.uint32)
+        self.engine.artifact()  # pin the v table in the LRU before mutating
+        v_from = self.cluster.version
+        if remove is not None:
+            self.cluster.remove_node(remove)
+        if add is not None:
+            self.cluster.add_node(*add)
+        planner = MigrationPlanner(self.engine)
+        v_to = self.cluster.version
+        if n_replicas > 1:
+            plan = planner.plan_replicas(ids, v_from, v_to, n_replicas)
+        else:
+            plan = planner.plan(ids, v_from, v_to)
+        self._scale_migration = LiveMigration.from_plan(
+            self.engine, plan, egress=egress, ingress=ingress, clock=clock,
+            round_seconds=round_seconds,
+        )
+        return self._scale_migration
+
+    def route_migrating(self, session_ids, migration) -> np.ndarray:
+        """Window routing: each session to the replica holding its warm
+        cache now (v owner while pending, v+1 owner once landed)."""
+        return migration.route(np.asarray(session_ids, dtype=np.uint32))
+
+    def route_migrating_device(self, session_ids, migration):
+        """Device window routing (no host sync after the per-round view
+        refresh)."""
+        return migration.route_device(session_ids)
+
+    def route_replicas_migrating(self, session_ids, migration) -> np.ndarray:
+        """Window REPLICA routing: (sessions, R) sets, each slot on the side
+        of the window that holds its warm cache; pairwise distinct every
+        round."""
+        return migration.route_replicas(np.asarray(session_ids, dtype=np.uint32))
+
+    def route_replicas_migrating_device(self, session_ids, migration):
+        """Device ``route_replicas_migrating`` (no host sync after the
+        per-round view refresh)."""
+        return migration.route_replicas_device(session_ids)
 
 
 Router = ReplicaRouter

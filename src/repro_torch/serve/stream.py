@@ -20,6 +20,13 @@ Nothing in ``step()`` reads a device value on the host: the stream
 position is a host int (the batch key is folded in on the host), and the
 state stays on the device.  ``superstep(k)`` is k calls of the same
 one-batch body, so it equals k ``step()`` calls by construction.
+
+``serve_migrating`` serves a batch THROUGH a live migration window: the
+same body, routed by the window's per-slot read rule
+(``LiveMigration.route_replicas_device``: v+1 sets from the replica
+kernel, pending slots from their v-side sources), so every request lands
+on a node that holds its datum mid-drain.  ``superstep_migrating(k)`` is
+k of those batches against the same pending view.
 """
 
 from __future__ import annotations
@@ -177,6 +184,7 @@ class RequestStreamDriver:
             metrics.slab()
         self._bodies: dict = {}
         self._checked_version = None
+        self._checked_window = None
         self._route()  # upload and check the tables now, not in a step
         self.reset()
 
@@ -219,17 +227,23 @@ class RequestStreamDriver:
             )
         return body
 
-    def _serve_batch(self, owners_fn, tables) -> torch.Tensor:
+    def _kernel_route(self, owners_fn, tables):
+        """``ids -> (owners, stats or None)`` through the replica kernel."""
+        if self._instrumented:
+            return lambda ids: owners_fn(ids, *tables)
+        return lambda ids: (owners_fn(ids, *tables), None)
+
+    def _serve_batch(self, route):
         """generate -> route -> select -> count for stream position
-        ``self._step``; returns the chosen nodes."""
+        ``self._step``; returns the batch's ids (u32 values in int64) and
+        the chosen nodes.
+        ``route(ids)`` gives the (batch, R) holders and the kernel's stats
+        vector (None when it has none)."""
         ids, sel = TrafficModel.draw(
             self._key, self._step, self._lanes, self._thresholds,
             self.traffic.id_salt,
         )
-        if self._instrumented:
-            owners, stats = owners_fn(ids, *tables)
-        else:
-            owners = owners_fn(ids, *tables)
+        owners, stats = route(ids)
         chosen = select_replica(
             owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
         )
@@ -240,14 +254,15 @@ class RequestStreamDriver:
             slab = reg.slab()
             reg.add(slab, self._routed_name, self.batch)
             reg.add_hist(slab, "serve.served", hist)
-            reg.add_hist(slab, "asura.ladder_depth", stats[:DEPTH_BINS])
-            reg.add(slab, "asura.nonconverged", stats[DEPTH_BINS])
+            if stats is not None:
+                reg.add_hist(slab, "asura.ladder_depth", stats[:DEPTH_BINS])
+                reg.add(slab, "asura.nonconverged", stats[DEPTH_BINS])
         self.counts = self.counts + hist
         self.queue = torch.clamp(self.queue + hist - self._service, min=0)
         self.qhist[self._step % self.max_hist] = self.queue
         self._step += 1
         self.steps_done += 1
-        return chosen
+        return ids, chosen
 
     def _route(self):
         """(body, tables) for the cluster's current version.  A new version
@@ -269,7 +284,7 @@ class RequestStreamDriver:
     def step(self) -> torch.Tensor:
         """Serve one generated batch -> (batch,) int32 chosen nodes on the
         device.  No host sync: the state and the result stay on the device."""
-        return self._serve_batch(*self._route())
+        return self._serve_batch(self._kernel_route(*self._route()))[1]
 
     def superstep(self, k: int) -> torch.Tensor:
         """Serve K generated batches -> (k, batch) int32 chosen nodes; equal
@@ -277,8 +292,55 @@ class RequestStreamDriver:
         k = int(k)
         if k < 1:
             raise ValueError(f"superstep needs k >= 1, got {k}")
-        body, tables = self._route()
-        return torch.stack([self._serve_batch(body, tables) for _ in range(k)])
+        route = self._kernel_route(*self._route())
+        return torch.stack([self._serve_batch(route)[1] for _ in range(k)])
+
+    # -- serving through a live migration window --------------------------------
+
+    def _window_route(self, migration):
+        """``ids -> (owners, None)`` through the window's replica read rule,
+        after checking (on the host, once per window) that R matches and
+        that every node of both versions has a load bin."""
+        if migration.n_replicas != self.n_replicas:
+            raise ValueError(
+                f"driver serves R={self.n_replicas} but the migration plan "
+                f"is R={migration.n_replicas}"
+            )
+        migration._check_live()
+        key = (migration.v_from, migration.v_to)
+        if self._checked_window != key:
+            for v in key:
+                top = int(self.engine.artifact_for(v).node_of.max())
+                if top >= self.n_bins:
+                    raise ValueError(
+                        f"node id {top} of version {v} is outside this driver's "
+                        f"{self.n_bins} load bins; build the driver with a "
+                        "larger n_bins"
+                    )
+            self._checked_window = key
+        return lambda ids: (migration.route_replicas_device(ids), None)
+
+    def serve_migrating(self, migration):
+        """Serve one generated batch THROUGH a live migration window ->
+        ``(datum_ids, chosen)`` device tensors (uint32 ids, int32 nodes).
+
+        Routing goes through the window's per-slot read rule, so every
+        request lands on a node that holds its datum mid-drain.  No host
+        sync after the per-round pending-view refresh."""
+        ids, chosen = self._serve_batch(self._window_route(migration))
+        return to_u32(ids), chosen
+
+    def superstep_migrating(self, migration, k: int):
+        """Serve K generated batches THROUGH a live migration window ->
+        ``(datum_ids, chosen)``, each (k, batch): K ``serve_migrating``
+        batches against the pending view at call time, so it equals K
+        sequential calls."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"superstep needs k >= 1, got {k}")
+        route = self._window_route(migration)
+        ids, chosen = zip(*(self._serve_batch(route) for _ in range(k)))
+        return to_u32(torch.stack(ids)), torch.stack(chosen)
 
     # -- host-facing metrics (each accessor is ONE deliberate sync) -----------
 

@@ -129,3 +129,107 @@ def test_step_on_card_has_no_host_sync_and_matches_cpu(cuda_device):
     a, b = gpu.metrics.snapshot(), cpu.metrics.snapshot()
     for name in a:
         assert np.array_equal(np.asarray(a[name]), np.asarray(b[name])), name
+
+
+# ---------------------------------------------------------------------------
+# the two-version diff kernels (B3, B4) and the migration path on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.asura_place import diff_nodes_cuda, diff_replicas_cuda  # noqa: E402
+from repro_torch.migrate import MigrationPlanner  # noqa: E402
+from repro_torch.serve import Router  # noqa: E402
+
+DIFF_CASES = ("add", "holes", "reuse", "top")
+
+
+def _diff_event(case, device, params=AsuraParams()):
+    """(engine, v0, v1) around one membership event on a 14-node cluster
+    (one fractional segment per node, top level 3): an appended segment,
+    a length-0 hole, a reused hole, or an add that lifts the top level."""
+    caps = np.random.default_rng(7).uniform(0.5, 0.99, 14)
+    cluster = make_cluster(caps, params, device=device)
+    if case == "reuse":
+        cluster.remove_node(5)
+    eng = cluster.engine
+    eng.artifact()
+    v0 = cluster.version
+    if case == "holes":
+        cluster.remove_node(5)
+    else:
+        cluster.add_node(14, {"add": 1.0, "reuse": 0.7, "top": 3.0}[case])
+    return eng, v0, cluster.version
+
+
+@pytest.mark.parametrize("case,max_draws", [(c, 128) for c in DIFF_CASES] + [("add", 1)])
+def test_diff_nodes_kernel_matches_twin(cuda_device, case, max_draws):
+    eng, v0, v1 = _diff_event(case, cuda_device, AsuraParams(max_draws=max_draws))
+    a, b = eng._device_artifact_for(v0), eng._device_artifact_for(v1)
+    assert (a.top_level != b.top_level) == (case == "top")
+    tabs = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
+            b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev)
+    kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=1, max_draws=max_draws)
+    ids = _ids(100_003, cuda_device, seed=max_draws)
+    before = LAUNCHES["diff_nodes"]
+    got = diff_nodes_cuda(ids, *tabs, **kw)
+    assert LAUNCHES["diff_nodes"] == before + 1
+    assert torch.equal(got, ref.diff_fused_ref(ids, *tabs, **kw))
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("case", DIFF_CASES)
+def test_diff_replicas_kernel_matches_twin(cuda_device, case, R):
+    eng, v0, v1 = _diff_event(case, cuda_device)
+    a, b = eng._device_artifact_for(v0), eng._device_artifact_for(v1)
+    tabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
+    kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=1, max_draws=128,
+              n_replicas=R)
+    ids = _ids(100_003, cuda_device, seed=R)
+    before = LAUNCHES["diff_replicas"]
+    got = diff_replicas_cuda(ids, *tabs, **kw)
+    assert LAUNCHES["diff_replicas"] == before + 1
+    assert torch.equal(got, ref.diff_replicas_fused_ref(ids, *tabs, **kw))
+
+
+def _window(device, R):
+    router = Router({i: 1.0 for i in range(8)}, device=device)
+    sessions = np.arange(20_000, dtype=np.uint32)
+    mig = router.begin_scale_migration(
+        sessions, add=(8, 1.0), n_replicas=R, egress={n: 60 for n in range(9)}
+    )
+    driver = router.stream_driver(batch=1024, n_keys=1 << 14, n_replicas=R,
+                                  policy="pow2", seed=5, n_bins=9)
+    return router, mig, driver
+
+
+def test_migration_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device):
+    """route_device, route_replicas_device, serve_migrating,
+    superstep_migrating and plan_stream run under sync-debug "error" after
+    the per-round view refresh, and equal the CPU run (the twins)."""
+    ids = _ids(50_000, cuda_device, seed=9)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        _, m1, _ = _window(dev, 1)
+        _, m3, drv = _window(dev, 3)
+        m1.round()
+        m3.round()
+        planner = MigrationPlanner(m1.engine)
+        m1.state.pending_device()  # the per-round uploads, outside the guard
+        m3.state.pending_replicas_device()
+        chunks = list(MigrationPlanner.chunked(ids.to(dev), 1 << 14))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = [m1.route_device(ids.to(dev)), m3.route_replicas_device(ids.to(dev))]
+            res += list(drv.serve_migrating(m3)) + list(drv.superstep_migrating(m3, 2))
+            for fuse in (1, 4):
+                for part in planner.plan_stream(chunks, m1.v_from, m1.v_to, fuse=fuse):
+                    res += list(part[1:])
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        res += [drv.counts, drv.queue, drv.qhist]
+        out[dev.type] = [r.cpu() for r in res]
+    assert len(out["cuda"]) == len(out["cpu"])
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g, c)

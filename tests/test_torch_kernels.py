@@ -346,3 +346,160 @@ def test_cpu_calls_take_the_twin_and_launch_nothing():
     out_r = place_replicas_cuda(ids, len32, node_of, top_level=top, n_replicas=2)
     assert out.shape == (64,) and out_r.shape == (64, 2)
     assert LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the two-version diffs (B3, B4), alignment and ADDITION NUMBERs
+# ---------------------------------------------------------------------------
+
+from repro.core import PlacementEngine as JaxEngine  # noqa: E402
+from repro.core.asura import align_replica_sets as jax_align  # noqa: E402
+from repro_torch.convert import cluster_from_reference_json  # noqa: E402
+from repro_torch.core.asura import align_replica_sets  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.asura_place import diff_nodes_cuda, diff_replicas_cuda  # noqa: E402
+from repro.kernels.asura_place import diff_replicas_pallas  # noqa: E402
+
+DIFF_CASES = ("add", "holes", "reuse", "top")
+
+
+def _diff_event(case: str, params=AsuraParams()):
+    """(jax engine, port engine, v0, v1) around one membership event on a
+    14-node cluster of one fractional segment each (top level 3):
+
+      * ``add``   -- a node of capacity 1.0 appends a segment;
+      * ``holes`` -- a removal leaves a length-0 hole (node -1);
+      * ``reuse`` -- from the holed table, an add reuses the freed number;
+      * ``top``   -- an add of capacity 3.0 lifts the top level to 4.
+
+    Both engines hold v0 in their LRU before the cluster mutates."""
+    caps = np.random.default_rng(7).uniform(0.5, 0.99, 14)
+    jc = make_cluster(caps, params=params)
+    if case == "reuse":
+        jc.remove_node(5)
+    tc = cluster_from_reference_json(jc.to_json(), device="cpu")
+    je = JaxEngine(jc, backend="pallas")
+    je.artifact()
+    tc.engine.artifact()
+    v0 = jc.version
+    for c in (jc, tc):
+        if case == "holes":
+            c.remove_node(5)
+        else:
+            c.add_node(14, {"add": 1.0, "reuse": 0.7, "top": 3.0}[case])
+    assert tc.seg_lengths().tolist() == jc.seg_lengths().tolist()
+    return je, tc.engine, v0, jc.version
+
+
+def _tops(te, v0, v1):
+    return te.artifact_for(v0).top_level, te.artifact_for(v1).top_level
+
+
+def test_diff_events_cover_the_table_shapes():
+    for case in DIFF_CASES:
+        _, te, v0, v1 = _diff_event(case)
+        a, b = te.artifact_for(v0), te.artifact_for(v1)
+        if case == "add":
+            assert b.n_segs == a.n_segs + 1
+        if case == "holes":
+            assert a.n_segs == b.n_segs and (b.node_of == -1).sum() == 1
+        if case == "reuse":
+            assert a.n_segs == b.n_segs and (a.node_of == -1).sum() == 1
+            assert (b.node_of == -1).sum() == 0
+        assert (a.top_level != b.top_level) == (case == "top")
+
+
+@pytest.mark.parametrize("case,max_draws", [(c, 128) for c in DIFF_CASES] + [("add", 1)])
+def test_diff_nodes_wrapper_matches_pallas(case, max_draws):
+    """The CPU wrapper of B3 equals the reference's ``diff_nodes_pallas``
+    (interpret mode, through its engine); max_draws=1 forces a tail."""
+    je, te, v0, v1 = _diff_event(case, AsuraParams(max_draws=max_draws))
+    ids = _ids(2048, seed=len(case) + max_draws)
+    _, j_src, j_dst = je.diff_nodes_device(ids, v0, v1)
+    a, b = te._device_artifact_for(v0), te._device_artifact_for(v1)
+    top_a, top_b = _tops(te, v0, v1)
+    got = diff_nodes_cuda(
+        _t(ids), a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
+        b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev,
+        top_a=top_a, top_b=top_b, max_draws=max_draws,
+    )
+    assert got.shape == (2, 2048) and got.dtype == torch.int32
+    assert np.array_equal(got[0].numpy(), np.asarray(j_src))
+    assert np.array_equal(got[1].numpy(), np.asarray(j_dst))
+    moved, src, dst = te.diff_nodes_device(_t(ids), v0, v1)
+    assert torch.equal(moved, src != dst) and torch.equal(src, got[0])
+    if max_draws == 1:
+        tail = ref.place_ref(_t(ids), a.len32_dev, top_level=top_a, max_draws=1)
+        assert (tail < 0).any()
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("case", DIFF_CASES)
+def test_diff_replicas_wrapper_matches_pallas(case, R):
+    """The CPU wrapper of B4 equals the reference's
+    ``diff_replicas_pallas`` (interpret mode), and the port's alignment
+    equals the reference engine's (moved, src, dst, src_slot)."""
+    je, te, v0, v1 = _diff_event(case)
+    ids = _ids(1024, seed=R + len(case))
+    a, b = te._device_artifact_for(v0), te._device_artifact_for(v1)
+    top_a, top_b = _tops(te, v0, v1)
+    sets = diff_replicas_cuda(
+        _t(ids), a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev,
+        top_a=top_a, top_b=top_b, n_replicas=R,
+    )
+    assert sets.shape == (2, 1024, R) and sets.dtype == torch.int32
+    ja, jb = je._device_artifact_for(v0), je._device_artifact_for(v1)
+    j_sets = np.asarray(diff_replicas_pallas(
+        jnp.asarray(ids), ja.len32_dev, ja.node_of_dev, jb.len32_dev,
+        jb.node_of_dev, top_a=top_a, top_b=top_b, n_replicas=R,
+        rows_per_block=8,  # one block of 1024 ids, no padding
+    ))
+    assert np.array_equal(sets.numpy(), j_sets)
+    want = je.diff_replicas_device(ids, v0, v1, R)
+    got = te.diff_replicas_device(_t(ids), v0, v1, R)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert torch.equal(got[2], sets[1])
+
+
+def test_align_replica_sets_matches_reference():
+    """The port's host spec and device twin of the per-slot alignment equal
+    the reference's, on sets with shared, moved and reordered members."""
+    rng = np.random.default_rng(3)
+    n, R = 4000, 4
+    before = np.stack([rng.permutation(9)[:R] for _ in range(n)])
+    after = before.copy()
+    swap = rng.random(n) < 0.5
+    after[swap] = after[swap][:, ::-1]  # same members, other positions
+    for i in np.nonzero(rng.random(n) < 0.6)[0]:
+        fresh = np.setdiff1d(np.arange(9, 14), after[i])
+        after[i, rng.integers(R)] = rng.choice(fresh)
+    want = jax_align(before, after)
+    host = align_replica_sets(before, after)
+    for h, w in zip(host, want):
+        assert np.array_equal(h, w)
+    j_dev = jops._align_replica_sets(jnp.asarray(before), jnp.asarray(after), n_replicas=R)
+    t_dev = ops.align_replica_sets(_t(before), _t(after))
+    for t, j in zip(t_dev, j_dev):
+        assert np.array_equal(t.numpy(), np.asarray(j))
+    assert np.array_equal(t_dev[0].numpy(), want[0])
+
+
+@pytest.mark.parametrize("R", [1, 3])
+def test_addition_numbers_ref_matches_reference(R):
+    c = make_cluster(np.random.default_rng(R).uniform(0.5, 1.5, 16))
+    len32, top = jops.table_prep(c.seg_lengths())
+    n_segs = len(c.seg_lengths())
+    len32 = np.asarray(len32)[:n_segs]
+    node_of = c.seg_to_node().astype(np.int32)
+    ids = _ids(2048, seed=R)
+    for extra in (0, 2):
+        want = np.asarray(jref.addition_numbers_ref(
+            jnp.asarray(ids), jnp.asarray(len32), jnp.asarray(node_of),
+            top_level=top + extra, n_replicas=R,
+        ))
+        got = ref.addition_numbers_ref(_t(ids), _t(len32), _t(node_of),
+                                       top_level=top + extra, n_replicas=R)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), want)
+        assert (want >= 0).any() and (want < 0).any()  # both kinds of lane
