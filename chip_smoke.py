@@ -47,12 +47,37 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
      2**18 tracked ids and batch 4096 runs on the card and on the CPU (the
      twins); plans, round matrices, chosen nodes, counts, queue, qhist and
      the metrics slab must agree bit for bit;
-  6. (printed last) one JSON line per kernel (B1-B4): launches on the main
-     paths (phases 4, 5 and 8), time at 2**24 ids, the twin's time, and
-     the least time the card could take for the same work.
+  9. the paper's baselines (consistent hashing, random slicing, weighted
+     rendezvous), under sync-debug "error" wherever a device path runs:
+     9a. the lookup kernels B5 (ch), B6 (rs) against their twins on
+         2**20 + 13 ids on both clusters, plus ids whose hashes land on,
+         and next to, every table point (``fmix32`` inverted); B7 (wrh)
+         on 2**16 + 13 ids on the 4096-node cluster and on a 4097-node one
+         (a padding tail); the fan-out kernel at R in {1, 3, 5, 12} with
+         its [reprobes] stat, and at R = 6 on a 4-node cluster (slots stay
+         -1); all exact;
+     9b. bulk: ``PlacementEngine(cluster, algorithm=alg)`` on the card,
+         ``place_nodes_device`` and ``place_replica_nodes_device`` (R = 3)
+         on 2**24 ids (2**20 for wrh, O(N) per id), median of 10 CUDA-event
+         timings; one upload per (algorithm, version), and the ASURA
+         engine's artifact still cached after it placed all three;
+     9c. serving: ``Router(caps, algorithm=alg).stream_driver`` at the
+         phase-5 configuration, 16 instrumented steps, ``superstep(4)``
+         held to 4 ``step()`` calls; the same driver at batch 4096 on the
+         card and on the CPU must agree in chosen nodes, counts, queue,
+         qhist and slab (``baseline.reprobes`` included);
+     9d. movement: ``plan_scale_event`` on the 2**20 serving keys, add
+         node 4096 (capacity 1.0), then remove node 2048; moved share
+         beside the capacity share and the wrong-direction counts (0 for
+         ch and wrh); the rs plans must equal the CPU run's;
+  6. (printed last) one JSON line per kernel (B1-B7 and the fan-out):
+     launches on the main paths (phases 4, 5, 8, 9b-9d), time at the
+     bulk size, the twin's time, the least time the card could take for
+     the same work, and for B5 / B6 the time of ``torch.searchsorted``.
 
-``--profile`` also traces 4 serving steps, and 4 ``serve_migrating``
-batches on the drained window, with ``torch.profiler`` and prints the
+``--profile`` also traces 4 serving steps, 4 ``serve_migrating``
+batches on the drained window and 4 serving steps under each baseline
+with ``torch.profiler`` and prints the
 device busy time per batch, the idle share and the kernels that fill it
 (PERF.md section 5).
 
@@ -101,7 +126,34 @@ REPLACES = {
     "diff_nodes": "src/repro/kernels/asura_place.py:578",
     "diff_replicas": "src/repro/kernels/asura_place.py:669",
 }
+SOURCE_BASELINES = "src/repro_torch/kernels/csrc/baselines.cu"
+BASELINES = ("ch", "rs", "wrh")
+REPLACES.update({
+    "ch_place": "src/repro/kernels/baselines.py:303",
+    "rs_place": "src/repro/kernels/baselines.py:319",
+    "wrh_place": "src/repro/kernels/baselines.py:335",
+})
 KERNELS = tuple(REPLACES)
+FANOUT = "baseline_replicas"  # no TPU kernel: the reference's jnp loop
+FANOUT_OF = "src/repro/kernels/baselines.py:389"
+WRH_IDS = 1 << 20  # bulk wrh: O(N) per id
+WRH_CHECK_IDS = (1 << 16) + 13
+CPU_STEPS = 2  # card-vs-CPU serving: 2 step() calls, then superstep(2)
+SMALL_CAPS = [1.0, 2.0, 0.5, 1.5]  # R = 6 on 4 nodes: slots stay -1
+# int32 operations of the baseline kernels, from their code: fmix32 (three
+# xor-shifts, two multiplies), one binary-search step (midpoint, load
+# address, compare, two selects), the wrap and owner gather, a fan-out
+# draw (two fmix32, level add, counter multiply, xor), and one WRH pair
+# (salt add, two fmix32, the Q16 log: 7 to normalise, 6 per squaring
+# step, 3 to finish; the valid / better compares and two selects) plus
+# its two f32 operations (the int->float convert and the multiply).
+FMIX_OPS = 8
+SEARCH_OPS = 5
+GATHER_OPS = 3
+DRAW_OPS = 20
+WRH_PAIR_OPS = 1 + 2 * FMIX_OPS + (7 + 16 * 6 + 3) + 4
+WRH_PAIR_F32 = 2
+FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
 PLAN_CHUNKS = 16  # plan_stream chunks (2**20 ids each at 2**24 tracked ids)
 WINDOW_INGRESS = 64  # rows the new node may receive per mover round
 MIN_ROUNDS = 8
@@ -224,10 +276,29 @@ def print_profile(prof: dict) -> None:
         print("  profiler: device time not measured (no CUDA events in the trace)")
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, ops: float, f32_ops: float = 0.0) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
+    t_ops = ops / INT32_OPS_PER_S + f32_ops / FP32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def unfmix32(np, h):
+    """Ids whose MurmurHash3 finalizer is ``h`` (the finalizer inverted)."""
+    h = h.astype(np.uint64)
+    h ^= h >> 16
+    h = (h * pow(0xC2B2AE35, -1, 2**32)) & 0xFFFFFFFF
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * pow(0x85EBCA6B, -1, 2**32)) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h.astype(np.uint32)
+
+
+def edge_ids(np, points):
+    """Ids hashing to 0, 0xFFFFFFFF and to every table point and its
+    neighbours (duplicated points once)."""
+    p = points.astype(np.int64)
+    h = np.concatenate([[0, 1, 2**32 - 2, 2**32 - 1], p - 1, p, p + 1])
+    return unfmix32(np, np.unique(np.clip(h, 0, 2**32 - 1)))
 
 
 def run(seed: int, dev, profile: bool = False) -> dict:
@@ -249,7 +320,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {name: 0 for name in KERNELS}
+    worst = {name: 0 for name in KERNELS + (FANOUT,)}
 
     def hold(name: str, what: str, got, want) -> None:
         bad, err = mismatches(torch, got, want)
@@ -466,24 +537,42 @@ def run(seed: int, dev, profile: bool = False) -> dict:
           f"(plans, round matrices, chosen, counts, queue, qhist, slab; "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    # -- B3 / B4 times at 2**24 ids -----------------------------------------
+    # -- phase 9: the baselines ----------------------------------------------
+    base = phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile)
+
+    # -- B3-B7 and the fan-out: times, twins, work ----------------------------
     ms.update(diff_work["ms"])
     plain.update(diff_work["plain"])
     work.update(diff_work["work"])
+    ms.update(base["ms"])
+    plain.update(base["plain"])
+    work.update(base["work"])
+    library = base["library"]
 
     # -- phase 6: the kernels line -------------------------------------------
+    main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"])
     kernels = []
-    for name in KERNELS:
+    for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
-        launches = bulk_launches[name] + serve_launches[name] + mig_launches[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        launches = sum(part.get(name, 0) for part in main_paths)
+        entry = {
+            "name": name, "route": "cuda",
+            "source": SOURCE if name in KERNELS[:4] else SOURCE_BASELINES,
+            "replaces": REPLACES.get(name, FANOUT_OF),
             "launches": launches,
             "max_abs_err": worst[name], "ms": ms[name], "plain_ms": plain[name],
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library.get(name),
+        }
+        if name == FANOUT:
+            entry["note"] = ("no TPU counterpart: the reference runs this R-way "
+                             "fan-out as a jnp loop; times are ch at R=3")
+            entry["ms_by_algorithm"] = base["fanout_ms"]
+        kernels.append(entry)
+        lib = "" if entry["library_ms"] is None else f", library {entry['library_ms']:.4f} ms"
         print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
-              f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms")
+              f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms"
+              f"{lib}")
+        require(launches > 0, f"{name} was not launched on the main paths")
     return {"kernels": kernels}
 
 
@@ -772,6 +861,280 @@ def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: 
         with uncounted(ap.LAUNCHES):
             print_profile(profile_steps(torch, lambda: second.serve_migrating(mig), 4))
     return res
+
+
+def phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -> dict:
+    """The paper's baselines on the card: 9a kernels against twins, 9b
+    bulk, 9c serving, 9d movement.  Returns the kernels' times, twin and
+    library times, work, and the launch counts of the main paths."""
+    from repro_torch.core import PlacementEngine, make_cluster
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels import baselines as tb
+    from repro_torch.kernels import baselines_ref as tr
+    from repro_torch.kernels.ref import fmix32
+    from repro_torch.kernels.u32 import as_u32
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import Router, TrafficModel
+
+    kernel = {"ch": "ch_place", "rs": "rs_place", "wrh": "wrh_place"}
+    n = LADDER_NODES
+    victim = n // 2
+    out = {"ms": {}, "plain": {}, "library": {}, "work": {}, "fanout_ms": {}}
+
+    def artifact(alg, cc, history=False):
+        """A device artifact of ``alg`` on a cluster of capacities ``cc``;
+        with ``history`` rs is built, then rebalanced for an add of node
+        len(cc) and a removal of node len(cc) // 2."""
+        cluster = make_cluster(cc)
+        eng = PlacementEngine(cluster, device=dev, algorithm=alg)
+        if history:
+            eng.artifact()
+            cluster.add_node(len(cc), 1.0)
+            eng.artifact()
+            cluster.remove_node(len(cc) // 2)
+        return eng._device_artifact()
+
+    # -- 9a: kernels against twins -------------------------------------------
+    print(f"phase 9a: baseline kernels vs twins on the card, exact")
+    with uncounted(LAUNCHES):
+        for alg in ("ch", "rs"):
+            for n_nodes in (LADDER_NODES, HUGE_NODES):
+                hist = alg == "rs" and n_nodes == LADDER_NODES
+                art = artifact(alg, caps[n_nodes], history=hist)
+                edge = torch.from_numpy(edge_ids(np, art.keys)).to(dev)
+                sub = torch.cat([ids, edge])
+                place = getattr(tb, f"{kernel[alg]}_cuda")
+                hold(kernel[alg], f"{n_nodes} nodes, {art.n_entries} entries, "
+                     f"{ids.shape[0]}+{edge.shape[0]} edge ids",
+                     place(sub, art.keys_dev, art.vals_dev),
+                     tr.LOOKUPS[alg](sub, art.keys_dev, art.vals_dev))
+        tail_caps = np.concatenate([caps[n], [1.0]])  # 4097 nodes: a padding tail
+        for cc in (caps[n], tail_caps):
+            art = artifact("wrh", cc)
+            sub = ids[:WRH_CHECK_IDS]
+            hold("wrh_place", f"{len(cc)} nodes ({art.keys_dev.shape[0]} padded), "
+                 f"{WRH_CHECK_IDS} ids",
+                 tb.wrh_place_cuda(sub, art.keys_dev, art.vals_dev),
+                 tr.wrh_lookup(sub, art.keys_dev, art.vals_dev))
+        for alg in BASELINES:
+            art = artifact(alg, caps[n], history=alg == "rs")
+            for R in (1, 3, 5, 12):
+                m = WRH_CHECK_IDS if alg == "wrh" else (CHECK_IDS if R < 12 else 1 << 16)
+                sub = ids[:m]
+                got, st = tb.baseline_replicas_cuda(alg, sub, art.keys_dev, art.vals_dev,
+                                                    n_replicas=R, emit_stats=True)
+                want, st_t = tr.baseline_replicas_lookup(alg, sub, art.keys_dev, art.vals_dev,
+                                                         n_replicas=R, emit_stats=True)
+                hold(FANOUT, f"{alg} R={R} {m} ids", got, want)
+                hold(FANOUT, f"{alg} R={R} {m} ids [reprobes] {int(as_u32(st)[0])}", st, st_t)
+            small = artifact(alg, SMALL_CAPS)
+            sub = ids[: 1 << 16]
+            got, st = tb.baseline_replicas_cuda(alg, sub, small.keys_dev, small.vals_dev,
+                                                n_replicas=6, emit_stats=True)
+            want, st_t = tr.baseline_replicas_lookup(alg, sub, small.keys_dev, small.vals_dev,
+                                                     n_replicas=6, emit_stats=True)
+            short = int((got < 0).sum())
+            hold(FANOUT, f"{alg} R=6 on 4 nodes, {short} slots -1", got, want)
+            hold(FANOUT, f"{alg} R=6 on 4 nodes [reprobes]", st, st_t)
+            require(short >= 2 * sub.shape[0], f"{alg}: R=6 on 4 nodes filled too many slots")
+
+    # -- 9b: bulk, per algorithm ----------------------------------------------
+    print(f"phase 9b: PlacementEngine(algorithm=...) on the card, {BULK_IDS} ids "
+          f"({WRH_IDS} for wrh), R=3")
+    cluster = make_cluster(caps[n])
+    asura = PlacementEngine(cluster)
+    asura_art = asura.artifact()
+    engines = {alg: PlacementEngine(cluster, algorithm=alg) for alg in BASELINES}
+    arts = {alg: engines[alg].artifact() for alg in BASELINES}  # uploads, unguarded
+    size = {alg: WRH_IDS if alg == "wrh" else BULK_IDS for alg in BASELINES}
+    ev = {(alg, what): [] for alg in BASELINES for what in ("nodes", "replicas")}
+    res = {}
+    torch.cuda.synchronize()
+    LAUNCHES.update({k: 0 for k in LAUNCHES})
+    with sync_guard(torch, dev):
+        for alg in BASELINES:
+            sub = bulk[: size[alg]]
+            for _ in range(1 + TIMED_CALLS):
+                for what, call in (
+                    ("nodes", lambda: engines[alg].place_nodes_device(sub)),
+                    ("replicas", lambda: engines[alg].place_replica_nodes_device(sub, 3)),
+                ):
+                    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    s.record()
+                    res[alg, what] = call()
+                    e.record()
+                    ev[alg, what].append((s, e))
+    bulk_launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    print(f"  launches {({k: v for k, v in bulk_launches.items() if v})}")
+    for alg in BASELINES:
+        require(engines[alg].uploads == 1, f"{alg} engine uploaded {engines[alg].uploads}")
+        for what in ("nodes", "replicas"):
+            t = statistics.median(s.elapsed_time(e) for s, e in ev[alg, what][1:])
+            print(f"  {alg:3s} {what:8s} median {t:.4f} ms over {TIMED_CALLS} calls on "
+                  f"{size[alg]} ids, {size[alg] / t * 1e3:.4g} ids/s")
+            if what == "nodes":
+                out["ms"][kernel[alg]] = t
+            else:
+                out["fanout_ms"][alg] = t
+    out["ms"][FANOUT] = out["fanout_ms"]["ch"]
+    with uncounted(LAUNCHES):
+        for alg in BASELINES:  # ASURA's engine places all three; its table stays
+            asura.place_nodes_device(bulk[:4096], algorithm=alg)
+        require(asura.uploads == 4, f"the ASURA engine uploaded {asura.uploads} tables")
+        require(asura.artifact_for(cluster.version, "asura") is asura_art,
+                "a baseline upload displaced the ASURA artifact")
+        for alg in BASELINES:
+            art = arts[alg]
+            m = size[alg] if alg != "wrh" else min(size[alg], 1 << 16)
+            sub = bulk[:m]
+            hold(kernel[alg], f"engine place_nodes_device {m} ids",
+                 res[alg, "nodes"][:m], tr.LOOKUPS[alg](sub, art.keys_dev, art.vals_dev))
+            hold(FANOUT, f"{alg} engine place_replica_nodes_device R=3 {m} ids",
+                 res[alg, "replicas"][:m],
+                 tr.baseline_replicas_lookup(alg, sub, art.keys_dev, art.vals_dev,
+                                             n_replicas=3))
+            # twin times: at the bulk size for ch / rs, at 2**16 ids for wrh
+            out["plain"][kernel[alg]] = statistics.median(cuda_ms(
+                torch, lambda: tr.LOOKUPS[alg](sub, art.keys_dev, art.vals_dev), 2))
+            if alg != "wrh":  # the one torch call doing their search
+                h = fmix32(as_u32(sub))
+                table = as_u32(art.keys_dev)
+                out["library"][kernel[alg]] = statistics.median(cuda_ms(
+                    torch, lambda: torch.searchsorted(table, h, right=alg == "rs"),
+                    TIMED_CALLS))
+            # the work this run's data needs
+            sub = bulk[: size[alg]]
+            _, st = tb.baseline_replicas_cuda(alg, sub, art.keys_dev, art.vals_dev,
+                                              n_replicas=3, emit_stats=True)
+            reprobes = int(as_u32(st)[0])
+            n_pad, N = art.keys_dev.shape[0], size[alg]
+            table_bytes = 8 * n_pad
+            if alg == "wrh":
+                lookup_ops, lookup_f32 = n_pad * WRH_PAIR_OPS + GATHER_OPS, n_pad * WRH_PAIR_F32
+            else:
+                lookup_ops, lookup_f32 = FMIX_OPS + n_pad.bit_length() * SEARCH_OPS + GATHER_OPS, 0
+            out["work"][kernel[alg]] = (8 * N + table_bytes, N * lookup_ops, N * lookup_f32)
+            fan = (16 * N + table_bytes, (N + reprobes) * lookup_ops
+                   + reprobes * (DRAW_OPS + 3), (N + reprobes) * lookup_f32)
+            print(f"  {alg:3s} work: {n_pad} padded entries, {lookup_ops} int32 ops per "
+                  f"lookup; R=3 fan-out {reprobes} reprobes ({reprobes / N:.4f} per id); "
+                  f"twin {out['plain'][kernel[alg]]:.2f} ms on {m} ids"
+                  + (f", torch.searchsorted {out['library'][kernel[alg]]:.4f} ms"
+                     if alg != "wrh" else ""))
+            if alg == "ch":
+                out["work"][FANOUT] = fan
+                out["plain"][FANOUT] = statistics.median(cuda_ms(
+                    torch, lambda: tr.baseline_replicas_lookup(
+                        alg, sub, art.keys_dev, art.vals_dev, n_replicas=3), 2))
+
+    # -- 9c: serving, per algorithm -------------------------------------------
+    print(f"phase 9c: Router(algorithm=...).stream_driver batch {SERVE_BATCH}, "
+          f"{SERVE_KEYS} keys, zipf 1.1, R=3, pow2, {SERVE_STEPS} steps")
+    rcaps = {i: float(c) for i, c in enumerate(caps[n])}
+    cfg = dict(batch=SERVE_BATCH, n_keys=SERVE_KEYS, law="zipf", alpha=1.1,
+               n_replicas=3, policy="pow2", seed=seed)
+    serve_launches = {}
+    for alg in BASELINES:
+        router = Router(rcaps, algorithm=alg)
+        metrics = MetricsRegistry()
+        driver = router.stream_driver(metrics=metrics, **cfg)
+        torch.cuda.synchronize()
+        before = dict(LAUNCHES)
+        chosen, step_ev = [], []
+        t0 = time.perf_counter()
+        with sync_guard(torch, dev):
+            for _ in range(SERVE_STEPS):
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                chosen.append(driver.step())
+                e.record()
+                step_ev.append((s, e))
+        for k, v in LAUNCHES.items():
+            serve_launches[k] = serve_launches.get(k, 0) + v - before[k]
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in step_ev)
+        counts = driver.load_counts()
+        require(int(counts.sum()) == SERVE_STEPS * SERVE_BATCH, f"{alg}: counts sum {counts.sum()}")
+        live = torch.tensor(sorted(router.cluster.nodes), device=dev, dtype=torch.int32)
+        require(bool(torch.isin(torch.stack(chosen), live).all()), f"{alg}: a dead node served")
+        snap = metrics.snapshot()
+        require(np.array_equal(snap["serve.served"].astype(np.int64), counts.astype(np.int64)),
+                f"{alg}: slab serve.served != load_counts")
+        reprobes = int(snap["baseline.reprobes"])
+        require(reprobes > 0, f"{alg}: no reprobes counted")
+        with uncounted(LAUNCHES):
+            second = router.stream_driver(metrics=MetricsRegistry(), **cfg)
+            with sync_guard(torch, dev):
+                four = second.superstep(4)
+            require(torch.equal(four, torch.stack(chosen[:4])),
+                    f"{alg}: superstep(4) differs from 4 step() calls")
+            if profile:
+                print(f"  {alg} serving under the profiler (uncounted):")
+                print_profile(profile_steps(torch, second.step, 4))
+        print(f"  {alg:3s} step median {step_ms:.4f} ms (CUDA events), {wall:.4f} ms wall; "
+              f"load_skew {driver.load_skew():.6f}, queue_p99 {driver.queue_p99()}, "
+              f"reprobes {reprobes} ({reprobes / (SERVE_STEPS * SERVE_BATCH):.4f} per request); "
+              f"superstep(4) == 4 steps")
+    require(serve_launches.get(FANOUT, 0) == 3 * SERVE_STEPS,
+            f"serving launched the fan-out {serve_launches.get(FANOUT)} times")
+    small = dict(cfg, batch=SMALL_BATCH)
+    for alg in BASELINES:
+        t0 = time.perf_counter()
+        got = []
+        with uncounted(LAUNCHES):
+            for where in (dev, torch.device("cpu")):
+                reg = MetricsRegistry(device=where)
+                d = Router(rcaps, algorithm=alg, device=where).stream_driver(metrics=reg, **small)
+                with sync_guard(torch, where):
+                    cs = [d.step() for _ in range(CPU_STEPS)] + [d.superstep(2)]
+                got.append(([c.cpu() for c in cs] + [d.counts.cpu(), d.queue.cpu(),
+                                                     d.qhist.cpu()], reg.snapshot()))
+        (a, sa), (b, sb) = got
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{alg}: the card's driver differs from the CPU's")
+        require(sa.keys() == sb.keys() and all(np.array_equal(np.asarray(sa[k]), np.asarray(sb[k]))
+                                               for k in sa), f"{alg}: slab differs from the CPU's")
+        print(f"  {alg:3s} batch {SMALL_BATCH}: card == CPU in chosen, counts, queue, qhist, "
+              f"slab (reprobes {int(sa['baseline.reprobes'])}; "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+    # -- 9d: movement, per algorithm ------------------------------------------
+    keys = TrafficModel.ids_from_ranks(
+        torch.arange(SERVE_KEYS, dtype=torch.int64), TrafficModel(SERVE_KEYS, seed=seed).id_salt
+    ).numpy().astype(np.uint32)
+    total = float(np.sum(caps[n])) + 1.0
+    print(f"phase 9d: plan_scale_event on {SERVE_KEYS} keys: add node {n} (capacity 1.0), "
+          f"then remove node {victim}")
+    before = dict(LAUNCHES)
+    plans = {}
+    for alg in BASELINES:
+        router = Router(rcaps, algorithm=alg)
+        t0 = time.perf_counter()
+        add = router.plan_scale_event(keys, add=(n, 1.0))
+        rm = router.plan_scale_event(keys, remove=victim)
+        dt = time.perf_counter() - t0
+        plans[alg] = (add.moved_sessions, rm.moved_sessions)
+        wrong_add = sum(dst != n for _, dst in add.moved_sessions.values())
+        wrong_rm = sum(src != victim for src, _ in rm.moved_sessions.values())
+        print(f"  {alg:3s} add: moved {add.n_reprefills / SERVE_KEYS:.6f} of keys (capacity "
+              f"share {1.0 / total:.6f}), {wrong_add} rows to another node; removal: moved "
+              f"{rm.n_reprefills / SERVE_KEYS:.6f} (capacity share {caps[n][victim] / total:.6f}), "
+              f"{wrong_rm} rows from another node; {dt:.3f} s")
+        require(add.n_reprefills > 0 and rm.n_reprefills > 0, f"{alg}: an event moved nothing")
+        if alg != "rs":
+            require(wrong_add == 0 and wrong_rm == 0, f"{alg} moved rows the wrong way")
+    move_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
+    with uncounted(LAUNCHES):
+        t0 = time.perf_counter()
+        cpu = Router(rcaps, algorithm="rs", device="cpu")
+        cpu_plans = (cpu.plan_scale_event(keys, add=(n, 1.0)).moved_sessions,
+                     cpu.plan_scale_event(keys, remove=victim).moved_sessions)
+        require(cpu_plans == plans["rs"], "rs: the card's plans differ from the CPU's")
+        print(f"  rs plans equal to the CPU run's ({time.perf_counter() - t0:.1f} s)")
+    out["launches"] = (bulk_launches, serve_launches, move_launches)
+    return out
 
 
 def main() -> int:

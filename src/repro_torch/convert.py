@@ -11,7 +11,18 @@ two functions are the port's loaders for that state:
     arrays plus device tables) straight from the reference engine's
     NumPy tables (``len32``, ``node_of``, ``top_level``, ``version``).
 
-Both take plain JSON / NumPy, so nothing of the reference is imported.
+The baselines carry over the same way:
+
+  * ``baseline_artifact_from_arrays`` builds the port's
+    ``BaselineArtifact`` from a reference baseline artifact's canonical
+    ``keys`` / ``vals``;
+  * ``rs_table_from_intervals`` rebuilds a ``RandomSlicingTable`` from a
+    reference table's ``_intervals`` and ``weights``: random slicing is
+    history-dependent, so a port engine continues a reference engine's
+    slicing from it (``PlacementEngine._rs_shadow``).
+
+All take plain JSON / NumPy / Python values, so nothing of the reference
+is imported.
 """
 
 from __future__ import annotations
@@ -19,7 +30,14 @@ from __future__ import annotations
 import numpy as np
 
 from .core.cluster import Cluster
-from .core.engine import TableArtifact, with_device_tables
+from .core.engine import (
+    ALGORITHMS,
+    BaselineArtifact,
+    TableArtifact,
+    with_baseline_device_tables,
+    with_device_tables,
+)
+from .core.random_slicing import RandomSlicingTable
 
 
 def cluster_from_reference_json(blob: str, *, device=None) -> Cluster:
@@ -46,3 +64,40 @@ def artifact_from_arrays(
         node_of=node_of,
     )
     return with_device_tables(art, device)
+
+
+def baseline_artifact_from_arrays(
+    algorithm: str, keys, vals, version: int, device=None
+) -> BaselineArtifact:
+    """The port's baseline artifact for one version, device tables
+    included.  ``keys`` / ``vals`` are the reference artifact's canonical
+    arrays: (ring u32, owners i32) for ``ch``, (starts u32, owners i32) for
+    ``rs``, (node ids u32, weights f32) for ``wrh``."""
+    if algorithm not in ALGORITHMS or algorithm == "asura":
+        raise ValueError(f"algorithm must be one of {ALGORITHMS[1:]}, got {algorithm!r}")
+    keys = np.ascontiguousarray(np.asarray(keys, dtype=np.uint32))
+    vals = np.ascontiguousarray(
+        np.asarray(vals, dtype=np.float32 if algorithm == "wrh" else np.int32)
+    )
+    if keys.shape != vals.shape or keys.ndim != 1:
+        raise ValueError(f"keys {keys.shape} and vals {vals.shape} must be equal 1-D")
+    art = BaselineArtifact(
+        algorithm=algorithm,
+        version=int(version),
+        n_entries=int(keys.shape[0]),
+        keys=keys,
+        vals=vals,
+    )
+    return with_baseline_device_tables(art, device)
+
+
+def rs_table_from_intervals(intervals, weights) -> RandomSlicingTable:
+    """A port ``RandomSlicingTable`` equal to the reference table whose
+    ``_intervals`` ((start, length, owner) triples) and ``weights`` are
+    given; later ``rebalance`` calls continue its slicing exactly."""
+    table = RandomSlicingTable()
+    table._intervals = sorted((int(s), int(n), int(o)) for s, n, o in intervals)
+    if sum(n for _, n, _ in table._intervals) != 1 << 32:
+        raise ValueError("the intervals must cover the u32 circle exactly once")
+    table.weights = {int(k): float(v) for k, v in weights.items()}
+    return table

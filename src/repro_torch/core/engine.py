@@ -1,7 +1,8 @@
 """PlacementEngine: versioned, device-resident table artifacts per cluster.
 
-The port of the reference engine's flat-ASURA half.  The engine owns a
-small LRU of ``TableArtifact`` snapshots keyed by ``Cluster.version``:
+The port of the reference engine's flat half (ASURA and the paper's
+baselines).  For ASURA the engine owns a small LRU of ``TableArtifact``
+snapshots keyed by ``Cluster.version``:
 canonical u32 lengths, the seg->node map, the static ladder top level and
 their device copies (plus the u64 length-cumsum halves the on-device tail
 reads), so one STEP-1 mutation costs exactly ONE table materialization
@@ -29,9 +30,25 @@ place every id under two versions in one launch (the planner's
 primitives), and ``addition_numbers_device`` / ``remove_numbers_batch``
 compute the section 2.D metadata.
 
+The engine also serves the paper's comparison baselines (DESIGN.md
+section 9): ``algorithm`` selects ``"asura"`` (default), ``"ch"``
+(consistent hashing, ``virtual_nodes`` points per node), ``"wrh"``
+(capacity-weighted rendezvous hashing) or ``"rs"`` (random slicing).  A
+baseline's ``BaselineArtifact`` -- its canonical lookup table and device
+copies -- is materialized once per (algorithm, version) and cached in a
+PER-ALGORITHM LRU keyed on version, so an ASURA upload never evicts a
+baseline artifact or the reverse; ``place_nodes``,
+``place_replica_nodes``, their ``_device`` and ``*_at`` variants and
+``artifact_for`` dispatch on the algorithm (per call with
+``algorithm=``).  Random slicing is history-dependent: the engine carries
+one interval table forward (``rebalance`` once per version it builds, in
+version order), and an evicted version is never rebuilt.  The
+segment-table methods (``place``, ``place_replicas``, the diffs, ...)
+are ASURA-only and raise ``ValueError`` on a baseline engine.
+
 The engine is duck-typed on the cluster (``version``, ``params``,
-``seg_lengths()``, ``seg_to_node()``).  The baselines' algorithms and
-hierarchical clusters are not ported yet and raise.
+``seg_lengths()``, ``seg_to_node()``; the baselines also read ``nodes``).
+Hierarchical clusters are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -56,10 +73,16 @@ from .asura import (
     place_replicas_u32,
     resolve_tail_np,
 )
+from .consistent_hashing import build_ring
+from .random_slicing import RandomSlicingTable
 
 BACKENDS = ("device", "numpy")
 
-CACHE_VERSIONS = 4  # most-recent table versions kept materialized
+ALGORITHMS = ("asura", "ch", "wrh", "rs")
+
+CACHE_VERSIONS = 4  # most-recent table versions kept materialized per algorithm
+
+DEFAULT_VIRTUAL_NODES = 100  # the paper's CH evaluation setting
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +107,52 @@ class TableArtifact:
     @property
     def has_device_tables(self) -> bool:
         return self.len32_dev is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class BaselineArtifact:
+    """Immutable snapshot of one baseline algorithm's lookup table at one
+    cluster version.
+
+    ``keys`` / ``vals`` are the host canonical arrays:
+
+      * ``ch``  -- keys = sorted u32 ring hashes, vals = int32 owners,
+      * ``rs``  -- keys = u32 interval starts (first 0), vals = int32 owners,
+      * ``wrh`` -- keys = u32 node ids, vals = float32 capacity weights.
+
+    ``keys_dev`` / ``vals_dev`` are the lane-padded device tables the
+    kernels read (``kernels.baselines.*_table_prep``; for ``wrh`` the salts
+    and reciprocals), None until a device path needs them."""
+
+    algorithm: str
+    version: int
+    n_entries: int
+    keys: np.ndarray
+    vals: np.ndarray
+    keys_dev: Any = None
+    vals_dev: Any = None
+
+    @property
+    def has_device_tables(self) -> bool:
+        return self.keys_dev is not None
+
+    def memory_bytes(self) -> int:
+        """Table-II accounting: 8 bytes per lookup entry (key + value)."""
+        return 8 * self.n_entries
+
+
+def with_baseline_device_tables(art: BaselineArtifact, device) -> BaselineArtifact:
+    """``art`` with its lane-padded device tables (one host->device upload)."""
+    from ..kernels.baselines import TABLE_PREP
+
+    keys_dev, vals_dev = TABLE_PREP[art.algorithm](art.keys, art.vals, device=device)
+    return dataclasses.replace(art, keys_dev=keys_dev, vals_dev=vals_dev)
+
+
+def _check_algorithm(algorithm: str) -> str:
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+    return algorithm
 
 
 def with_device_tables(art: TableArtifact, device) -> TableArtifact:
@@ -111,6 +180,7 @@ class PlacementEngine:
         device=None,
         backend: str = "device",
         algorithm: str = "asura",
+        virtual_nodes: int = DEFAULT_VIRTUAL_NODES,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
@@ -118,102 +188,165 @@ class PlacementEngine:
             raise NotImplementedError(
                 "hierarchical clusters are not ported yet (ROADMAP A6)"
             )
-        self.algorithm = self._resolve_algorithm(algorithm)
+        self.algorithm = _check_algorithm(algorithm)
         self.cluster = cluster
         self.params: AsuraParams = getattr(cluster, "params", DEFAULT_PARAMS)
         self.device = resolve_device(device)
         self.backend = backend
-        self._artifacts: OrderedDict[int, TableArtifact] = OrderedDict()
+        self._virtual_nodes = int(virtual_nodes)
+        # algorithm -> (version -> artifact, most recently used last)
+        self._artifacts: dict[str, OrderedDict[int, Any]] = {}
+        # random slicing is history-dependent: one interval table carried
+        # forward, rebalanced once per version the engine builds
+        self._rs_shadow: RandomSlicingTable | None = None
         # instance-scoped so the exact upload tripwire never aliases
         self.ledger = TraceLedger()
 
-    @staticmethod
-    def _resolve_algorithm(algorithm: str | None) -> str:
-        if algorithm not in (None, "asura"):
-            raise NotImplementedError(
-                f"algorithm {algorithm!r} is not ported yet (ROADMAP A5); "
-                "the port places with 'asura' only"
+    def _resolve_algorithm(self, algorithm: str | None) -> str:
+        """``algorithm``, or the engine's own when None (checked)."""
+        return self.algorithm if algorithm is None else _check_algorithm(algorithm)
+
+    def _require_asura(self, method: str) -> None:
+        if self.algorithm != "asura":
+            raise ValueError(
+                f"{method} is segment-table semantics, ASURA-only; this "
+                f"engine's algorithm is {self.algorithm!r} -- use "
+                "place_nodes / place_nodes_device (they dispatch per "
+                "algorithm)"
             )
-        return "asura"
 
     @property
     def uploads(self) -> int:
-        """Table materializations (one per version) -- a ledger counter."""
+        """Table materializations (one per (algorithm, version)) -- a
+        ledger counter."""
         return self.ledger.counter("engine.uploads")
 
     # -- artifact lifecycle --------------------------------------------------
 
-    def _store(self, art: TableArtifact) -> None:
-        self._artifacts[art.version] = art
-        while len(self._artifacts) > CACHE_VERSIONS:
-            evicted, _ = self._artifacts.popitem(last=False)
-            self.ledger.incr("engine.lru_evictions")
-            self.ledger.event("engine.lru_evict", "asura", version=evicted)
+    def _cache(self, algorithm: str) -> OrderedDict:
+        return self._artifacts.setdefault(algorithm, OrderedDict())
 
-    def artifact(self) -> TableArtifact:
-        """The current version's table, rebuilt (and re-uploaded) only when
-        ``cluster.version`` is not among the cached artifacts."""
+    def _store(self, algorithm: str, art) -> None:
+        cache = self._cache(algorithm)
+        cache[art.version] = art
+        while len(cache) > CACHE_VERSIONS:
+            evicted, _ = cache.popitem(last=False)
+            self.ledger.incr("engine.lru_evictions")
+            self.ledger.event("engine.lru_evict", algorithm, version=evicted)
+
+    def artifact(self, algorithm: str | None = None):
+        """The current version's table under ``algorithm`` (default: the
+        engine's own), rebuilt (and re-uploaded) only when ``(algorithm,
+        cluster.version)`` is not among the cached artifacts."""
+        alg = self._resolve_algorithm(algorithm)
         version = self.cluster.version
-        art = self._artifacts.get(version)
+        cache = self._cache(alg)
+        art = cache.get(version)
         if art is not None:
-            self._artifacts.move_to_end(version)
+            cache.move_to_end(version)
             self.ledger.incr("engine.lru_hits")
             return art
-        with self.ledger.span("engine.build_artifact", algorithm="asura",
+        with self.ledger.span("engine.build_artifact", algorithm=alg,
                               version=version):
-            lengths = np.asarray(self.cluster.seg_lengths(), dtype=np.float64)
-            len32 = lengths_to_u32(lengths)
-            art = TableArtifact(
-                version=version,
-                n_segs=len(len32),
-                top_level=self.params.level_for(_upper_bound(lengths)),
-                len32=len32,
-                node_of=np.asarray(self.cluster.seg_to_node(), dtype=np.int64),
-            )
-            if self.backend == "device":
-                art = with_device_tables(art, self.device)
-        self._store(art)
+            if alg == "asura":
+                art = self._build_asura_artifact(version)
+            else:
+                art = self._build_baseline_artifact(alg, version)
+        self._store(alg, art)
         self.ledger.incr("engine.uploads")
-        self.ledger.event("engine.upload", "asura", version=version,
-                          n_segs=art.n_segs)
+        self.ledger.event("engine.upload", alg, version=version,
+                          n_segs=getattr(art, "n_segs", None))
         return art
 
-    def _device_artifact(self) -> TableArtifact:
-        """``artifact()`` with device tables; on the numpy backend they are
-        built on the first ``*_device`` call, as part of the same version's
-        one materialization (``uploads`` does not tick again)."""
-        art = self.artifact()
-        if not art.has_device_tables:
+    def _build_asura_artifact(self, version: int) -> TableArtifact:
+        lengths = np.asarray(self.cluster.seg_lengths(), dtype=np.float64)
+        len32 = lengths_to_u32(lengths)
+        art = TableArtifact(
+            version=version,
+            n_segs=len(len32),
+            top_level=self.params.level_for(_upper_bound(lengths)),
+            len32=len32,
+            node_of=np.asarray(self.cluster.seg_to_node(), dtype=np.int64),
+        )
+        if self.backend == "device":
             art = with_device_tables(art, self.device)
-            self._artifacts[art.version] = art
         return art
 
-    def artifact_for(self, version: int) -> TableArtifact:
-        """The table artifact of a SPECIFIC version (migration windows).
+    def _node_weights(self) -> dict[int, float]:
+        nodes = getattr(self.cluster, "nodes", None)
+        if nodes is None:
+            raise TypeError(
+                "baseline algorithms need a cluster exposing `.nodes` "
+                "(node_id -> NodeInfo); this cluster is table-only"
+            )
+        return {int(nid): float(info.capacity) for nid, info in nodes.items()}
+
+    def _build_baseline_artifact(self, alg: str, version: int) -> BaselineArtifact:
+        weights = self._node_weights()
+        node_ids = sorted(weights)
+        if alg == "ch":
+            # the paper's CH setup: V virtual nodes per node, unweighted
+            keys, vals = build_ring(node_ids, self._virtual_nodes)
+            vals = vals.astype(np.int32)
+        elif alg == "wrh":
+            keys = np.asarray(node_ids, dtype=np.uint32)
+            vals = np.asarray([weights[n] for n in node_ids], dtype=np.float32)
+        else:  # rs: carry the interval table forward to this version
+            if self._rs_shadow is None:
+                self._rs_shadow = RandomSlicingTable()
+            self._rs_shadow.rebalance(weights)
+            keys, vals = self._rs_shadow.starts_owners()
+        art = BaselineArtifact(
+            algorithm=alg, version=version, n_entries=int(keys.shape[0]),
+            keys=keys, vals=vals,
+        )
+        if self.backend == "device":
+            art = with_baseline_device_tables(art, self.device)
+        return art
+
+    def _with_device_tables(self, alg: str, art):
+        """``art`` with device tables; on the numpy backend they are built
+        on the first ``*_device`` call, as part of the same version's one
+        materialization (``uploads`` does not tick again)."""
+        if not art.has_device_tables:
+            if alg == "asura":
+                art = with_device_tables(art, self.device)
+            else:
+                art = with_baseline_device_tables(art, self.device)
+            self._cache(alg)[art.version] = art
+        return art
+
+    def _device_artifact(self, algorithm: str | None = None):
+        """``artifact()`` with device tables (same materialization)."""
+        alg = self._resolve_algorithm(algorithm)
+        return self._with_device_tables(alg, self.artifact(alg))
+
+    def artifact_for(self, version: int, algorithm: str | None = None):
+        """The table artifact of a SPECIFIC version (migration windows,
+        baseline movement accounting).
 
         The current version is built on demand; any other version must
-        still be in the LRU (place at it before mutating the cluster).  An
-        evicted version cannot be rebuilt -- the cluster has moved on -- so
+        still be in the algorithm's LRU (place at it before mutating the
+        cluster).  An evicted version cannot be rebuilt -- the cluster has
+        moved on, and random slicing's table is history-dependent -- so
         this raises ``KeyError`` rather than re-deriving the wrong table."""
+        alg = self._resolve_algorithm(algorithm)
         if version == self.cluster.version:
-            return self.artifact()
-        art = self._artifacts.get(version)
+            return self.artifact(alg)
+        cache = self._cache(alg)
+        art = cache.get(version)
         if art is None:
             raise KeyError(
-                f"asura table version {version} not cached (LRU holds "
-                f"{list(self._artifacts)}); place at that version before "
-                "mutating"
+                f"{alg} table version {version} not cached (LRU holds "
+                f"{list(cache)}); place at that version before mutating"
             )
-        self._artifacts.move_to_end(version)
+        cache.move_to_end(version)
         return art
 
-    def _device_artifact_for(self, version: int) -> TableArtifact:
+    def _device_artifact_for(self, version: int, algorithm: str | None = None):
         """``artifact_for`` with device tables (same materialization)."""
-        art = self.artifact_for(version)
-        if not art.has_device_tables:
-            art = with_device_tables(art, self.device)
-            self._artifacts[art.version] = art
-        return art
+        alg = self._resolve_algorithm(algorithm)
+        return self._with_device_tables(alg, self.artifact_for(version, alg))
 
     # -- host-facing STEP 2 --------------------------------------------------
 
@@ -225,24 +358,40 @@ class PlacementEngine:
 
     def place(self, datum_ids) -> np.ndarray:
         """Batch placement -> int64 segment numbers (tail-resolved, total)."""
-        art = self.artifact()
+        self._require_asura("place")
+        art = self.artifact("asura")
         ids = self._host_ids(datum_ids)
         if self.backend == "numpy":
             segs = place_batch_u32(ids, art.len32, art.top_level, self.params)
             return resolve_tail_np(ids, segs, art.len32, art.top_level)
         return self.place_device(ids).cpu().numpy().astype(np.int64)
 
-    def place_nodes(self, datum_ids, algorithm: str | None = None) -> np.ndarray:
-        """Batch placement -> int64 node ids."""
-        self._resolve_algorithm(algorithm)
+    def _baseline_nodes(self, alg: str, art, ids: np.ndarray) -> np.ndarray:
+        """One baseline lookup of host ids against ``art`` -> int64 nodes."""
+        from ..kernels.baselines import ORACLES
+        from ..kernels.ops import baseline_place_on_table
+
         if self.backend == "numpy":
-            return self.artifact().node_of[self.place(datum_ids)]
+            return ORACLES[alg](ids, art.keys, art.vals)
+        art = self._with_device_tables(alg, art)
+        return baseline_place_on_table(alg, ids, art.keys_dev, art.vals_dev)
+
+    def place_nodes(self, datum_ids, algorithm: str | None = None) -> np.ndarray:
+        """Batch placement -> int64 node ids (dispatches on ``algorithm``)."""
+        alg = self._resolve_algorithm(algorithm)
         ids = self._host_ids(datum_ids)
-        return self.place_nodes_device(ids).cpu().numpy().astype(np.int64)
+        if alg != "asura":
+            return self._baseline_nodes(alg, self.artifact(alg), ids)
+        if self.backend == "numpy":
+            art = self.artifact("asura")
+            segs = place_batch_u32(ids, art.len32, art.top_level, self.params)
+            return art.node_of[resolve_tail_np(ids, segs, art.len32, art.top_level)]
+        return self.place_nodes_device(ids, "asura").cpu().numpy().astype(np.int64)
 
     def place_replicas(self, datum_ids, n_replicas: int) -> np.ndarray:
         """(batch, R) segment numbers on R distinct nodes, primary first."""
-        art = self.artifact()
+        self._require_asura("place_replicas")
+        art = self.artifact("asura")
         ids = self._host_ids(datum_ids)
         if self.backend == "numpy":
             return place_replicas_u32(
@@ -250,7 +399,7 @@ class PlacementEngine:
             )
         from ..kernels.ops import place_replicas_on_table
 
-        art = self._device_artifact()
+        art = self._device_artifact("asura")
         return place_replicas_on_table(
             ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params,
@@ -259,9 +408,28 @@ class PlacementEngine:
     def place_replica_nodes(
         self, datum_ids, n_replicas: int, algorithm: str | None = None
     ) -> np.ndarray:
-        """(batch, R) node ids, primary first."""
-        self._resolve_algorithm(algorithm)
-        return self.artifact().node_of[self.place_replicas(datum_ids, n_replicas)]
+        """(batch, R) node ids, primary first (dispatches on ``algorithm``:
+        ASURA's section-5.A distinct-node draw, or the baselines' salted
+        rejection fan-out, which raises ``ValueError`` when a slot stays
+        unfilled)."""
+        alg = self._resolve_algorithm(algorithm)
+        if alg == "asura":
+            return self.artifact("asura").node_of[self.place_replicas(datum_ids, n_replicas)]
+        art = self.artifact(alg)
+        ids = self._host_ids(datum_ids)
+        if self.backend == "numpy":
+            from ..kernels.baselines import baseline_place_replicas_np
+
+            out = baseline_place_replicas_np(alg, ids, art.keys, art.vals, n_replicas)
+        else:
+            out = self.place_replica_nodes_device(ids, n_replicas, alg)
+            out = out.cpu().numpy().astype(np.int64)
+        if n_replicas > 1 and (out < 0).any():
+            raise ValueError(
+                f"{alg} replica fan-out found no {n_replicas} distinct "
+                "nodes within the try budget (R exceeds live nodes?)"
+            )
+        return out
 
     # -- device-resident variants (no host sync) -----------------------------
 
@@ -271,33 +439,48 @@ class PlacementEngine:
         Ids already on the device stay there; host ids are uploaded once."""
         from ..kernels.ops import place_on_table_device
 
-        art = self._device_artifact()
+        self._require_asura("place_device")
+        art = self._device_artifact("asura")
         return place_on_table_device(
             datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
             art.node_of_dev, top_level=art.top_level, params=self.params,
         )
 
-    def place_nodes_device(self, datum_ids, algorithm: str | None = None) -> torch.Tensor:
-        """Batch placement -> (batch,) int32 node ids on the engine's device
-        (fused seg->node gather, on-device tail)."""
-        from ..kernels.ops import place_nodes_on_table_device
+    def _nodes_device(self, alg: str, art, datum_ids) -> torch.Tensor:
+        """One placement launch against a device artifact -> int32 nodes."""
+        from ..kernels.ops import baseline_place_on_table_device, place_nodes_on_table_device
 
-        self._resolve_algorithm(algorithm)
-        art = self._device_artifact()
+        if alg != "asura":
+            return baseline_place_on_table_device(alg, datum_ids, art.keys_dev, art.vals_dev)
         return place_nodes_on_table_device(
             datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
             art.node_of_dev, top_level=art.top_level, params=self.params,
         )
 
+    def place_nodes_device(self, datum_ids, algorithm: str | None = None) -> torch.Tensor:
+        """Batch placement -> (batch,) int32 node ids on the engine's device,
+        no host sync (dispatches on ``algorithm``: ASURA's fused seg->node
+        gather with the on-device tail, or a baseline's lookup kernel)."""
+        alg = self._resolve_algorithm(algorithm)
+        return self._nodes_device(alg, self._device_artifact(alg), datum_ids)
+
     def place_replica_nodes_device(
         self, datum_ids, n_replicas: int, algorithm: str | None = None
     ) -> torch.Tensor:
-        """(batch, R) int32 node ids on the engine's device, primary first;
-        -1 marks unfilled slots (the host variant raises instead)."""
-        from ..kernels.ops import place_replicas_on_table_device
+        """(batch, R) int32 node ids on the engine's device, primary first,
+        no host sync (dispatches on ``algorithm``); -1 marks unfilled slots
+        (the host variant raises instead)."""
+        from ..kernels.ops import (
+            baseline_place_replicas_on_table_device,
+            place_replicas_on_table_device,
+        )
 
-        self._resolve_algorithm(algorithm)
-        art = self._device_artifact()
+        alg = self._resolve_algorithm(algorithm)
+        art = self._device_artifact(alg)
+        if alg != "asura":
+            return baseline_place_replicas_on_table_device(
+                alg, datum_ids, art.keys_dev, art.vals_dev, n_replicas=n_replicas,
+            )
         return place_replicas_on_table_device(
             datum_ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params, emit_nodes=True,
@@ -309,7 +492,8 @@ class PlacementEngine:
         """Batch placement under a cached table version -> int64 segments
         (tail-resolved): what ``place`` gave while that version was
         current."""
-        art = self.artifact_for(version)
+        self._require_asura("place_at")
+        art = self.artifact_for(version, "asura")
         ids = self._host_ids(datum_ids)
         if self.backend == "numpy":
             segs = place_batch_u32(ids, art.len32, art.top_level, self.params)
@@ -319,17 +503,24 @@ class PlacementEngine:
     def place_nodes_at(
         self, datum_ids, version: int, algorithm: str | None = None
     ) -> np.ndarray:
-        """Batch placement under a cached version -> int64 node ids."""
-        self._resolve_algorithm(algorithm)
-        if self.backend == "numpy":
-            return self.artifact_for(version).node_of[self.place_at(datum_ids, version)]
+        """Batch placement under a cached version -> int64 node ids
+        (dispatches on ``algorithm``: the baselines' movement accounting
+        diffs owners across two cached versions with it)."""
+        alg = self._resolve_algorithm(algorithm)
         ids = self._host_ids(datum_ids)
-        return self.place_nodes_device_at(ids, version).cpu().numpy().astype(np.int64)
+        if alg != "asura":
+            return self._baseline_nodes(alg, self.artifact_for(version, alg), ids)
+        if self.backend == "numpy":
+            art = self.artifact_for(version, "asura")
+            segs = place_batch_u32(ids, art.len32, art.top_level, self.params)
+            return art.node_of[resolve_tail_np(ids, segs, art.len32, art.top_level)]
+        return self.place_nodes_device_at(ids, version, "asura").cpu().numpy().astype(np.int64)
 
     def place_replicas_at(self, datum_ids, version: int, n_replicas: int) -> np.ndarray:
         """(batch, R) segment numbers under a cached version, primary
         first (raises when a lane did not find R distinct nodes)."""
-        art = self.artifact_for(version)
+        self._require_asura("place_replicas_at")
+        art = self.artifact_for(version, "asura")
         ids = self._host_ids(datum_ids)
         if self.backend == "numpy":
             return place_replicas_u32(
@@ -337,7 +528,7 @@ class PlacementEngine:
             )
         from ..kernels.ops import place_replicas_on_table
 
-        art = self._device_artifact_for(version)
+        art = self._device_artifact_for(version, "asura")
         return place_replicas_on_table(
             ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params,
@@ -348,7 +539,8 @@ class PlacementEngine:
     ) -> np.ndarray:
         """(batch, R) node ids under a cached version, primary first -- the
         window's replica read rule places the v+1 sets through this."""
-        art = self.artifact_for(version)
+        self._require_asura("place_replica_nodes_at")
+        art = self.artifact_for(version, "asura")
         return art.node_of[self.place_replicas_at(datum_ids, version, n_replicas)]
 
     def remove_numbers_batch(
@@ -367,7 +559,8 @@ class PlacementEngine:
         """``place_device`` under a cached version (no host sync)."""
         from ..kernels.ops import place_on_table_device
 
-        art = self._device_artifact_for(version)
+        self._require_asura("place_device_at")
+        art = self._device_artifact_for(version, "asura")
         return place_on_table_device(
             datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
             art.node_of_dev, top_level=art.top_level, params=self.params,
@@ -377,14 +570,8 @@ class PlacementEngine:
         self, datum_ids, version: int, algorithm: str | None = None
     ) -> torch.Tensor:
         """``place_nodes_device`` under a cached version (no host sync)."""
-        from ..kernels.ops import place_nodes_on_table_device
-
-        self._resolve_algorithm(algorithm)
-        art = self._device_artifact_for(version)
-        return place_nodes_on_table_device(
-            datum_ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
-            art.node_of_dev, top_level=art.top_level, params=self.params,
-        )
+        alg = self._resolve_algorithm(algorithm)
+        return self._nodes_device(alg, self._device_artifact_for(version, alg), datum_ids)
 
     def place_replica_nodes_device_at(
         self, datum_ids, version: int, n_replicas: int
@@ -393,7 +580,8 @@ class PlacementEngine:
         sync; -1 marks unfilled slots)."""
         from ..kernels.ops import place_replicas_on_table_device
 
-        art = self._device_artifact_for(version)
+        self._require_asura("place_replica_nodes_device_at")
+        art = self._device_artifact_for(version, "asura")
         return place_replicas_on_table_device(
             datum_ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params, emit_nodes=True,
@@ -406,8 +594,9 @@ class PlacementEngine:
         engine's device: both cached versions in one launch, no host sync."""
         from ..kernels.ops import diff_nodes_on_tables_device
 
-        a = self._device_artifact_for(v_from)
-        b = self._device_artifact_for(v_to)
+        self._require_asura("diff_nodes_device")
+        a = self._device_artifact_for(v_from, "asura")
+        b = self._device_artifact_for(v_to, "asura")
         return diff_nodes_on_tables_device(
             datum_ids,
             a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
@@ -425,8 +614,9 @@ class PlacementEngine:
         v-set position)."""
         from ..kernels.ops import diff_replicas_on_tables_device
 
-        a = self._device_artifact_for(v_from)
-        b = self._device_artifact_for(v_to)
+        self._require_asura("diff_replicas_device")
+        a = self._device_artifact_for(v_from, "asura")
+        b = self._device_artifact_for(v_to, "asura")
         return diff_replicas_on_tables_device(
             datum_ids, a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev,
             top_a=a.top_level, top_b=b.top_level, n_replicas=n_replicas,
@@ -440,6 +630,7 @@ class PlacementEngine:
         src_slot)`` as NumPy arrays (int64 nodes).  The numpy backend runs
         both replica sweeps on the host and aligns with the host spec
         (``core.asura.align_replica_sets``)."""
+        self._require_asura("diff_replicas_at")
         ids = self._host_ids(datum_ids)
         if self.backend == "numpy":
             before = self.place_replica_nodes_at(ids, v_from, n_replicas)
@@ -464,9 +655,10 @@ class PlacementEngine:
         "unknown, treat as candidate" (the planner's add-node prefilter)."""
         from ..kernels.ops import addition_numbers_on_table_device
 
+        self._require_asura("addition_numbers_device")
         if version is None:
             version = self.cluster.version
-        art = self._device_artifact_for(version)
+        art = self._device_artifact_for(version, "asura")
         return addition_numbers_on_table_device(
             datum_ids, art.len32_dev, art.node_of_dev, top_level=art.top_level,
             n_replicas=n_replicas, params=self.params,

@@ -7,10 +7,11 @@ into a shared library (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The output lands in ``kernels/_build/`` (listed in ``.gitignore``), named
-by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc``
-per source at once and waits for all of them.  A failed build raises with
-the compiler's output; nothing falls back.
+by a hash of the source, of every header it includes from ``csrc/`` (the
+shared ``hash.cuh``) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them.  A failed build
+raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("asura_place",)
+SOURCES = ("asura_place", "baselines")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,10 +48,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with ``#include
+    "..."`` from ``csrc/``, transitively, in first-seen order."""
+    files = [CSRC / f"{name}.cu"]
+    for path in files:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in files:
+                files.append(dep)
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict:

@@ -53,28 +53,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hash.cuh"
+
 namespace {
 
-constexpr uint32_t kGolden = 0x9E3779B9u;
-constexpr uint32_t kKmult = 0x85EBCA77u;
+using port_hash::draw_u32;
+
 constexpr int kDepthBins = 34;
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t draw_u32(uint32_t id, uint32_t level,
-                                             uint32_t counter) {
-  const uint32_t seed = fmix32(id + kGolden * (level + 1u));
-  return fmix32(seed ^ (counter * kKmult));
-}
 
 // One ASURA number: descend from top_level while the draw's MSB is clear,
 // ticking each consulted level's counter; k = floor, f = fraction * 2**32.

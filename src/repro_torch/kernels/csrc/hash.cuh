@@ -1,0 +1,33 @@
+// The counter-based generator every kernel of the port shares.
+//
+// u(id, level, k) = fmix32(fmix32(id + GOLDEN * (level + 1)) ^ (k * KMULT))
+// with fmix32 the MurmurHash3 32-bit finalizer; all arithmetic is u32 and
+// wraps mod 2**32, exactly as core/rng.py and the plain-torch twins do.
+// Included by asura_place.cu and baselines.cu; kernels/build.py hashes
+// this header with every source that includes it.
+
+#pragma once
+
+#include <cstdint>
+
+namespace port_hash {
+
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kKmult = 0x85EBCA77u;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t draw_u32(uint32_t id, uint32_t level,
+                                             uint32_t counter) {
+  const uint32_t seed = fmix32(id + kGolden * (level + 1u));
+  return fmix32(seed ^ (counter * kKmult));
+}
+
+}  // namespace port_hash

@@ -20,6 +20,11 @@ the reference leaves them outside its Pallas kernels.
 tables once per table version on the host; ``asura_place*`` are the
 table-deriving conveniences.  Tables are not lane-padded: the kernels
 test ``k < n_segs`` against the real table length.
+
+The baselines' entry points (``baseline_place_on_table[_device]``,
+``baseline_place_replicas_on_table_device``) take an algorithm's two
+prepped tables (``kernels.baselines.*_table_prep``): (ring, owners) for
+``ch``, (starts, owners) for ``rs``, (salts, inv_w) for ``wrh``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .asura_place import (
     place_fused_cuda,
     place_replicas_cuda,
 )
+from .baselines import REPLICA_MAX_TRIES, baseline_place_cuda, baseline_replicas_cuda
 from .ref import addition_numbers_ref
 from .u32 import as_u32, to_u32
 
@@ -57,6 +63,9 @@ __all__ = [
     "diff_nodes_on_tables_device",
     "diff_replicas_on_tables_device",
     "addition_numbers_on_table_device",
+    "baseline_place_on_table",
+    "baseline_place_on_table_device",
+    "baseline_place_replicas_on_table_device",
     "asura_place",
     "asura_place_nodes",
     "asura_place_replicas",
@@ -318,6 +327,43 @@ def addition_numbers_on_table_device(
     return addition_numbers_ref(
         ids, len32, node_of, top_level=top_level + extra_levels,
         s_log2=params.s_log2, max_draws=params.max_draws, n_replicas=n_replicas,
+    )
+
+
+def baseline_place_on_table_device(
+    algorithm: str, datum_ids, table_a: torch.Tensor, table_b: torch.Tensor
+) -> torch.Tensor:
+    """Device-resident baseline placement -> (batch,) int32 node ids on
+    the tables' device, one kernel launch, no host sync."""
+    return baseline_place_cuda(algorithm, as_ids(datum_ids, table_a.device), table_a, table_b)
+
+
+def baseline_place_on_table(
+    algorithm: str, datum_ids, table_a: torch.Tensor, table_b: torch.Tensor
+) -> np.ndarray:
+    """Baseline placement -> (batch,) int64 node ids on the host (one
+    device->host copy)."""
+    out = baseline_place_on_table_device(algorithm, datum_ids, table_a, table_b)
+    return out.cpu().numpy().astype(np.int64)
+
+
+def baseline_place_replicas_on_table_device(
+    algorithm: str,
+    datum_ids,
+    table_a: torch.Tensor,
+    table_b: torch.Tensor,
+    *,
+    n_replicas: int,
+    max_tries: int = REPLICA_MAX_TRIES,
+    emit_stats: bool = False,
+):
+    """Device-resident baseline R-way fan-out -> (batch, R) int32 node ids,
+    primary first; -1 marks unfilled slots (documented, not checked: a
+    check would sync).  ``emit_stats`` also returns the uint32
+    ``[reprobes]``."""
+    return baseline_replicas_cuda(
+        algorithm, as_ids(datum_ids, table_a.device), table_a, table_b,
+        n_replicas=n_replicas, max_tries=max_tries, emit_stats=emit_stats,
     )
 
 

@@ -177,7 +177,7 @@ class LiveMigration(DrainDriver):
         routing configuration ``(top_level, s_log2, max_draws, R)`` counts
         one binding (``probe_trace_count``)."""
         self._check_live()
-        art = self.engine._device_artifact_for(self.v_to)
+        art = self.engine._device_artifact_for(self.v_to, "asura")
         params = self.engine.params
         statics = (art.top_level, params.s_log2, params.max_draws, self.n_replicas)
         if statics not in _BOUND:

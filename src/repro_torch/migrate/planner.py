@@ -362,7 +362,7 @@ class MigrationPlanner:
         """AN <= max_new_seg prefilter mask (sound: unknown -> candidate);
         the ADDITION NUMBER of the R-replica trace."""
         if host:
-            art = self.engine.artifact_for(v_from)
+            art = self.engine.artifact_for(v_from, "asura")
             lengths = art.len32.astype(np.float64) / 2.0**32  # exact round trip
             an = addition_numbers_batch(
                 chunk, lengths, art.node_of, n_replicas, params=self.engine.params

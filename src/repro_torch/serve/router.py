@@ -1,19 +1,27 @@
 """ASURA session routing across serving replicas, on the card.
 
-The port of the reference's flat ``ReplicaRouter`` for ``algorithm=
-"asura"``.  Sessions are sticky (a session's KV cache lives on one
-replica); ASURA lets any frontend compute the owner from the O(N) table,
-re-routes only a lost replica's sessions, and weights replicas by
-capacity through segment lengths.  Routing goes through the cluster's
-``PlacementEngine``, so the table is uploaded once per membership
-version.
+The port of the reference's flat ``ReplicaRouter``.  Sessions are sticky
+(a session's KV cache lives on one replica); ASURA lets any frontend
+compute the owner from the O(N) table, re-routes only a lost replica's
+sessions, and weights replicas by capacity through segment lengths.
+Routing goes through a ``PlacementEngine``, so the table is uploaded once
+per membership version.
+
+``Router(algorithm=...)`` swaps the placement algorithm under the same
+interface: ``"asura"`` (default, the cluster's own engine), ``"ch"``
+(``virtual_nodes`` ring points per replica), ``"wrh"`` or ``"rs"`` route
+through a dedicated engine whose default algorithm is the baseline, so
+the paper's head-to-head runs on the serving path too, R-way fan-out
+included.
 
 Scale events: ``plan_scale_event`` applies a membership change at once and
-returns the minimal session moves; ``begin_scale_migration`` applies it as
-a LIVE migration (``migrate.LiveMigration``) whose moves drain under
-per-replica budgets while ``route_migrating`` / ``route_replicas_migrating``
-keep every request on a replica that holds its warm cache.  The baselines
-and hierarchical routing are not ported yet.
+returns the minimal session moves (under any algorithm);
+``begin_scale_migration`` applies it as a LIVE migration
+(``migrate.LiveMigration``, ASURA only: it rides on ASURA's dual-version
+tables) whose moves drain under per-replica budgets while
+``route_migrating`` / ``route_replicas_migrating`` keep every request on a
+replica that holds its warm cache.  Hierarchical routing is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import dataclasses
 import numpy as np
 
 from ..core.cluster import Cluster
-from ..core.engine import PlacementEngine
+from ..core.engine import ALGORITHMS, DEFAULT_VIRTUAL_NODES, PlacementEngine
 
 
 @dataclasses.dataclass
@@ -44,17 +52,28 @@ class ReplicaRouter:
         replica_capacities: dict[int, float],
         *,
         algorithm: str = "asura",
+        virtual_nodes: int = DEFAULT_VIRTUAL_NODES,
         device=None,
     ):
         if any(isinstance(v, dict) for v in replica_capacities.values()):
             raise NotImplementedError(
                 "hierarchical routing is not ported yet (ROADMAP A6)"
             )
-        self.algorithm = PlacementEngine._resolve_algorithm(algorithm)
+        if algorithm not in ALGORITHMS:
+            raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+        self.algorithm = algorithm
         self.cluster = Cluster(device=device)
         for rid, cap in replica_capacities.items():
             self.cluster.add_node(rid, cap)
-        self.engine = self.cluster.engine
+        if algorithm == "asura":
+            self.engine = self.cluster.engine
+        else:
+            # a dedicated engine whose DEFAULT algorithm is the baseline, so
+            # every route call dispatches to the baseline kernels
+            self.engine = PlacementEngine(
+                self.cluster, device=device, algorithm=algorithm,
+                virtual_nodes=virtual_nodes,
+            )
         self._scale_migration = None  # at most one live window at a time
 
     def route(self, session_ids) -> np.ndarray:
@@ -133,6 +152,12 @@ class ReplicaRouter:
         cluster mutates."""
         from ..migrate import LiveMigration, MigrationPlanner
 
+        if self.algorithm != "asura":
+            raise ValueError(
+                "live scale migrations ride on ASURA's dual-version table "
+                f"artifacts; this router routes via {self.algorithm!r} -- "
+                "use plan_scale_event for the instantaneous-swap plan"
+            )
         live = self._scale_migration
         if live is not None and not (live.done or live.aborted):
             raise RuntimeError("a scale migration is already in flight; drain it first")
@@ -175,6 +200,21 @@ class ReplicaRouter:
         """Device ``route_replicas_migrating`` (no host sync after the
         per-round view refresh)."""
         return migration.route_replicas_device(session_ids)
+
+    def table_blob(self) -> str:
+        """The only state frontends need to share (kilobytes): the cluster
+        blob, from which ASURA's table and the CH and WRH tables derive.
+        Random slicing's interval table is history-dependent -- it lives
+        in the engine, not the blob -- so a frontend rebuilt from the blob
+        would route differently, and this raises instead."""
+        if self.algorithm == "rs":
+            raise ValueError(
+                "random slicing's interval table is history-dependent and "
+                "not captured by the cluster blob; rs frontends must share "
+                "the router (or replay the same membership sequence), not "
+                "table_blob()"
+            )
+        return self.cluster.to_json()
 
 
 Router = ReplicaRouter

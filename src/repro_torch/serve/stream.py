@@ -7,9 +7,11 @@ The port of the reference's ``RequestStreamDriver`` on one card.  One
      CDF sampling (``serve.traffic``) -- no host RNG in the loop;
   2. route: the batch goes through the section-5.A replica kernel
      (``place_replicas_cuda`` with the fused node output, and with its
-     stats vector when instrumented) -- where the reference routes
-     through its jnp twin, the port routes through the kernel, and the
-     result is the same bit for bit;
+     stats vector when instrumented), or under a baseline algorithm
+     through the fan-out kernel (``baseline_replicas_cuda``, with its
+     ``[reprobes]`` stat) -- where the reference routes through its jnp
+     twins, the port routes through the kernels, and the result is the
+     same bit for bit;
   3. select: ``primary``, ``random`` or ``pow2`` (power-of-two-choices
      against the start-of-batch per-node counters);
   4. count: a scatter-add histogram into a preallocated zeros tensor
@@ -26,7 +28,8 @@ same body, routed by the window's per-slot read rule
 (``LiveMigration.route_replicas_device``: v+1 sets from the replica
 kernel, pending slots from their v-side sources), so every request lands
 on a node that holds its datum mid-drain.  ``superstep_migrating(k)`` is
-k of those batches against the same pending view.
+k of those batches against the same pending view.  Windows are ASURA's
+(they ride on its dual-version tables), as in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels.asura_place import place_replicas_cuda
+from ..kernels.baselines import baseline_replicas_cuda
 from ..kernels.ref import DEPTH_BINS
 from ..kernels.u32 import to_u32
 from ..obs.trace import TraceLedger
@@ -52,20 +56,35 @@ _BIG = 2**31 - 1  # an invalid candidate's load: always loses
 
 
 def route_statics(engine, algorithm: str | None = None):
-    """(tables, statics) for the replica-routing body: ``tables`` are the
-    device operands, ``statics`` the hashable key that fully determines
-    the body."""
-    engine._resolve_algorithm(algorithm)
-    art = engine._device_artifact()
-    tables = (art.len32_dev, art.node_of_dev)
-    statics = ("asura", art.top_level, engine.params.s_log2, engine.params.max_draws)
+    """(tables, statics) for the replica-routing body under ``algorithm``:
+    ``tables`` are the device operands, ``statics`` the hashable key that
+    fully determines the body."""
+    alg = engine._resolve_algorithm(algorithm)
+    art = engine._device_artifact(alg)
+    if alg == "asura":
+        tables = (art.len32_dev, art.node_of_dev)
+        statics = ("asura", art.top_level, engine.params.s_log2, engine.params.max_draws)
+    else:
+        tables = (art.keys_dev, art.vals_dev)
+        statics = (alg,)
     return tables, statics
 
 
 def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = False):
-    """``(ids, len32, node_of) -> (batch, R) int32`` replica nodes (and the
-    uint32 ``[depth_hist..., nonconverged]`` stats with ``emit_stats``).
+    """``(ids, *tables) -> (batch, R) int32`` replica nodes, and with
+    ``emit_stats`` the algorithm's uint32 stats vector (ASURA:
+    ``[depth_hist..., nonconverged]``; baselines: ``[reprobes]``).
     ``ids`` are u32 values in int64 or a uint32 tensor."""
+    alg = statics[0]
+    if alg != "asura":
+        def owners(ids, keys, vals):
+            if ids.dtype != torch.uint32:
+                ids = to_u32(ids)
+            return baseline_replicas_cuda(
+                alg, ids, keys, vals, n_replicas=n_replicas, emit_stats=emit_stats,
+            )
+
+        return owners
     _, top_level, s_log2, max_draws = statics
 
     def owners(ids, len32, node_of):
@@ -78,6 +97,13 @@ def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = Fals
         )
 
     return owners
+
+
+def top_node(art) -> int:
+    """The largest node id a table artifact can route to."""
+    if getattr(art, "algorithm", "asura") == "asura":
+        return int(art.node_of.max())
+    return int((art.keys if art.algorithm == "wrh" else art.vals).max())
 
 
 def select_replica(owners, sel, counts, *, policy: str, n_replicas: int):
@@ -195,8 +221,11 @@ class RequestStreamDriver:
             f"serve.routed.{self.algorithm}.{self.policy}"
         )
         reg.histogram("serve.served", self.n_bins)
-        reg.histogram("asura.ladder_depth", DEPTH_BINS)
-        reg.counter("asura.nonconverged")
+        if self.algorithm == "asura":
+            reg.histogram("asura.ladder_depth", DEPTH_BINS)
+            reg.counter("asura.nonconverged")
+        else:
+            reg.counter("baseline.reprobes")
 
     @property
     def step_traces(self) -> int:
@@ -254,9 +283,11 @@ class RequestStreamDriver:
             slab = reg.slab()
             reg.add(slab, self._routed_name, self.batch)
             reg.add_hist(slab, "serve.served", hist)
-            if stats is not None:
+            if stats is not None and self.algorithm == "asura":
                 reg.add_hist(slab, "asura.ladder_depth", stats[:DEPTH_BINS])
                 reg.add(slab, "asura.nonconverged", stats[DEPTH_BINS])
+            elif stats is not None:
+                reg.add(slab, "baseline.reprobes", stats[0])
         self.counts = self.counts + hist
         self.queue = torch.clamp(self.queue + hist - self._service, min=0)
         self.qhist[self._step % self.max_hist] = self.queue
@@ -271,8 +302,8 @@ class RequestStreamDriver:
         card an out-of-range scatter would be a device-side fault)."""
         tables, statics = route_statics(self.engine, self.algorithm)
         if self.engine.cluster.version != self._checked_version:
-            art = self.engine.artifact()
-            top = int(art.node_of.max())
+            art = self.engine.artifact(self.algorithm)
+            top = top_node(art)
             if top >= self.n_bins:
                 raise ValueError(
                     f"node id {top} is outside this driver's {self.n_bins} load "
@@ -310,7 +341,7 @@ class RequestStreamDriver:
         key = (migration.v_from, migration.v_to)
         if self._checked_window != key:
             for v in key:
-                top = int(self.engine.artifact_for(v).node_of.max())
+                top = int(self.engine.artifact_for(v, "asura").node_of.max())
                 if top >= self.n_bins:
                     raise ValueError(
                         f"node id {top} of version {v} is outside this driver's "

@@ -185,10 +185,10 @@ def test_default_device_is_the_card():
 
 def test_unported_paths_raise():
     c = make_cluster(CAPS, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        PlacementEngine(c, device="cpu", algorithm="ch")
-    with pytest.raises(NotImplementedError, match="A5"):
-        c.engine.place_nodes(_ids(4), algorithm="wrh")
+    with pytest.raises(ValueError, match="algorithm must be one of"):
+        PlacementEngine(c, device="cpu", algorithm="straw")
+    with pytest.raises(ValueError, match="algorithm must be one of"):
+        c.engine.place_nodes(_ids(4), algorithm="hrw")
 
     class Hier:
         is_hierarchical = True

@@ -233,3 +233,131 @@ def test_migration_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device):
     assert len(out["cuda"]) == len(out["cpu"])
     for g, c in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g, c)
+
+
+# ---------------------------------------------------------------------------
+# the baseline kernels (B5 ch, B6 rs, B7 wrh, the fan-out) on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import build_ring  # noqa: E402
+from repro_torch.core.random_slicing import RandomSlicingTable  # noqa: E402
+from repro_torch.kernels import baselines as tb  # noqa: E402
+from repro_torch.kernels import baselines_ref as tr  # noqa: E402
+
+BASE_CAPS = np.random.default_rng(2).uniform(0.5, 2.0, 64)
+
+
+def _unfmix32(h: np.ndarray) -> np.ndarray:
+    """Ids whose MurmurHash3 finalizer is ``h`` (the finalizer inverted)."""
+    h = h.astype(np.uint64)
+    h ^= h >> 16
+    h = (h * pow(0xC2B2AE35, -1, 2**32)) & 0xFFFFFFFF
+    h ^= (h >> 13) ^ (h >> 26)
+    h = (h * pow(0x85EBCA6B, -1, 2**32)) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h.astype(np.uint32)
+
+
+def _baseline_tables(alg, caps, device):
+    """(canonical keys, vals) -> the prepped device tables, and the
+    canonical keys (whose neighbours make the edge ids)."""
+    if alg == "ch":
+        keys, vals = build_ring(range(len(caps)), 100)
+        keys = np.sort(np.concatenate([keys, keys[::5]]))  # duplicated points
+        vals = np.random.default_rng(1).integers(0, len(caps), keys.shape[0])
+    elif alg == "rs":
+        t = RandomSlicingTable({i: float(c) for i, c in enumerate(caps)})
+        t.rebalance({**t.weights, len(caps): 1.0})
+        t.rebalance({k: v for k, v in t.weights.items() if k != 3})
+        keys, vals = t.starts_owners()
+    else:
+        keys = np.arange(len(caps), dtype=np.uint32)
+        vals = np.asarray(caps, dtype=np.float32)
+    return tb.TABLE_PREP[alg](keys, vals, device=device), keys
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 257, 100_003])
+@pytest.mark.parametrize("alg", ["ch", "rs", "wrh"])
+def test_baseline_lookup_kernel_matches_twin(cuda_device, alg, n):
+    (a, b), keys = _baseline_tables(alg, BASE_CAPS, cuda_device)
+    ids = _ids(n, cuda_device, seed=n)
+    if alg != "wrh" and n > 1000:  # hashes on, and next to, every table point
+        p = keys.astype(np.int64)
+        h = np.unique(np.clip(np.concatenate([[0, 2**32 - 1], p - 1, p, p + 1]),
+                              0, 2**32 - 1)).astype(np.uint32)
+        ids = torch.cat([ids, torch.from_numpy(_unfmix32(h)).to(cuda_device)])
+    place = getattr(tb, f"{alg}_place_cuda")
+    before = LAUNCHES[f"{alg}_place"]
+    got = place(ids, a, b)
+    assert LAUNCHES[f"{alg}_place"] == before + (1 if ids.shape[0] else 0)
+    assert torch.equal(got, tr.LOOKUPS[alg](ids, a, b))
+
+
+def test_wrh_kernel_walks_several_shared_tiles(cuda_device):
+    """9,000 nodes (three 4096-entry tiles) with zero weights and a
+    padding tail: the staged kernel equals the twin."""
+    w = np.random.default_rng(4).uniform(0.5, 2.0, 9000).astype(np.float32)
+    w[::97] = 0.0
+    salts, inv_w = tb.wrh_table_prep(np.arange(9000, dtype=np.uint32), w,
+                                     device=cuda_device)
+    assert salts.shape[0] % 128 == 0 and salts.shape[0] > 9000
+    ids = _ids(4099, cuda_device, seed=4)
+    assert torch.equal(tb.wrh_place_cuda(ids, salts, inv_w),
+                       tr.wrh_lookup(ids, salts, inv_w))
+
+
+@pytest.mark.parametrize("R", [1, 3, 5, 12])
+@pytest.mark.parametrize("alg", ["ch", "rs", "wrh"])
+def test_baseline_replicas_kernel_matches_twin(cuda_device, alg, R):
+    (a, b), _ = _baseline_tables(alg, BASE_CAPS, cuda_device)
+    ids = _ids(20_011, cuda_device, seed=R)
+    before = LAUNCHES["baseline_replicas"]
+    got, stats = tb.baseline_replicas_cuda(alg, ids, a, b, n_replicas=R, emit_stats=True)
+    assert LAUNCHES["baseline_replicas"] == before + 1
+    want, want_stats = tr.baseline_replicas_lookup(alg, ids, a, b, n_replicas=R,
+                                                   emit_stats=True)
+    assert torch.equal(got, want)
+    assert torch.equal(as_u32(stats), as_u32(want_stats))
+
+
+@pytest.mark.parametrize("alg", ["ch", "rs", "wrh"])
+def test_baseline_replicas_kernel_leaves_short_slots_empty(cuda_device, alg):
+    """R = 6 on 4 nodes: at least two slots per lane stay -1, as in the twin."""
+    (a, b), _ = _baseline_tables(alg, [1.0, 2.0, 0.5, 1.5], cuda_device)
+    ids = _ids(5003, cuda_device, seed=6)
+    got, stats = tb.baseline_replicas_cuda(alg, ids, a, b, n_replicas=6, emit_stats=True)
+    want, want_stats = tr.baseline_replicas_lookup(alg, ids, a, b, n_replicas=6,
+                                                   emit_stats=True)
+    assert torch.equal(got, want) and torch.equal(as_u32(stats), as_u32(want_stats))
+    assert bool(((got < 0).sum(dim=1) >= 2).all())  # 4 nodes: at most 4 filled
+
+
+@pytest.mark.parametrize("alg", ["ch", "rs", "wrh"])
+def test_baseline_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device, alg):
+    """The engine's device variants and the serving driver under a
+    baseline run under sync-debug "error" and equal the CPU run."""
+    caps = {i: float(c) for i, c in enumerate(BASE_CAPS)}
+    cfg = dict(policy="pow2", law="zipf", batch=4096, n_keys=10_000, seed=1)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        router = Router(caps, algorithm=alg, device=dev)
+        driver = router.stream_driver(metrics=MetricsRegistry(device=dev), **cfg)
+        ids = _ids(30_000, dev, seed=3)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = [router.route_device(ids), router.route_replicas_device(ids, 3)]
+            res += [driver.step() for _ in range(2)] + [driver.superstep(2)]
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        res += [driver.counts, driver.queue, driver.qhist]
+        snap = driver.metrics.snapshot()
+        assert "baseline.reprobes" in snap
+        out[dev.type] = ([r.cpu() for r in res], snap, router.engine.uploads)
+    for g, c in zip(out["cuda"][0], out["cpu"][0]):
+        assert torch.equal(g, c)
+    for name, v in out["cuda"][1].items():
+        assert np.array_equal(np.asarray(v), np.asarray(out["cpu"][1][name])), name
+    assert out["cuda"][2] == out["cpu"][2] == 1

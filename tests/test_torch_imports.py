@@ -36,7 +36,10 @@ def test_import_loads_neither_jax_nor_the_reference():
     proc = _run(
         "import sys, repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.kernels.ops, repro_torch.kernels.build, repro_torch.obs, "
-        "repro_torch.serve, repro_torch.migrate, repro_torch.migrate.live\n"
+        "repro_torch.serve, repro_torch.migrate, repro_torch.migrate.live, "
+        "repro_torch.kernels.baselines, repro_torch.kernels.baselines_ref, "
+        "repro_torch.core.consistent_hashing, repro_torch.core.random_slicing, "
+        "repro_torch.core.wrh, repro_torch.core.straw\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)"

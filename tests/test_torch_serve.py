@@ -202,8 +202,8 @@ def test_router_matches_reference():
     assert tr.table_uploads == 2
     with pytest.raises(NotImplementedError, match="A6"):
         Router({0: {1: 1.0}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        Router(caps, algorithm="ch", device="cpu")
+    with pytest.raises(ValueError, match="algorithm must be one of"):
+        Router(caps, algorithm="straw", device="cpu")
 
 
 def test_router_stream_driver_matches_reference():
