@@ -70,14 +70,39 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
          node 4096 (capacity 1.0), then remove node 2048; moved share
          beside the capacity share and the wrong-direction counts (0 for
          ch and wrh); the rs plans must equal the CPU run's;
-  6. (printed last) one JSON line per kernel (B1-B7 and the fan-out):
-     launches on the main paths (phases 4, 5, 8, 9b-9d), time at the
-     bulk size, the twin's time, the least time the card could take for
-     the same work, and for B5 / B6 the time of ``torch.searchsorted``.
+  10. failure-domain-aware (two-level) placement on three deployments:
+      the 4096-node cluster in 64 racks of 64 (``node_id // 64``), the
+      reference durability benchmark's 12 domains x 8 nodes
+      (``benchmarks/durability.py``), and a ragged one (1 to 128 nodes
+      per domain, so the domains' top levels differ):
+      10a. kernel B8 against its twin on 2**20 + 13 ids, R in {1, 3, 5}
+           on 64x64 and ragged, R = 3 on 12x8, R = D + 1 on 4 domains
+           (-1 planes), and max_draws=1 (the per-domain tail on the lanes
+           that miss); B9 against ``place_ref`` on the flat 4096-node
+           table, also at max_draws=1 (-1 lanes); all exact;
+      10b. bulk: ``place_replica_pairs_device`` (R = 3) and
+           ``place_nodes_device`` on the 64x64 hierarchy, B9 alone on the
+           flat table, 2**24 ids, median of 10 CUDA-event timings, under
+           sync-debug "error";
+      10c. serving: ``Router({rack: {node: capacity}}).stream_driver``,
+           the phase-5 configuration uninstrumented (the reference has no
+           stats plane in this mode), 16 steps and ``superstep(4)`` under
+           sync-debug "error"; card == CPU at batch 4096;
+      10d. movement on the 2**20 serving keys: add a node (capacity 1.0)
+           to rack 7, remove node 2048, remove rack 40 --
+           ``diff_replica_domains_device`` (CUDA events) and
+           ``MigrationPlanner.plan_replicas`` (R = 3) per event, with the
+           two-level invariants checked; ``route_replica_pairs`` on 2**18
+           keys equal to the CPU's;
+  6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
+     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d), time at
+     the bulk size, the twin's time, the least time the card could take
+     for the same work, and for B5 / B6 the time of ``torch.searchsorted``.
 
 ``--profile`` also traces 4 serving steps, 4 ``serve_migrating``
-batches on the drained window and 4 serving steps under each baseline
-with ``torch.profiler`` and prints the
+batches on the drained window, 4 serving steps under each baseline, 4
+hierarchical serving steps and 4 two-level diffs of phase 10d's add with
+``torch.profiler`` and prints the
 device busy time per batch, the idle share and the kernels that fill it
 (PERF.md section 5).
 
@@ -120,19 +145,21 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_LEVEL = 20
 OPS_PER_DRAW = 4
 SOURCE = "src/repro_torch/kernels/csrc/asura_place.cu"
-REPLACES = {
-    "place_fused": "src/repro/kernels/asura_place.py:510",
-    "place_replicas": "src/repro/kernels/asura_place.py:396",
-    "diff_nodes": "src/repro/kernels/asura_place.py:578",
-    "diff_replicas": "src/repro/kernels/asura_place.py:669",
-}
 SOURCE_BASELINES = "src/repro_torch/kernels/csrc/baselines.cu"
+SOURCE_HIER = "src/repro_torch/kernels/csrc/hierarchy.cu"
 BASELINES = ("ch", "rs", "wrh")
-REPLACES.update({
-    "ch_place": "src/repro/kernels/baselines.py:303",
-    "rs_place": "src/repro/kernels/baselines.py:319",
-    "wrh_place": "src/repro/kernels/baselines.py:335",
-})
+# kernel -> (the TPU kernel it replaces, its CUDA source), B1-B9 in order
+REPLACES = {
+    "place_fused": ("src/repro/kernels/asura_place.py:510", SOURCE),
+    "place_replicas": ("src/repro/kernels/asura_place.py:396", SOURCE),
+    "diff_nodes": ("src/repro/kernels/asura_place.py:578", SOURCE),
+    "diff_replicas": ("src/repro/kernels/asura_place.py:669", SOURCE),
+    "ch_place": ("src/repro/kernels/baselines.py:303", SOURCE_BASELINES),
+    "rs_place": ("src/repro/kernels/baselines.py:319", SOURCE_BASELINES),
+    "wrh_place": ("src/repro/kernels/baselines.py:335", SOURCE_BASELINES),
+    "hier_replicas": ("src/repro/kernels/hierarchy.py:349", SOURCE_HIER),
+    "place": ("src/repro/kernels/asura_place.py:455", SOURCE),
+}
 KERNELS = tuple(REPLACES)
 FANOUT = "baseline_replicas"  # no TPU kernel: the reference's jnp loop
 FANOUT_OF = "src/repro/kernels/baselines.py:389"
@@ -159,6 +186,10 @@ WINDOW_INGRESS = 64  # rows the new node may receive per mover round
 MIN_ROUNDS = 8
 SMALL_TRACKED = 1 << 18  # the card-vs-CPU run of phase 8
 SMALL_BATCH = 4096
+RACK = 64  # nodes per domain of the full-width hierarchy: node_id // 64
+DURABILITY_LAYOUT = (12, 8)  # benchmarks/durability.py FULL: 12 domains x 8 nodes
+RAGGED_DOMAINS = 40  # 1 to 128 nodes each
+HIER_ADD_RACK, HIER_GONE_RACK = 7, 40
 
 
 def require(cond, msg: str) -> None:
@@ -540,25 +571,26 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 9: the baselines ----------------------------------------------
     base = phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile)
 
-    # -- B3-B7 and the fan-out: times, twins, work ----------------------------
-    ms.update(diff_work["ms"])
-    plain.update(diff_work["plain"])
-    work.update(diff_work["work"])
-    ms.update(base["ms"])
-    plain.update(base["plain"])
-    work.update(base["work"])
+    # -- phase 10: failure-domain-aware placement ----------------------------
+    hier = phase10(torch, np, dev, caps[LADDER_NODES], seed, ids, bulk, hold, profile)
+
+    # -- B3-B9 and the fan-out: times, twins, work ----------------------------
+    for part in (diff_work, base, hier):
+        ms.update(part["ms"])
+        plain.update(part["plain"])
+        work.update(part["work"])
     library = base["library"]
 
     # -- phase 6: the kernels line -------------------------------------------
-    main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"])
+    main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
+                  *hier["launches"])
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
         launches = sum(part.get(name, 0) for part in main_paths)
+        replaces, source = REPLACES.get(name, (FANOUT_OF, SOURCE_BASELINES))
         entry = {
-            "name": name, "route": "cuda",
-            "source": SOURCE if name in KERNELS[:4] else SOURCE_BASELINES,
-            "replaces": REPLACES.get(name, FANOUT_OF),
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": worst[name], "ms": ms[name], "plain_ms": plain[name],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library.get(name),
@@ -1133,6 +1165,353 @@ def phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -
                      cpu.plan_scale_event(keys, remove=victim).moved_sessions)
         require(cpu_plans == plans["rs"], "rs: the card's plans differ from the CPU's")
         print(f"  rs plans equal to the CPU run's ({time.perf_counter() - t0:.1f} s)")
+    out["launches"] = (bulk_launches, serve_launches, move_launches)
+    return out
+
+
+def hier_topologies(np, caps, seed) -> dict:
+    """The phase-10 deployments as ``{domain: {node: capacity}}``: the
+    4096-node cluster in racks of 64, the durability benchmark's 12 x 8,
+    a ragged one (1 to 128 nodes per domain, capacities from the seed in
+    [0.5, 2.0)) and 4 domains of 3 (for R = D + 1)."""
+    n_dom, per = DURABILITY_LAYOUT
+    rng = np.random.default_rng(seed + 10)
+    ragged, nid = {}, 0
+    for d, size in enumerate(rng.integers(1, 129, RAGGED_DOMAINS)):
+        ragged[d] = {nid + i: float(c) for i, c in enumerate(rng.uniform(0.5, 2.0, size))}
+        nid += int(size)
+    return {
+        "64x64": {d: {n: float(caps[n]) for n in range(d * RACK, (d + 1) * RACK)}
+                  for d in range(len(caps) // RACK)},
+        "12x8": {d: {d * per + i: 1.0 for i in range(per)} for d in range(n_dom)},
+        "ragged": ragged,
+        "4 domains": {d: {3 * d + i: 1.0 for i in range(3)} for d in range(4)},
+    }
+
+
+def hier_tail_lanes(torch, art, ids, R: int) -> int:
+    """Level-2 placements of a (2, R, n) max_draws=1 run that take the
+    per-domain tail: the filled slots whose one draw misses."""
+    from repro_torch.core.rng import GOLDEN
+    from repro_torch.kernels.hierarchy_ref import next_asura_vartop
+    from repro_torch.kernels.ref import fmix32, place_replicas_ref
+    from repro_torch.kernels.u32 import M32, as_u32, mul32
+
+    t = art.tables_dev
+    slots = place_replicas_ref(ids, t[0], t[1], top_level=art.top_level, max_draws=1,
+                               n_replicas=R, emit_nodes=True).long()
+    lens, tops, dids = as_u32(t[2]), t[6].long(), t[7].long()
+    tail = 0
+    for r in range(R):
+        slot = slots[:, r][slots[:, r] >= 0]
+        lane = as_u32(ids)[slots[:, r] >= 0]
+        salted = fmix32(lane ^ mul32(dids[slot] & M32, GOLDEN))
+        ctr = torch.zeros((art.max_top + 1, slot.shape[0]), dtype=torch.int64, device=ids.device)
+        k, f, _ = next_asura_vartop(salted, ctr, tops[slot], art.max_top, 1)
+        hit = (k < art.s_pad) & (f < lens[slot * art.s_pad + k.clamp(max=art.s_pad - 1)])
+        tail += int((~hit).sum())
+    return tail
+
+
+def hier_work(torch, art, ids, R: int) -> tuple[int, int]:
+    """(bytes, int32 operations) kernel B8 needs for ``ids`` at R: level 1
+    is B2's work on the domain table, level 2 B1's on each replica's
+    domain row (draws and tails counted per domain from B2's stats at
+    R = 1 on the salted ids routed there), plus per replica the salt
+    (xor, multiply, fmix32) and three gathers."""
+    from repro_torch.core.rng import GOLDEN
+    from repro_torch.kernels import asura_place as ap
+    from repro_torch.kernels.ref import DEPTH_BINS, fmix32
+    from repro_torch.kernels.u32 import M32, as_u32, to_u32
+
+    t = art.tables_dev
+    slots, st = ap.place_replicas_cuda(ids, t[0], t[1], top_level=art.top_level,
+                                       n_replicas=R, emit_nodes=True, emit_stats=True)
+    levels, draws = ladder_work(torch, st, art.top_level)
+    ops = OPS_PER_LEVEL * levels + (OPS_PER_DRAW + 3) * draws
+    lane_ids = as_u32(ids)
+    for r in range(R):
+        col = slots[:, r].long()
+        for s in torch.unique(col[col >= 0]).tolist():
+            row = slice(s * art.s_pad, (s + 1) * art.s_pad)
+            salt = (int(t[7][s]) * GOLDEN) & M32
+            salted = to_u32(fmix32(lane_ids[col == s] ^ salt))
+            top = int(t[6][s])
+            _, st1 = ap.place_replicas_cuda(salted, t[2][row], t[3][row], top_level=top,
+                                            n_replicas=1, emit_stats=True)
+            lv, dr = ladder_work(torch, st1, top)
+            tail = int(st1[DEPTH_BINS].view(torch.int32))
+            ops += (OPS_PER_LEVEL * (lv + tail) + OPS_PER_DRAW * dr
+                    + 6 * art.s_pad.bit_length() * tail)
+    n = ids.shape[0]
+    ops += n * R * (FMIX_OPS + 2 + 3 * GATHER_OPS)
+    table_bytes = 8 * t[0].shape[0] + 16 * t[2].shape[0] + 8 * t[6].shape[0]
+    return 4 * n + 8 * R * n + table_bytes, ops
+
+
+def phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -> dict:
+    """Failure-domain-aware placement on the card: 10a B8 and B9 against
+    their twins, 10b bulk, 10c serving, 10d movement.  Returns the two
+    kernels' times, twin times, work and the main paths' launch counts."""
+    from repro_torch.core import HierarchicalCluster, PlacementEngine, make_cluster
+    from repro_torch.kernels import LAUNCHES, ref
+    from repro_torch.kernels import asura_place as ap
+    from repro_torch.kernels.hierarchy import hier_place_replicas_cuda
+    from repro_torch.kernels.hierarchy_ref import hier_place_replicas_ref
+    from repro_torch.migrate import MigrationPlanner
+    from repro_torch.serve import Router, TrafficModel
+
+    topo = hier_topologies(np, caps, seed)
+    out = {"ms": {}, "plain": {}, "work": {}}
+
+    def hier(t, where=dev):
+        h = HierarchicalCluster(device=where)
+        for d, members in t.items():
+            for node, cap in members.items():
+                h.add_node(d, node, cap)
+        return h
+
+    def statics(art, **kw):
+        return dict(top_level=art.top_level, max_top=art.max_top, s_pad=art.s_pad,
+                    s_log2=1, **kw)
+
+    # -- 10a: kernels against twins ------------------------------------------
+    print(f"phase 10a: hier_place_replicas_cuda (B8) and place_cuda (B9) vs twins, "
+          f"{ids.shape[0]} ids, exact")
+    arts = {name: hier(t).engine.hier_artifact() for name, t in topo.items()}
+    for name, art in arts.items():
+        tops = sorted(set(art.tables_dev[6][: art.n_domains].tolist()))
+        print(f"  {name}: {art.n_domains} domains, {len(art.node_domain)} nodes, domain "
+              f"table top level {art.top_level}, per-domain top levels {tops}, s_pad {art.s_pad}")
+    require(len(set(arts["ragged"].tables_dev[6][: arts["ragged"].n_domains].tolist())) > 2,
+            "the ragged hierarchy has too few distinct top levels")
+    cases = [("64x64", R, 128) for R in (1, 3, 5)] + [("ragged", R, 128) for R in (1, 3, 5)]
+    cases += [("12x8", 3, 128), ("4 domains", 5, 128), ("64x64", 3, 1), ("ragged", 3, 1)]
+    with uncounted(LAUNCHES):
+        for name, R, md in cases:
+            art = arts[name]
+            kw = statics(art, max_draws=md, n_replicas=R)
+            want = hier_place_replicas_ref(ids, *art.tables_dev, **kw)
+            short = int((want[0] < 0).sum())
+            what = f"{name} R={R} max_draws={md}: {short} slots -1"
+            if md == 1:
+                what += f", {hier_tail_lanes(torch, art, ids, R)} tails"
+            hold("hier_replicas", what, hier_place_replicas_cuda(ids, *art.tables_dev, **kw), want)
+            if name == "4 domains":
+                require(short == ids.shape[0] and bool((want[0, :4] >= 0).all()),
+                        "R = D + 1: only the last slot of every lane may stay -1")
+            elif md == 128:
+                require(short == 0, f"{name} R={R}: a slot stayed -1")
+        flat = PlacementEngine(make_cluster(caps), device=dev)._device_artifact()
+        for md in (128, 1):
+            kw = dict(top_level=flat.top_level, s_log2=1, max_draws=md)
+            want = ref.place_ref(ids, flat.len32_dev, **kw)
+            hold("place", f"{LADDER_NODES} nodes max_draws={md}: {int((want < 0).sum())} "
+                 "lanes -1", ap.place_cuda(ids, flat.len32_dev, **kw), want)
+
+    # -- 10b: bulk ------------------------------------------------------------
+    print(f"phase 10b: PlacementEngine(HierarchicalCluster) on the card, {len(caps) // RACK} racks x {RACK}, "
+          f"{BULK_IDS} ids; B9 on the flat table")
+    h = hier(topo["64x64"])
+    engine = h.engine
+    require(engine.device.type == "cuda", f"engine placed on {engine.device}")
+    art = engine.hier_artifact()  # the one upload, outside the sync guard
+    calls = (
+        ("hier_replicas", lambda: engine.place_replica_pairs_device(bulk, 3)),
+        ("hier_nodes", lambda: engine.place_nodes_device(bulk)),
+        ("place", lambda: ap.place_cuda(bulk, flat.len32_dev, top_level=flat.top_level)),
+    )
+    ev = {name: [] for name, _ in calls}
+    res = {}
+    torch.cuda.synchronize()
+    LAUNCHES.update({k: 0 for k in LAUNCHES})
+    with sync_guard(torch, dev):
+        for _ in range(1 + TIMED_CALLS):
+            for name, call in calls:
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                res[name] = call()
+                e.record()
+                ev[name].append((s, e))
+    bulk_launches = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    print(f"  launches {({k: v for k, v in bulk_launches.items() if v})}, uploads {engine.uploads}")
+    require(engine.uploads == 1, f"engine uploaded {engine.uploads} tables")
+    require(bulk_launches["hier_replicas"] == 2 * (1 + TIMED_CALLS)
+            and bulk_launches["place"] == 1 + TIMED_CALLS
+            and sum(bulk_launches.values()) == 3 * (1 + TIMED_CALLS),
+            "bulk calls launched other than one kernel each")
+    for name, _ in calls:
+        t = statistics.median(s.elapsed_time(e) for s, e in ev[name][1:])
+        if name != "hier_nodes":
+            out["ms"][name] = t
+        print(f"  {name:13s} median {t:.4f} ms over {TIMED_CALLS} calls, "
+              f"{BULK_IDS / t * 1e3:.4g} ids/s, 1 launch per call")
+    with uncounted(LAUNCHES):
+        kw3 = statics(art, max_draws=128, n_replicas=3)
+        want = hier_place_replicas_ref(bulk, *art.tables_dev, **kw3)
+        hold("hier_replicas", "engine place_replica_pairs_device R=3", res["hier_replicas"], want)
+        d = want[0]
+        require(bool(((d[0] != d[1]) & (d[0] != d[2]) & (d[1] != d[2])).all()),
+                "replica domains repeat")
+        want1 = hier_place_replicas_ref(bulk, *art.tables_dev, **statics(art, max_draws=128,
+                                                                          n_replicas=1))
+        hold("hier_replicas", "engine place_nodes_device", res["hier_nodes"], want1[1, 0])
+        want = ref.place_ref(bulk, flat.len32_dev, top_level=flat.top_level)
+        hold("place", "place_cuda bulk", res["place"], want)
+        out["plain"]["hier_replicas"] = statistics.median(cuda_ms(
+            torch, lambda: hier_place_replicas_ref(bulk, *art.tables_dev, **kw3), 2))
+        out["plain"]["place"] = statistics.median(cuda_ms(
+            torch, lambda: ref.place_ref(bulk, flat.len32_dev, top_level=flat.top_level), 2))
+        out["work"]["hier_replicas"] = hier_work(torch, art, bulk, 3)
+        _, st1 = ap.place_replicas_cuda(bulk, flat.len32_dev, flat.node_of_dev,
+                                        top_level=flat.top_level, n_replicas=1, emit_stats=True)
+        levels1, draws1 = ladder_work(torch, st1, flat.top_level)
+        out["work"]["place"] = (8 * BULK_IDS + 4 * flat.n_segs,
+                                OPS_PER_LEVEL * levels1 + OPS_PER_DRAW * draws1)
+    print(f"  twins: B8 {out['plain']['hier_replicas']:.2f} ms, B9 {out['plain']['place']:.2f} ms; "
+          f"B8 work {out['work']['hier_replicas'][1] / BULK_IDS:.1f} int32 ops per id at R=3")
+
+    # -- 10c: serving ---------------------------------------------------------
+    print(f"phase 10c: Router({len(caps) // RACK} racks).stream_driver batch {SERVE_BATCH}, {SERVE_KEYS} keys, "
+          f"zipf 1.1, R=3, pow2, uninstrumented, {SERVE_STEPS} steps + superstep(4)")
+    cfg = dict(batch=SERVE_BATCH, n_keys=SERVE_KEYS, law="zipf", alpha=1.1,
+               n_replicas=3, policy="pow2", seed=seed)
+    router = Router(topo["64x64"])
+    driver = router.stream_driver(**cfg)
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    chosen, step_ev = [], []
+    t0 = time.perf_counter()
+    with sync_guard(torch, dev):
+        for _ in range(SERVE_STEPS):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            chosen.append(driver.step())
+            e.record()
+            step_ev.append((s, e))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / SERVE_STEPS
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        four = driver.superstep(4)
+        e.record()
+    torch.cuda.synchronize()
+    super_wall = (time.perf_counter() - t0) * 1e3
+    serve_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
+    step_ms = statistics.median(s_.elapsed_time(e_) for s_, e_ in step_ev)
+    require(serve_launches["hier_replicas"] == SERVE_STEPS + 4,
+            f"serving launched B8 {serve_launches['hier_replicas']} times")
+    counts = driver.load_counts()
+    require(int(counts.sum()) == (SERVE_STEPS + 4) * SERVE_BATCH, f"counts sum {counts.sum()}")
+    live = torch.tensor(sorted(art.node_domain), device=dev, dtype=torch.int32)
+    require(bool(torch.isin(torch.cat([torch.stack(chosen), four]), live).all()),
+            "a request went to a dead node")
+    with uncounted(LAUNCHES):
+        second = router.stream_driver(**cfg)
+        with sync_guard(torch, dev):
+            second_four = second.superstep(4)
+        require(torch.equal(second_four, torch.stack(chosen[:4])),
+                "superstep(4) differs from 4 step() calls")
+        if profile:
+            print("  hierarchical serving under the profiler (uncounted):")
+            print_profile(profile_steps(torch, second.step, 4))
+    print(f"  step median {step_ms:.4f} ms (CUDA events), {wall:.4f} ms wall; superstep(4) "
+          f"{s.elapsed_time(e):.4f} ms (CUDA events), {super_wall:.4f} ms wall; load_skew "
+          f"{driver.load_skew():.6f}, queue_p99 {driver.queue_p99()}; launches "
+          f"{({k: v for k, v in serve_launches.items() if v})}; a second driver's "
+          f"superstep(4) == its first 4 steps")
+    t0 = time.perf_counter()
+    got = []
+    with uncounted(LAUNCHES):
+        for where in (dev, torch.device("cpu")):
+            d = Router(topo["64x64"], device=where).stream_driver(**dict(cfg, batch=SMALL_BATCH))
+            with sync_guard(torch, where):
+                cs = [d.step() for _ in range(CPU_STEPS)] + [d.superstep(2)]
+            got.append([c.cpu() for c in cs] + [d.counts.cpu(), d.queue.cpu(), d.qhist.cpu()])
+    require(all(torch.equal(a, b) for a, b in zip(*got)),
+            "the hierarchical driver on the card differs from the CPU's")
+    print(f"  batch {SMALL_BATCH}: card == CPU in chosen ({CPU_STEPS} steps + superstep(2)), "
+          f"counts, queue, qhist ({time.perf_counter() - t0:.1f} s)")
+
+    # -- 10d: movement --------------------------------------------------------
+    keys = TrafficModel.ids_from_ranks(
+        torch.arange(SERVE_KEYS, dtype=torch.int64), TrafficModel(SERVE_KEYS, seed=seed).id_salt
+    ).numpy().astype(np.uint32)
+    keys_dev = torch.from_numpy(keys).to(dev)
+    h = hier(topo["64x64"])
+    engine = h.engine
+    planner = MigrationPlanner(engine)
+    new_node, victim = len(caps), len(caps) // 2
+    total = float(np.sum(caps))
+    gone_cap = float(np.sum(caps[HIER_GONE_RACK * RACK:(HIER_GONE_RACK + 1) * RACK]))
+    events = (
+        (f"add node {new_node} (1.0) to rack {HIER_ADD_RACK}", "add", HIER_ADD_RACK,
+         lambda: h.add_node(HIER_ADD_RACK, new_node, 1.0), 1.0 / (total + 1.0)),
+        (f"remove node {victim} from rack {victim // RACK}", "node", victim // RACK,
+         lambda: h.remove_node(victim // RACK, victim), caps[victim] / (total + 1.0)),
+        (f"remove rack {HIER_GONE_RACK}", "domain", HIER_GONE_RACK,
+         lambda: h.remove_domain(HIER_GONE_RACK), gone_cap / (total + 1.0 - caps[victim])),
+    )
+    print(f"phase 10d: movement on {SERVE_KEYS} keys, R=3: "
+          + "; ".join(label for label, *_ in events))
+    before = dict(LAUNCHES)
+    for label, kind, dom, apply, share in events:
+        engine.hier_artifact()  # pin v before the change
+        v0 = h.version
+        with uncounted(LAUNCHES):  # read only by the rack-removal check
+            held = engine.place_replica_pairs_device(keys_dev, 3)
+        apply()
+        engine.hier_artifact()  # the v+1 upload, outside the guard
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with sync_guard(torch, dev):
+            s.record()
+            moved, src, dst, _, src_dom, dst_dom = engine.diff_replica_domains_device(
+                keys_dev, v0, h.version, 3)
+            e.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = planner.plan_replicas(keys, v0, h.version, 3)
+        t_plan = time.perf_counter() - t0
+        n_moved = int(moved.sum())
+        require(plan.n_moves == n_moved > 0, f"{label}: plan {plan.n_moves} rows, diff {n_moved}")
+        with uncounted(LAUNCHES):  # read only by the distinct-domain check
+            after = engine.place_replica_pairs_device(keys_dev, 3)[0]
+        require(bool(((after[0] != after[1]) & (after[0] != after[2])
+                      & (after[1] != after[2])).all()), f"{label}: replica domains repeat")
+        if kind == "add":
+            intra = moved & (src_dom == dom)
+            require(bool((dst_dom[moved] == dom).all()), f"{label}: a row left for another rack")
+            require(bool((dst[intra] == new_node).all()), f"{label}: an in-rack move missed the new node")
+            note = f"all to rack {dom}, {int(intra.sum())} in-rack rows all to node {new_node}"
+        elif kind == "node":
+            require(bool((src_dom[moved] == dom).all()), f"{label}: a row left another rack")
+            note = f"all from rack {dom}"
+        else:
+            copies = (held[0].T == dom).sum(dim=1)
+            require(torch.equal(moved.sum(dim=1), copies), f"{label}: moved != the rack's copies")
+            note = f"exactly the rack's {int(copies.sum())} copies"
+        print(f"  {label}: diff {s.elapsed_time(e):.4f} ms (CUDA events), plan_replicas "
+              f"{t_plan:.3f} s, {n_moved} rows moved ({n_moved / (3 * SERVE_KEYS):.6f} of the "
+              f"replica mass, capacity share {share:.6f}), {note}; replica domains distinct")
+        if profile and kind == "add":
+            print("  the add's diff_replica_domains_device under the profiler (uncounted):")
+            with uncounted(LAUNCHES):
+                print_profile(profile_steps(torch, lambda: engine.diff_replica_domains_device(
+                    keys_dev, v0, h.version, 3), 4))
+    small = keys[: 1 << 18]
+    card = Router(topo["64x64"]).route_replica_pairs(small, 3)
+    move_launches = {k: v - before[k] for k, v in LAUNCHES.items()}
+    require(move_launches["hier_replicas"] > 0, "movement did not launch B8")
+    t0 = time.perf_counter()
+    with uncounted(LAUNCHES):
+        host = Router(topo["64x64"], device="cpu").route_replica_pairs(small, 3)
+    require(np.array_equal(card, host), "route_replica_pairs differs between the card and the CPU")
+    print(f"  route_replica_pairs on {small.shape[0]} keys: card == CPU "
+          f"({time.perf_counter() - t0:.1f} s); launches "
+          f"{({k: v for k, v in move_launches.items() if v})}")
     out["launches"] = (bulk_launches, serve_launches, move_launches)
     return out
 

@@ -21,6 +21,17 @@ The baselines carry over the same way:
     history-dependent, so a port engine continues a reference engine's
     slicing from it (``PlacementEngine._rs_shadow``).
 
+The failure-domain-aware mode carries over the same way:
+
+  * ``hier_cluster_from_reference_json`` rebuilds a port
+    ``HierarchicalCluster`` from the reference's domain-level blob
+    (``h._top.to_json()``) and one blob per domain (``{did:
+    h.domains[did].to_json()}``): the domain table is history-dependent
+    (free-segment reuse), so it crosses over as data, not replayed;
+  * ``hier_artifact_from_arrays`` builds the port's ``HierArtifact`` from
+    a reference artifact's eight tables (``tables_dev`` as NumPy arrays)
+    and its statics ``(top_level, max_top, s_pad)``.
+
 All take plain JSON / NumPy / Python values, so nothing of the reference
 is imported.
 """
@@ -28,16 +39,20 @@ is imported.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core.cluster import Cluster
 from .core.engine import (
     ALGORITHMS,
     BaselineArtifact,
+    HierArtifact,
     TableArtifact,
     with_baseline_device_tables,
     with_device_tables,
 )
+from .core.hierarchy import HierarchicalCluster
 from .core.random_slicing import RandomSlicingTable
+from .device import resolve_device
 
 
 def cluster_from_reference_json(blob: str, *, device=None) -> Cluster:
@@ -101,3 +116,51 @@ def rs_table_from_intervals(intervals, weights) -> RandomSlicingTable:
         raise ValueError("the intervals must cover the u32 circle exactly once")
     table.weights = {int(k): float(v) for k, v in weights.items()}
     return table
+
+
+def hier_cluster_from_reference_json(
+    top_blob: str, domain_blobs: dict, *, version: int = 0, device=None
+) -> HierarchicalCluster:
+    """A port ``HierarchicalCluster`` equal to the reference hierarchy whose
+    domain-level cluster wrote ``top_blob`` and whose domains wrote
+    ``domain_blobs`` (domain id -> blob); ``version`` is the reference
+    hierarchy's ``version``, and ``.engine`` places on ``device``."""
+    top = Cluster.from_json(top_blob, device=device)
+    h = HierarchicalCluster(params=top.params, device=device)
+    h._top = top
+    h.domains = {
+        int(did): Cluster.from_json(blob, device=device)
+        for did, blob in domain_blobs.items()
+    }
+    h._version = int(version)
+    return h
+
+
+_HIER_DTYPES = (np.uint32, np.int32, np.uint32, np.int32, np.uint32, np.uint32,
+                np.int32, np.int32)
+
+
+def hier_artifact_from_arrays(
+    tables, top_level: int, max_top: int, s_pad: int, *, version: int = 0, device=None,
+) -> HierArtifact:
+    """The port's two-level artifact from a reference artifact's eight
+    tables (NumPy arrays in the kernel's operand order: top lengths, top
+    slots, stacked lengths, nodes, cumsum halves, per-slot top levels and
+    domain ids) and its statics, device tables included."""
+    if len(tables) != 8:
+        raise ValueError(f"a hierarchical artifact has 8 tables, got {len(tables)}")
+    host = [np.array(t, dtype=dt) for t, dt in zip(tables, _HIER_DTYPES)]
+    if host[2].shape[0] % s_pad:
+        raise ValueError(f"stacked tables of length {host[2].shape[0]} need s_pad | length")
+    n_domains = host[2].shape[0] // s_pad
+    dev = resolve_device(device)
+    return HierArtifact(
+        version=int(version),
+        n_domains=n_domains,
+        top_level=int(top_level),
+        max_top=int(max_top),
+        s_pad=int(s_pad),
+        domain_ids=host[7][:n_domains].astype(np.int64),
+        node_domain={},  # the tables carry no node -> domain view
+        tables_dev=tuple(torch.from_numpy(a).to(dev) for a in host),
+    )

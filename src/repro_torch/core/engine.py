@@ -46,9 +46,21 @@ version order), and an evicted version is never rebuilt.  The
 segment-table methods (``place``, ``place_replicas``, the diffs, ...)
 are ASURA-only and raise ``ValueError`` on a baseline engine.
 
+A ``HierarchicalCluster`` (``is_hierarchical``) switches the engine into
+the failure-domain-aware mode (ASURA only): a ``HierArtifact`` per
+version -- both levels' tables in kernel B8's layout -- behind the same
+LRU and ``uploads`` counter; ``place_replica_pairs[_device]`` return
+(domain, node) replica sets with pairwise-distinct domains,
+``diff_replica_domains_device`` diffs both levels, and ``place_nodes*``,
+``place_replica_nodes*``, ``diff_replicas_device`` and
+``diff_replicas_at`` dispatch to the two-level path.  Flat segment-table
+methods raise ``ValueError`` in this mode.  The backend does not pick the
+two-level route: every two-level call goes through B8's wrapper, which
+launches the kernel for tables on the card and runs its plain-torch twin
+for tables on the CPU.
+
 The engine is duck-typed on the cluster (``version``, ``params``,
 ``seg_lengths()``, ``seg_to_node()``; the baselines also read ``nodes``).
-Hierarchical clusters are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -141,6 +153,34 @@ class BaselineArtifact:
         return 8 * self.n_entries
 
 
+@dataclasses.dataclass(frozen=True)
+class HierArtifact:
+    """Immutable snapshot of one HIERARCHICAL cluster version.
+
+    The device view of both levels: the domain-level segment table (node
+    ids re-mapped to dense domain SLOTS, so the section-5.A distinct-node
+    test is a distinct-domain test), the D per-domain tables stacked into
+    flat ``(D * s_pad,)`` arrays (lengths zero-padded, node map -1-padded,
+    u64-cumsum halves carried at each domain's total), and the per-domain
+    top levels and domain ids.  ``tables_dev`` is the eight-tuple in the
+    kernel's operand order (``kernels.hierarchy.hier_tables_prep``).  Node
+    ids are validated globally unique at build time; ``node_domain`` is
+    the host's node -> domain view."""
+
+    version: int
+    n_domains: int
+    top_level: int
+    max_top: int
+    s_pad: int
+    domain_ids: np.ndarray
+    node_domain: dict
+    tables_dev: tuple
+
+    @property
+    def statics(self) -> tuple:
+        return (self.top_level, self.max_top, self.s_pad)
+
+
 def with_baseline_device_tables(art: BaselineArtifact, device) -> BaselineArtifact:
     """``art`` with its lane-padded device tables (one host->device upload)."""
     from ..kernels.baselines import TABLE_PREP
@@ -184,11 +224,13 @@ class PlacementEngine:
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        if getattr(cluster, "is_hierarchical", False):
-            raise NotImplementedError(
-                "hierarchical clusters are not ported yet (ROADMAP A6)"
-            )
         self.algorithm = _check_algorithm(algorithm)
+        self.hierarchical = bool(getattr(cluster, "is_hierarchical", False))
+        if self.hierarchical and algorithm != "asura":
+            raise ValueError(
+                "hierarchical placement is ASURA-only (two-level segment "
+                f"tables); got algorithm={algorithm!r}"
+            )
         self.cluster = cluster
         self.params: AsuraParams = getattr(cluster, "params", DEFAULT_PARAMS)
         self.device = resolve_device(device)
@@ -214,6 +256,20 @@ class PlacementEngine:
                 "place_nodes / place_nodes_device (they dispatch per "
                 "algorithm)"
             )
+        if self.hierarchical:
+            raise ValueError(
+                f"{method} is flat-table semantics; this engine is bound to "
+                "a HierarchicalCluster -- use place_nodes / "
+                "place_replica_nodes / place_replica_pairs[_device] / "
+                "diff_replica{s,_domains}_device (the two-level paths)"
+            )
+
+    def _require_hier(self, method: str) -> None:
+        if not self.hierarchical:
+            raise ValueError(
+                f"{method} needs a HierarchicalCluster-bound engine; this "
+                "engine's cluster is flat"
+            )
 
     @property
     def uploads(self) -> int:
@@ -234,29 +290,51 @@ class PlacementEngine:
             self.ledger.incr("engine.lru_evictions")
             self.ledger.event("engine.lru_evict", algorithm, version=evicted)
 
-    def artifact(self, algorithm: str | None = None):
-        """The current version's table under ``algorithm`` (default: the
-        engine's own), rebuilt (and re-uploaded) only when ``(algorithm,
-        cluster.version)`` is not among the cached artifacts."""
-        alg = self._resolve_algorithm(algorithm)
+    def _current(self, key: str, build):
+        """The current version's artifact in the ``key`` LRU, built by
+        ``build(version)`` (and uploaded) only when it is not cached."""
         version = self.cluster.version
-        cache = self._cache(alg)
+        cache = self._cache(key)
         art = cache.get(version)
         if art is not None:
             cache.move_to_end(version)
             self.ledger.incr("engine.lru_hits")
             return art
-        with self.ledger.span("engine.build_artifact", algorithm=alg,
+        with self.ledger.span("engine.build_artifact", algorithm=key,
                               version=version):
-            if alg == "asura":
-                art = self._build_asura_artifact(version)
-            else:
-                art = self._build_baseline_artifact(alg, version)
-        self._store(alg, art)
+            art = build(version)
+        self._store(key, art)
         self.ledger.incr("engine.uploads")
-        self.ledger.event("engine.upload", alg, version=version,
-                          n_segs=getattr(art, "n_segs", None))
+        n_segs = art.n_domains if key == "hier" else getattr(art, "n_segs", None)
+        self.ledger.event("engine.upload", key, version=version, n_segs=n_segs)
         return art
+
+    def _pinned(self, key: str, version: int, current):
+        """A SPECIFIC version's artifact in the ``key`` LRU: ``current()``
+        for the current version, else the cached one.  An evicted version
+        cannot be rebuilt -- the cluster has moved on, and random slicing's
+        table is history-dependent -- so this raises ``KeyError`` rather
+        than re-deriving the wrong table."""
+        if version == self.cluster.version:
+            return current()
+        cache = self._cache(key)
+        art = cache.get(version)
+        if art is None:
+            raise KeyError(
+                f"{key} table version {version} not cached (LRU holds "
+                f"{list(cache)}); place at that version before mutating"
+            )
+        cache.move_to_end(version)
+        return art
+
+    def artifact(self, algorithm: str | None = None):
+        """The current version's table under ``algorithm`` (default: the
+        engine's own), rebuilt (and re-uploaded) only when ``(algorithm,
+        cluster.version)`` is not among the cached artifacts."""
+        alg = self._resolve_algorithm(algorithm)
+        if alg == "asura":
+            return self._current(alg, self._build_asura_artifact)
+        return self._current(alg, lambda v: self._build_baseline_artifact(alg, v))
 
     def _build_asura_artifact(self, version: int) -> TableArtifact:
         lengths = np.asarray(self.cluster.seg_lengths(), dtype=np.float64)
@@ -327,26 +405,120 @@ class PlacementEngine:
 
         The current version is built on demand; any other version must
         still be in the algorithm's LRU (place at it before mutating the
-        cluster).  An evicted version cannot be rebuilt -- the cluster has
-        moved on, and random slicing's table is history-dependent -- so
-        this raises ``KeyError`` rather than re-deriving the wrong table."""
+        cluster), else ``KeyError``."""
         alg = self._resolve_algorithm(algorithm)
-        if version == self.cluster.version:
-            return self.artifact(alg)
-        cache = self._cache(alg)
-        art = cache.get(version)
-        if art is None:
-            raise KeyError(
-                f"{alg} table version {version} not cached (LRU holds "
-                f"{list(cache)}); place at that version before mutating"
-            )
-        cache.move_to_end(version)
-        return art
+        return self._pinned(alg, version, lambda: self.artifact(alg))
 
     def _device_artifact_for(self, version: int, algorithm: str | None = None):
         """``artifact_for`` with device tables (same materialization)."""
         alg = self._resolve_algorithm(algorithm)
         return self._with_device_tables(alg, self.artifact_for(version, alg))
+
+    # -- hierarchical artifacts ----------------------------------------------
+
+    def _build_hier_artifact(self, version: int) -> HierArtifact:
+        from ..kernels.hierarchy import hier_tables_prep
+
+        h = self.cluster
+        top = h._top
+        lengths = np.asarray(top.seg_lengths(), dtype=np.float64)
+        node_domain = h.node_domains()  # validates global node-id uniqueness
+        domain_ids = np.asarray(sorted(int(d) for d in top.nodes), dtype=np.int64)
+        slot_of = {int(d): i for i, d in enumerate(domain_ids)}
+        top_slot = [slot_of[int(d)] if d >= 0 else -1 for d in top.seg_to_node()]
+        dom_lens, dom_nodes, dom_tops = [], [], []
+        for d in domain_ids:
+            dom = h.domains[int(d)]
+            dl = np.asarray(dom.seg_lengths(), dtype=np.float64)
+            dom_tops.append(self.params.level_for(_upper_bound(dl)))
+            dom_lens.append(lengths_to_u32(dl))
+            dom_nodes.append(dom.seg_to_node())
+        tables, s_pad = hier_tables_prep(
+            lengths_to_u32(lengths), top_slot, dom_lens, dom_nodes, dom_tops,
+            domain_ids, device=self.device,
+        )
+        return HierArtifact(
+            version=version,
+            n_domains=len(domain_ids),
+            top_level=self.params.level_for(_upper_bound(lengths)),
+            max_top=int(max(dom_tops)),
+            s_pad=s_pad,
+            domain_ids=domain_ids,
+            node_domain=node_domain,
+            tables_dev=tables,
+        )
+
+    def hier_artifact(self) -> HierArtifact:
+        """The current version's two-level artifact (the same versioned LRU,
+        upload counter and eviction events as the flat artifacts)."""
+        self._require_hier("hier_artifact")
+        return self._current("hier", self._build_hier_artifact)
+
+    def hier_artifact_for(self, version: int) -> HierArtifact:
+        """A SPECIFIC version's two-level artifact: the current one is built
+        on demand, any other must still be in the LRU (``KeyError``
+        otherwise, as ``artifact_for``)."""
+        self._require_hier("hier_artifact_for")
+        return self._pinned("hier", version, self.hier_artifact)
+
+    def _hier_kwargs(self, art: HierArtifact, n_replicas: int) -> dict:
+        return dict(
+            top_level=art.top_level, max_top=art.max_top, s_pad=art.s_pad,
+            n_replicas=n_replicas, params=self.params,
+        )
+
+    def _hier_at(self, version: int | None) -> HierArtifact:
+        return self.hier_artifact() if version is None else self.hier_artifact_for(version)
+
+    def place_replica_pairs_device(
+        self, datum_ids, n_replicas: int, version: int | None = None
+    ) -> torch.Tensor:
+        """Two-level replication -> (2, R, batch) int32 on the engine's
+        device (plane 0 domains, plane 1 nodes), no host sync; -1 marks
+        slots whose distinct-domain draw did not converge.  ``version``
+        pins a cached table version (default: current)."""
+        from ..kernels.ops import hier_place_replicas_on_tables_device
+
+        self._require_hier("place_replica_pairs_device")
+        art = self._hier_at(version)
+        return hier_place_replicas_on_tables_device(
+            datum_ids, art.tables_dev, **self._hier_kwargs(art, n_replicas)
+        )
+
+    def place_replica_pairs(
+        self, datum_ids, n_replicas: int, version: int | None = None
+    ) -> np.ndarray:
+        """Host-facing two-level replication -> (batch, R, 2) int64
+        ``(domain_id, node_id)`` pairs with pairwise-DISTINCT domains,
+        primary first -- equal to the ``HierarchicalCluster`` oracle.
+        Raises ``RuntimeError`` if the distinct-domain draw did not
+        converge."""
+        from ..kernels.ops import hier_place_replicas_on_tables
+
+        self._require_hier("place_replica_pairs")
+        art = self._hier_at(version)
+        return hier_place_replicas_on_tables(
+            self._host_ids(datum_ids), art.tables_dev,
+            **self._hier_kwargs(art, n_replicas),
+        )
+
+    def diff_replica_domains_device(
+        self, datum_ids, v_from: int, v_to: int, n_replicas: int
+    ):
+        """Two-level replica diff with the domain planes -> ``(moved, src,
+        dst, src_slot, src_dom, dst_dom)``, each (batch, R) on the engine's
+        device, no host sync.  Both levels of both versions are placed by
+        B8; the alignment runs on the node plane and the domains ride
+        along."""
+        from ..kernels.ops import hier_diff_replicas_on_tables_device
+
+        self._require_hier("diff_replica_domains_device")
+        a = self.hier_artifact_for(v_from)
+        b = self.hier_artifact_for(v_to)
+        return hier_diff_replicas_on_tables_device(
+            datum_ids, a.tables_dev, b.tables_dev, statics_a=a.statics,
+            statics_b=b.statics, n_replicas=n_replicas, params=self.params,
+        )
 
     # -- host-facing STEP 2 --------------------------------------------------
 
@@ -377,8 +549,11 @@ class PlacementEngine:
         return baseline_place_on_table(alg, ids, art.keys_dev, art.vals_dev)
 
     def place_nodes(self, datum_ids, algorithm: str | None = None) -> np.ndarray:
-        """Batch placement -> int64 node ids (dispatches on ``algorithm``)."""
+        """Batch placement -> int64 node ids (dispatches on ``algorithm``;
+        a hierarchical engine gives each id's primary node)."""
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs(datum_ids, 1)[:, 0, 1]
         ids = self._host_ids(datum_ids)
         if alg != "asura":
             return self._baseline_nodes(alg, self.artifact(alg), ids)
@@ -411,8 +586,11 @@ class PlacementEngine:
         """(batch, R) node ids, primary first (dispatches on ``algorithm``:
         ASURA's section-5.A distinct-node draw, or the baselines' salted
         rejection fan-out, which raises ``ValueError`` when a slot stays
-        unfilled)."""
+        unfilled).  Hierarchical engines return (batch, R, 2) ``(domain,
+        node)`` pairs instead, as ``place_replica_pairs``."""
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs(datum_ids, n_replicas)
         if alg == "asura":
             return self.artifact("asura").node_of[self.place_replicas(datum_ids, n_replicas)]
         art = self.artifact(alg)
@@ -460,8 +638,11 @@ class PlacementEngine:
     def place_nodes_device(self, datum_ids, algorithm: str | None = None) -> torch.Tensor:
         """Batch placement -> (batch,) int32 node ids on the engine's device,
         no host sync (dispatches on ``algorithm``: ASURA's fused seg->node
-        gather with the on-device tail, or a baseline's lookup kernel)."""
+        gather with the on-device tail, or a baseline's lookup kernel; a
+        hierarchical engine gives the primary's node plane)."""
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs_device(datum_ids, 1)[1, 0, :]
         return self._nodes_device(alg, self._device_artifact(alg), datum_ids)
 
     def place_replica_nodes_device(
@@ -469,13 +650,16 @@ class PlacementEngine:
     ) -> torch.Tensor:
         """(batch, R) int32 node ids on the engine's device, primary first,
         no host sync (dispatches on ``algorithm``); -1 marks unfilled slots
-        (the host variant raises instead)."""
+        (the host variant raises instead).  Hierarchical engines return the
+        (2, R, batch) planes of ``place_replica_pairs_device``."""
         from ..kernels.ops import (
             baseline_place_replicas_on_table_device,
             place_replicas_on_table_device,
         )
 
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs_device(datum_ids, n_replicas)
         art = self._device_artifact(alg)
         if alg != "asura":
             return baseline_place_replicas_on_table_device(
@@ -507,6 +691,8 @@ class PlacementEngine:
         (dispatches on ``algorithm``: the baselines' movement accounting
         diffs owners across two cached versions with it)."""
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs(datum_ids, 1, version)[:, 0, 1]
         ids = self._host_ids(datum_ids)
         if alg != "asura":
             return self._baseline_nodes(alg, self.artifact_for(version, alg), ids)
@@ -538,7 +724,10 @@ class PlacementEngine:
         self, datum_ids, version: int, n_replicas: int
     ) -> np.ndarray:
         """(batch, R) node ids under a cached version, primary first -- the
-        window's replica read rule places the v+1 sets through this."""
+        window's replica read rule places the v+1 sets through this.
+        Hierarchical engines return (batch, R, 2) pairs."""
+        if self.hierarchical:
+            return self.place_replica_pairs(datum_ids, n_replicas, version)
         self._require_asura("place_replica_nodes_at")
         art = self.artifact_for(version, "asura")
         return art.node_of[self.place_replicas_at(datum_ids, version, n_replicas)]
@@ -571,15 +760,20 @@ class PlacementEngine:
     ) -> torch.Tensor:
         """``place_nodes_device`` under a cached version (no host sync)."""
         alg = self._resolve_algorithm(algorithm)
+        if self.hierarchical:
+            return self.place_replica_pairs_device(datum_ids, 1, version)[1, 0, :]
         return self._nodes_device(alg, self._device_artifact_for(version, alg), datum_ids)
 
     def place_replica_nodes_device_at(
         self, datum_ids, version: int, n_replicas: int
     ) -> torch.Tensor:
         """``place_replica_nodes_device`` under a cached version (no host
-        sync; -1 marks unfilled slots)."""
+        sync; -1 marks unfilled slots; hierarchical engines: the pair
+        planes)."""
         from ..kernels.ops import place_replicas_on_table_device
 
+        if self.hierarchical:
+            return self.place_replica_pairs_device(datum_ids, n_replicas, version)
         self._require_asura("place_replica_nodes_device_at")
         art = self._device_artifact_for(version, "asura")
         return place_replicas_on_table_device(
@@ -611,9 +805,13 @@ class PlacementEngine:
         each (batch, R) on the engine's device, no host sync: both sets in
         one launch, then the per-slot alignment (``moved`` iff the slot's
         owner changed; ``src`` the vacated v-side node; ``src_slot`` its
-        v-set position)."""
+        v-set position).  Hierarchical engines diff the NODE planes of the
+        two-level placement (node ids are globally unique);
+        ``diff_replica_domains_device`` adds the domain planes."""
         from ..kernels.ops import diff_replicas_on_tables_device
 
+        if self.hierarchical:
+            return self.diff_replica_domains_device(datum_ids, v_from, v_to, n_replicas)[:4]
         self._require_asura("diff_replicas_device")
         a = self._device_artifact_for(v_from, "asura")
         b = self._device_artifact_for(v_to, "asura")
@@ -629,10 +827,12 @@ class PlacementEngine:
         """Host-facing ``diff_replicas_device``: ``(moved, src, dst,
         src_slot)`` as NumPy arrays (int64 nodes).  The numpy backend runs
         both replica sweeps on the host and aligns with the host spec
-        (``core.asura.align_replica_sets``)."""
-        self._require_asura("diff_replicas_at")
+        (``core.asura.align_replica_sets``); a hierarchical engine always
+        runs the two-level diff through B8's wrapper."""
+        if not self.hierarchical:
+            self._require_asura("diff_replicas_at")
         ids = self._host_ids(datum_ids)
-        if self.backend == "numpy":
+        if self.backend == "numpy" and not self.hierarchical:
             before = self.place_replica_nodes_at(ids, v_from, n_replicas)
             after = self.place_replica_nodes_at(ids, v_to, n_replicas)
             moved, src, src_slot = align_replica_sets(before, after)

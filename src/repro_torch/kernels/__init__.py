@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain-torch twins.
 
-``asura_place`` and ``baselines`` hold the wrappers (launch counters in
-``LAUNCHES``), ``ref`` and ``baselines_ref`` the twins, ``ops`` the
-table-level entry points, ``build`` the ``nvcc`` build at first use.
+``asura_place``, ``baselines`` and ``hierarchy`` hold the wrappers
+(launch counters in ``LAUNCHES``), ``ref``, ``baselines_ref`` and
+``hierarchy_ref`` the twins, ``ops`` the table-level entry points,
+``build`` the ``nvcc`` build at first use.
 Nothing is compiled at import time.
 """
 
@@ -10,6 +11,7 @@ from .asura_place import (
     LAUNCHES,
     diff_nodes_cuda,
     diff_replicas_cuda,
+    place_cuda,
     place_fused_cuda,
     place_replicas_cuda,
     reset_launches,
@@ -20,6 +22,8 @@ from .baselines import (
     rs_place_cuda,
     wrh_place_cuda,
 )
+from .hierarchy import hier_place_replicas_cuda
+from .hierarchy_ref import hier_place_replicas_ref
 
 __all__ = [
     "LAUNCHES",
@@ -27,6 +31,9 @@ __all__ = [
     "ch_place_cuda",
     "diff_nodes_cuda",
     "diff_replicas_cuda",
+    "hier_place_replicas_cuda",
+    "hier_place_replicas_ref",
+    "place_cuda",
     "place_fused_cuda",
     "place_replicas_cuda",
     "reset_launches",

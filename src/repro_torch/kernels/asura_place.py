@@ -1,11 +1,13 @@
 """Wrappers of the hand-written CUDA placement kernels (``csrc/asura_place.cu``).
 
-``place_fused_cuda`` replaces the reference's ``place_fused_pallas``;
-``place_replicas_cuda`` replaces ``place_replicas_pallas`` and also emits
+``place_cuda`` replaces the reference's ``place_pallas`` (the bounded
+draw loop alone, -1 for a non-converged lane; the reference exports it
+and no caller of its own uses it); ``place_fused_cuda`` replaces
+``place_fused_pallas``; ``place_replicas_cuda`` replaces ``place_replicas_pallas`` and also emits
 the serving path's stats vector; ``diff_nodes_cuda`` and
 ``diff_replicas_cuda`` replace ``diff_nodes_pallas`` and
 ``diff_replicas_pallas`` (the migration planner's two-version diffs).
-All four:
+All five:
 
   * take the plain-torch twin (``ref.py``) only for CPU tensors; for CUDA
     tensors they launch the kernel or raise -- no fallback;
@@ -28,7 +30,7 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"place_fused": 0, "place_replicas": 0, "diff_nodes": 0, "diff_replicas": 0}
+LAUNCHES = {"place": 0, "place_fused": 0, "place_replicas": 0, "diff_nodes": 0, "diff_replicas": 0}
 
 
 def reset_launches() -> None:
@@ -40,6 +42,8 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("asura_place")
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.asura_place.argtypes = [p] * 3 + [i64] + [i32] * 4 + [p]
+    lib.asura_place.restype = i32
     lib.asura_place_fused.argtypes = [p] * 6 + [i64] + [i32] * 5 + [p]
     lib.asura_place_fused.restype = i32
     lib.asura_place_replicas.argtypes = [p] * 7 + [i64] + [i32] * 6 + [p]
@@ -83,6 +87,40 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def _raise_on(rc: int, fn: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
+
+
+def place_cuda(
+    ids: torch.Tensor,
+    len32: torch.Tensor,
+    *,
+    top_level: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+) -> torch.Tensor:
+    """Bounded placement -> (n,) int32 segments, -1 for a lane that did not
+    hit within ``max_draws`` draws (no tail, no gather).  ``len32`` is the
+    (n_segs,) uint32 length table."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs = len32.shape[0] if isinstance(len32, torch.Tensor) else 0
+    _check("len32", len32, torch.uint32, dev, n_segs)
+    _check_ladder(n_segs, top_level, s_log2, max_draws)
+    if dev.type == "cpu":
+        return ref.place_ref(ids, len32, top_level=top_level, s_log2=s_log2,
+                             max_draws=max_draws)
+    if dev.type != "cuda":
+        raise ValueError(f"place_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    rc = _lib().asura_place(
+        ids.data_ptr(), len32.data_ptr(), out.data_ptr(), n, n_segs, top_level,
+        s_log2, max_draws, _stream(dev),
+    )
+    _raise_on(rc, "asura_place")
+    LAUNCHES["place"] += 1
+    return out
 
 
 def place_fused_cuda(

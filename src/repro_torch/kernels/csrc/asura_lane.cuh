@@ -1,0 +1,153 @@
+// ASURA STEP 2's per-lane device functions, shared by every kernel that
+// places one id per thread against a segment table: asura_place.cu (B1-B4,
+// B9) and hierarchy.cu (B8, whose level 1 is B2's body and whose level 2
+// is B1's).  kernels/build.py hashes this header with every source that
+// includes it.
+
+#pragma once
+
+#include <cstdint>
+
+#include "hash.cuh"
+
+namespace port_lane {
+
+using port_hash::draw_u32;
+
+// Per-lane counter array: top_level + 1 <= 31 levels are used (the
+// wrappers check s_log2 + top_level <= 31).
+constexpr int kMaxLevels = 32;
+
+// One ASURA number: descend from top_level while the draw's MSB is clear,
+// ticking each consulted level's counter; k = floor, f = fraction * 2**32.
+__device__ __forceinline__ void next_asura(uint32_t id, uint32_t* ctr,
+                                           int top_level, int s_log2,
+                                           uint32_t& k, uint32_t& f) {
+  int level = top_level;
+  uint32_t h = draw_u32(id, level, ctr[level]);
+  ctr[level] += 1u;
+  while (level > 0 && h < 0x80000000u) {
+    --level;
+    h = draw_u32(id, level, ctr[level]);
+    ctr[level] += 1u;
+  }
+  k = h >> (32 - s_log2 - level);
+  f = h << (s_log2 + level);
+}
+
+__device__ __forceinline__ bool hits(uint32_t k, uint32_t f, int n_segs,
+                                     const uint32_t* __restrict__ len32) {
+  return k < static_cast<uint32_t>(n_segs) && f < __ldg(len32 + k);
+}
+
+// searchsorted(cum, u, side="right") over the u64 cumsum halves.
+static __device__ int resolve_tail(uint32_t id, int top_level, int n_segs,
+                                   const uint32_t* __restrict__ cum_hi,
+                                   const uint32_t* __restrict__ cum_lo) {
+  const uint64_t h = draw_u32(id, top_level + 1, 0u);
+  const uint64_t total = (static_cast<uint64_t>(__ldg(cum_hi + n_segs - 1)) << 32) |
+                         __ldg(cum_lo + n_segs - 1);
+  const uint64_t u = h * (total >> 32) + ((h * (total & 0xFFFFFFFFull)) >> 32);
+  int lo = 0, hi = n_segs;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const uint64_t c = (static_cast<uint64_t>(__ldg(cum_hi + mid)) << 32) |
+                       __ldg(cum_lo + mid);
+    if (c <= u) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The bounded draw loop against one table.  kTotal (B1's body): a lane
+// that did not hit within max_draws draws is resolved on chip by the tail,
+// and with ``emit_nodes`` the segment goes through the seg->node gather.
+// !kTotal (B9's body): no tail and no gather -- the segment, or -1 for a
+// lane that did not converge.  ``ctr`` holds >= top_level + 1 entries;
+// they are zeroed here, so a second call restarts the stream.
+template <bool kTotal>
+__device__ __forceinline__ int32_t place_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int emit_nodes) {
+  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  int seg = -1;
+  for (int d = 0; d < max_draws; ++d) {
+    uint32_t k, f;
+    next_asura(id, ctr, top_level, s_log2, k, f);
+    if (hits(k, f, n_segs, len32)) {
+      seg = static_cast<int>(k);
+      break;
+    }
+  }
+  if constexpr (!kTotal) {
+    return seg;
+  } else {
+    if (seg < 0) seg = resolve_tail(id, top_level, n_segs, cum_hi, cum_lo);
+    return emit_nodes ? __ldg(node_of + seg) : seg;
+  }
+}
+
+// B2's per-lane body: the first R hits on distinct nodes within
+// max_draws * max(1, R) draws, written to ``row`` (R entries, -1 for
+// unfilled slots; segments, or nodes with ``emit_nodes``).  Returns the
+// number of slots filled; ``ctr`` is zeroed here and left holding the
+// lane's per-level draw counts.
+// RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
+// RMAX == 0: kept in the lane's scratch rows ``gseg`` / ``gnode`` (any R);
+// ``row`` may be ``gnode`` itself when nodes are emitted.
+template <int RMAX>
+__device__ __forceinline__ int place_replicas_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
+    int32_t* gnode) {
+  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  int32_t rseg[RMAX > 0 ? RMAX : 1];
+  int32_t rnode[RMAX > 0 ? RMAX : 1];
+#pragma unroll
+  for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
+  int found = 0;
+  const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
+  for (int64_t d = 0; d < cap && found < R; ++d) {
+    uint32_t k, f;
+    next_asura(id, ctr, top_level, s_log2, k, f);
+    if (!hits(k, f, n_segs, len32)) continue;
+    const int32_t node = __ldg(node_of + k);
+    bool dup = false;
+    if constexpr (RMAX > 0) {
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (rnode[r] == node);
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (!dup && r == found) {
+          rseg[r] = static_cast<int32_t>(k);
+          rnode[r] = node;
+        }
+      }
+    } else {
+      for (int r = 0; r < found && !dup; ++r) dup = gnode[r] == node;
+      if (!dup) {
+        gseg[found] = static_cast<int32_t>(k);
+        gnode[found] = node;
+      }
+    }
+    if (!dup) ++found;
+  }
+  if constexpr (RMAX > 0) {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) row[r] = r < found ? (emit_nodes ? rnode[r] : rseg[r]) : -1;
+    }
+  } else {
+    const int32_t* src = emit_nodes ? gnode : gseg;
+    for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
+  }
+  return found;
+}
+
+}  // namespace port_lane

@@ -1,6 +1,10 @@
 // ASURA STEP 2 on Hopper: one thread per datum id.
 //
-// Replaces four TPU kernels of the reference's kernels/asura_place.py:
+// Replaces five TPU kernels of the reference's kernels/asura_place.py:
+//   * asura_place          <- place_pallas (body _place_kernel): the
+//       bounded draw loop alone -- segments, -1 for a lane that did not
+//       converge within max_draws draws (no tail, no gather; B1's body
+//       with both compiled out);
 //   * asura_place_fused    <- place_fused_pallas (body _place_total_tile):
 //       total single placement -- bounded lazy-ladder draw loop, the
 //       section 3.2 tail on chip (a level top+1 draw, the 95-bit product,
@@ -36,6 +40,8 @@
 // ~2x the memory bound, so the kernel is operation-bound and the ids
 // stream through once.
 //
+// The lane bodies live in asura_lane.cuh, shared with hierarchy.cu (B8).
+//
 // What the design does about it.  The TPU kernels run a (rows, 128)
 // tile in lockstep: every lane pays every draw until the slowest lane of
 // the tile hits, and every ladder level until the deepest lane exits.
@@ -53,80 +59,27 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "hash.cuh"
+#include "asura_lane.cuh"
 
 namespace {
 
-using port_hash::draw_u32;
+using port_lane::kMaxLevels;
+using port_lane::place_lane;
+using port_lane::place_replicas_lane;
 
 constexpr int kDepthBins = 34;
-constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
 
-// One ASURA number: descend from top_level while the draw's MSB is clear,
-// ticking each consulted level's counter; k = floor, f = fraction * 2**32.
-__device__ __forceinline__ void next_asura(uint32_t id, uint32_t* ctr,
-                                           int top_level, int s_log2,
-                                           uint32_t& k, uint32_t& f) {
-  int level = top_level;
-  uint32_t h = draw_u32(id, level, ctr[level]);
-  ctr[level] += 1u;
-  while (level > 0 && h < 0x80000000u) {
-    --level;
-    h = draw_u32(id, level, ctr[level]);
-    ctr[level] += 1u;
-  }
-  k = h >> (32 - s_log2 - level);
-  f = h << (s_log2 + level);
-}
-
-__device__ __forceinline__ bool hits(uint32_t k, uint32_t f, int n_segs,
-                                     const uint32_t* __restrict__ len32) {
-  return k < static_cast<uint32_t>(n_segs) && f < __ldg(len32 + k);
-}
-
-// searchsorted(cum, u, side="right") over the u64 cumsum halves.
-__device__ int resolve_tail(uint32_t id, int top_level, int n_segs,
-                            const uint32_t* __restrict__ cum_hi,
-                            const uint32_t* __restrict__ cum_lo) {
-  const uint64_t h = draw_u32(id, top_level + 1, 0u);
-  const uint64_t total = (static_cast<uint64_t>(__ldg(cum_hi + n_segs - 1)) << 32) |
-                         __ldg(cum_lo + n_segs - 1);
-  const uint64_t u = h * (total >> 32) + ((h * (total & 0xFFFFFFFFull)) >> 32);
-  int lo = 0, hi = n_segs;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const uint64_t c = (static_cast<uint64_t>(__ldg(cum_hi + mid)) << 32) |
-                       __ldg(cum_lo + mid);
-    if (c <= u) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// B1's per-lane body: the bounded draw loop against one table, the tail
-// resolved on chip, the seg->node gather.  ``ctr`` holds >= top_level + 1
-// entries; they are zeroed here, so a second call restarts the stream.
-__device__ __forceinline__ int32_t place_total_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
-    const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
-    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
-    int max_draws, int emit_nodes) {
-  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
-  int seg = -1;
-  for (int d = 0; d < max_draws; ++d) {
-    uint32_t k, f;
-    next_asura(id, ctr, top_level, s_log2, k, f);
-    if (hits(k, f, n_segs, len32)) {
-      seg = static_cast<int>(k);
-      break;
-    }
-  }
-  if (seg < 0) seg = resolve_tail(id, top_level, n_segs, cum_hi, cum_lo);
-  return emit_nodes ? __ldg(node_of + seg) : seg;
+// B9: the bounded loop alone, -1 for a non-converged lane.
+__global__ void __launch_bounds__(kThreads)
+place_kernel(const uint32_t* __restrict__ ids, const uint32_t* __restrict__ len32,
+             int32_t* __restrict__ out, int64_t n, int n_segs, int top_level,
+             int s_log2, int max_draws) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t ctr[kMaxLevels];
+  out[i] = place_lane<false>(ids[i], ctr, len32, nullptr, nullptr, nullptr, n_segs,
+                             top_level, s_log2, max_draws, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -140,7 +93,7 @@ place_fused_kernel(const uint32_t* __restrict__ ids,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t ctr[kMaxLevels];
-  out[i] = place_total_lane(ids[i], ctr, len32, cum_hi, cum_lo, node_of, n_segs,
+  out[i] = place_lane<true>(ids[i], ctr, len32, cum_hi, cum_lo, node_of, n_segs,
                             top_level, s_log2, max_draws, emit_nodes);
 }
 
@@ -163,67 +116,10 @@ diff_nodes_kernel(const uint32_t* __restrict__ ids,
   if (i >= n) return;
   const uint32_t id = ids[i];
   uint32_t ctr[kMaxLevels];  // max(top_a, top_b) + 1 <= 31 entries used
-  out[i] = place_total_lane(id, ctr, len32_a, cum_hi_a, cum_lo_a, node_a,
+  out[i] = place_lane<true>(id, ctr, len32_a, cum_hi_a, cum_lo_a, node_a,
                             n_segs_a, top_a, s_log2, max_draws, 1);
-  out[n + i] = place_total_lane(id, ctr, len32_b, cum_hi_b, cum_lo_b, node_b,
+  out[n + i] = place_lane<true>(id, ctr, len32_b, cum_hi_b, cum_lo_b, node_b,
                                 n_segs_b, top_b, s_log2, max_draws, 1);
-}
-
-// B2's per-lane body: the first R hits on distinct nodes within
-// max_draws * max(1, R) draws, written to ``row`` (R entries, -1 for
-// unfilled slots; segments, or nodes with ``emit_nodes``).  Returns the
-// number of slots filled; ``ctr`` is zeroed here and left holding the
-// lane's per-level draw counts.
-// RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
-// RMAX == 0: kept in the lane's scratch rows ``gseg`` / ``gnode`` (any R).
-template <int RMAX>
-__device__ __forceinline__ int place_replicas_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
-    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
-    int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
-    int32_t* gnode) {
-  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
-  int32_t rseg[RMAX > 0 ? RMAX : 1];
-  int32_t rnode[RMAX > 0 ? RMAX : 1];
-#pragma unroll
-  for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
-  int found = 0;
-  const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
-  for (int64_t d = 0; d < cap && found < R; ++d) {
-    uint32_t k, f;
-    next_asura(id, ctr, top_level, s_log2, k, f);
-    if (!hits(k, f, n_segs, len32)) continue;
-    const int32_t node = __ldg(node_of + k);
-    bool dup = false;
-    if constexpr (RMAX > 0) {
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (rnode[r] == node);
-#pragma unroll
-      for (int r = 0; r < RMAX; ++r) {
-        if (!dup && r == found) {
-          rseg[r] = static_cast<int32_t>(k);
-          rnode[r] = node;
-        }
-      }
-    } else {
-      for (int r = 0; r < found && !dup; ++r) dup = gnode[r] == node;
-      if (!dup) {
-        gseg[found] = static_cast<int32_t>(k);
-        gnode[found] = node;
-      }
-    }
-    if (!dup) ++found;
-  }
-  if constexpr (RMAX > 0) {
-#pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-      if (r < R) row[r] = r < found ? (emit_nodes ? rnode[r] : rseg[r]) : -1;
-    }
-  } else {
-    const int32_t* src = emit_nodes ? gnode : gseg;
-    for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
-  }
-  return found;
 }
 
 template <int RMAX>
@@ -308,6 +204,15 @@ dim3 grid_for(int64_t n) {
 }
 
 }  // namespace
+
+extern "C" int asura_place(const void* ids, const void* len32, void* out,
+                           int64_t n, int n_segs, int top_level, int s_log2,
+                           int max_draws, void* stream) {
+  place_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ids), static_cast<const uint32_t*>(len32),
+      static_cast<int32_t*>(out), n, n_segs, top_level, s_log2, max_draws);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int asura_place_fused(const void* ids, const void* len32,
                                  const void* cum_hi, const void* cum_lo,

@@ -16,6 +16,12 @@ one launch; the per-slot replica alignment after it and the ADDITION
 NUMBER trace (``addition_numbers_on_table_device``) are plain torch, as
 the reference leaves them outside its Pallas kernels.
 
+The failure-domain-aware (two-level) entry points
+(``hier_place_replicas_on_tables[_device]``,
+``hier_diff_replicas_on_tables_device``) take a hierarchy version's eight
+prepped tables (``kernels.hierarchy.hier_tables_prep``) and run kernel B8
+(its plain-torch twin for CPU tables, as every wrapper does).
+
 ``table_prep`` / ``node_table_prep`` / ``tail_prep`` build the device
 tables once per table version on the host; ``asura_place*`` are the
 table-deriving conveniences.  Tables are not lane-padded: the kernels
@@ -47,6 +53,7 @@ from .asura_place import (
     place_replicas_cuda,
 )
 from .baselines import REPLICA_MAX_TRIES, baseline_place_cuda, baseline_replicas_cuda
+from .hierarchy import hier_place_replicas_cuda
 from .ref import addition_numbers_ref
 from .u32 import as_u32, to_u32
 
@@ -66,6 +73,9 @@ __all__ = [
     "baseline_place_on_table",
     "baseline_place_on_table_device",
     "baseline_place_replicas_on_table_device",
+    "hier_place_replicas_on_tables_device",
+    "hier_place_replicas_on_tables",
+    "hier_diff_replicas_on_tables_device",
     "asura_place",
     "asura_place_nodes",
     "asura_place_replicas",
@@ -246,7 +256,8 @@ def align_replica_sets(
     -> ``(moved, src, dst, src_slot)``, all (batch, R).
 
     The device twin of ``core.asura.align_replica_sets`` (same exact
-    integer formulation: (batch, R, R) compares, cumsum ranks, ``where``):
+    integer formulation: (batch, R, R) compares, exclusive ranks,
+    ``where``):
     slots index the AFTER set; ``moved[b, r]`` iff ``after[b, r]`` is not in
     ``before[b, :]``, ``src`` is the rank-matched vacated node for moved
     slots (``after[b, r]`` itself otherwise), ``src_slot`` its before-set
@@ -256,10 +267,12 @@ def align_replica_sets(
     R = after.shape[1]
     new = ~(after[:, :, None] == before[:, None, :]).any(dim=2)
     lost = ~(before[:, :, None] == after[:, None, :]).any(dim=2)
-    new_i = new.to(torch.int32)
-    lost_i = lost.to(torch.int32)
-    rank_new = torch.cumsum(new_i, dim=1) - new_i
-    rank_lost = torch.cumsum(lost_i, dim=1) - lost_i
+    # exclusive ranks as a masked sum, not a cumsum: torch's scan over a
+    # short innermost dimension takes ~10 ms per 2**20 rows on an H100,
+    # ~20x the rest of the alignment together
+    earlier = torch.ones((R, R), dtype=torch.bool, device=after.device).tril(-1)  # j < r
+    rank_new = (new[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
+    rank_lost = (lost[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
     match = lost[:, None, :] & (rank_lost[:, None, :] == rank_new[:, :, None])
     zero = torch.zeros((), dtype=torch.int32, device=after.device)
     picked_src = torch.where(match, before[:, None, :], zero).sum(dim=2, dtype=torch.int32)
@@ -365,6 +378,76 @@ def baseline_place_replicas_on_table_device(
         algorithm, as_ids(datum_ids, table_a.device), table_a, table_b,
         n_replicas=n_replicas, max_tries=max_tries, emit_stats=emit_stats,
     )
+
+
+def hier_place_replicas_on_tables_device(
+    datum_ids,
+    tables,
+    *,
+    top_level: int,
+    max_top: int,
+    s_pad: int,
+    n_replicas: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> torch.Tensor:
+    """Two-level replication -> (2, R, batch) int32 on the tables' device,
+    no host sync.  ``tables`` is the eight-tuple of a hierarchy version
+    (the ``HierArtifact``'s ``tables_dev``); plane 0 holds domain ids,
+    plane 1 node ids, -1 marks slots whose distinct-domain draw did not
+    converge (too few domains)."""
+    ids = as_ids(datum_ids, tables[0].device)
+    return hier_place_replicas_cuda(
+        ids, *tables, top_level=top_level, max_top=max_top, s_pad=s_pad,
+        s_log2=params.s_log2, max_draws=params.max_draws, n_replicas=n_replicas,
+    )
+
+
+def hier_place_replicas_on_tables(datum_ids, tables, **kwargs) -> np.ndarray:
+    """Host-facing two-level replication -> (batch, R, 2) int64 ``(domain,
+    node)`` pairs; raises when a lane found fewer than R distinct domains,
+    as the NumPy oracle does."""
+    out = hier_place_replicas_on_tables_device(datum_ids, tables, **kwargs).cpu().numpy()
+    if (out[0] < 0).any():
+        raise RuntimeError(
+            "hierarchical replication did not converge; too few distinct domains?"
+        )
+    return out.transpose(2, 1, 0).astype(np.int64)
+
+
+def hier_diff_replicas_on_tables_device(
+    datum_ids,
+    tables_a,
+    tables_b,
+    *,
+    statics_a: tuple,
+    statics_b: tuple,
+    n_replicas: int,
+    params: AsuraParams = DEFAULT_PARAMS,
+):
+    """Two-level replica-set version diff -> ``(moved, src, dst, src_slot,
+    src_dom, dst_dom)``, each (batch, R) on the tables' device, no host
+    sync.
+
+    ``statics_*`` are ``(top_level, max_top, s_pad)`` per version.  Every
+    id's (domain, node) R-set is placed under v and v+1 (one launch of B8
+    each), then the two sets are aligned on their NODE plane
+    (``align_replica_sets``; node ids are globally unique across domains)
+    and the domains ride along: ``src_dom`` is the vacated node's domain
+    under v (gathered at ``src_slot``), ``dst_dom`` the v+1 set's, and
+    ``src_dom == dst_dom`` where a slot did not move."""
+    ids = as_ids(datum_ids, tables_a[0].device)
+    kw = dict(n_replicas=n_replicas, params=params)
+    (top_a, max_a, pad_a), (top_b, max_b, pad_b) = statics_a, statics_b
+    before = hier_place_replicas_on_tables_device(
+        ids, tables_a, top_level=top_a, max_top=max_a, s_pad=pad_a, **kw
+    )
+    after = hier_place_replicas_on_tables_device(
+        ids, tables_b, top_level=top_b, max_top=max_b, s_pad=pad_b, **kw
+    )
+    moved, src, dst, src_slot = align_replica_sets(before[1].T, after[1].T)
+    dst_dom = after[0].T.contiguous()
+    src_dom = torch.gather(before[0].T, 1, src_slot.long())
+    return moved, src, dst, src_slot, torch.where(moved, src_dom, dst_dom), dst_dom
 
 
 def asura_place(

@@ -28,6 +28,12 @@ versions in one launch and aligned slot by slot, so only replicas whose
 owner actually changed produce a row (the paper's section-5 minimal
 replica movement, even under replication).
 
+On a hierarchical engine (``HierarchicalCluster``) the replica diffs run
+the two-level kernel under both versions (``engine.diff_replicas_device``
+aligns the node planes), streams diff chunk by chunk (``fuse`` is
+ignored, as in the reference), and the ADDITION-NUMBER prefilter -- flat
+table semantics -- raises.
+
 ``mesh=`` (the reference's multi-chip sweep) is not ported yet and raises
 naming ROADMAP A7.
 """
@@ -168,7 +174,8 @@ class MigrationPlanner:
         tuples (pad lanes' ``moved`` masked False)."""
         from ..kernels.ops import as_ids
 
-        fuse = max(1, int(fuse))
+        # hierarchical sweeps stay per chunk, as in the reference
+        fuse = 1 if self.engine.hierarchical else max(1, int(fuse))
         device = self.engine.device
 
         def flush(buf):
@@ -306,7 +313,15 @@ class MigrationPlanner:
         _no_mesh(mesh)
         t0 = time.perf_counter()
         ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
-        host = self.engine.backend == "numpy"
+        hier = self.engine.hierarchical
+        if hier and max_new_seg is not None:
+            raise ValueError(
+                "the ADDITION-NUMBER prefilter is flat-table semantics; "
+                "hierarchical plans scan the full id set (max_new_seg=None)"
+            )
+        # hierarchical engines always diff through the two-level kernel path
+        # (node-plane alignment); the host replica sweep returns pairs
+        host = self.engine.backend == "numpy" and not hier
         out: dict[str, list[np.ndarray]] = {
             k: [] for k in ("ids", "src", "dst", "idx", "slot", "src_slot")
         }

@@ -20,8 +20,15 @@ returns the minimal session moves (under any algorithm);
 (``migrate.LiveMigration``, ASURA only: it rides on ASURA's dual-version
 tables) whose moves drain under per-replica budgets while
 ``route_migrating`` / ``route_replicas_migrating`` keep every request on a
-replica that holds its warm cache.  Hierarchical routing is not ported
-yet.
+replica that holds its warm cache.
+
+Failure-domain-aware routing: ``Router({domain: {replica: capacity}})``
+builds a ``HierarchicalCluster`` (ASURA only) whose engine routes through
+the two-level kernel, so a session's R cache holders lie in R distinct
+domains (``route_replicas`` gives the replicas, ``route_replica_pairs``
+the (domain, replica) pairs); ``plan_scale_event`` takes ``add=(domain,
+replica, capacity)`` / ``remove=(domain, replica)``.  Live scale windows
+stay flat-only, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 
 from ..core.cluster import Cluster
 from ..core.engine import ALGORITHMS, DEFAULT_VIRTUAL_NODES, PlacementEngine
+from ..core.hierarchy import HierarchicalCluster
 
 
 @dataclasses.dataclass
@@ -55,16 +63,25 @@ class ReplicaRouter:
         virtual_nodes: int = DEFAULT_VIRTUAL_NODES,
         device=None,
     ):
-        if any(isinstance(v, dict) for v in replica_capacities.values()):
-            raise NotImplementedError(
-                "hierarchical routing is not ported yet (ROADMAP A6)"
-            )
         if algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+        self.hierarchical = any(isinstance(v, dict) for v in replica_capacities.values())
+        if self.hierarchical:
+            # {domain: {replica: capacity}} -> failure-domain-aware routing
+            if algorithm != "asura":
+                raise ValueError(
+                    "hierarchical routing is ASURA-only (two-level segment "
+                    f"tables); got algorithm={algorithm!r}"
+                )
+            self.cluster = HierarchicalCluster(device=device)
+            for did, members in replica_capacities.items():
+                for rid, cap in members.items():
+                    self.cluster.add_node(did, rid, cap)
+        else:
+            self.cluster = Cluster(device=device)
+            for rid, cap in replica_capacities.items():
+                self.cluster.add_node(rid, cap)
         self.algorithm = algorithm
-        self.cluster = Cluster(device=device)
-        for rid, cap in replica_capacities.items():
-            self.cluster.add_node(rid, cap)
         if algorithm == "asura":
             self.engine = self.cluster.engine
         else:
@@ -85,15 +102,32 @@ class ReplicaRouter:
         return self.engine.place_nodes_device(session_ids)
 
     def route_replicas(self, session_ids, n_replicas: int) -> np.ndarray:
-        """(sessions, R) replica ids on distinct replicas, primary first."""
-        return self.engine.place_replica_nodes(
+        """(sessions, R) replica ids on distinct replicas, primary first;
+        on a hierarchical router the replicas of R distinct domains."""
+        out = self.engine.place_replica_nodes(
+            np.asarray(session_ids, dtype=np.uint32), n_replicas
+        )
+        return out[:, :, 1] if self.hierarchical else out
+
+    def route_replica_pairs(self, session_ids, n_replicas: int) -> np.ndarray:
+        """(sessions, R, 2) ``(domain, replica)`` pairs, hierarchical routers
+        only: a whole-domain outage loses at most one warm copy per
+        session."""
+        if not self.hierarchical:
+            raise ValueError(
+                "route_replica_pairs needs a hierarchical router (pass "
+                "{domain: {replica: capacity}} capacities)"
+            )
+        return self.engine.place_replica_pairs(
             np.asarray(session_ids, dtype=np.uint32), n_replicas
         )
 
     def route_replicas_device(self, session_ids, n_replicas: int):
-        """Device-resident ``route_replicas`` (one kernel launch, no host
-        sync; -1 marks the practically impossible unfilled slots)."""
-        return self.engine.place_replica_nodes_device(session_ids, n_replicas)
+        """Device-resident ``route_replicas`` -> (sessions, R) int32 (one
+        kernel launch, no host sync; -1 marks the practically impossible
+        unfilled slots)."""
+        out = self.engine.place_replica_nodes_device(session_ids, n_replicas)
+        return out[1].T if self.hierarchical else out
 
     def stream_driver(self, **kwargs):
         """A batched ``RequestStreamDriver`` bound to this router's engine."""
@@ -112,11 +146,16 @@ class ReplicaRouter:
 
     def plan_scale_event(self, session_ids, *, add=None, remove=None) -> ScalePlan:
         """Apply a membership change (``add=(replica, capacity)``,
-        ``remove=replica``) at once; return the minimal session moves."""
+        ``remove=replica``; hierarchical routers ``add=(domain, replica,
+        capacity)``, ``remove=(domain, replica)``) at once; return the
+        minimal session moves."""
         ids = np.asarray(session_ids, dtype=np.uint32)
         before = self.route(ids)
         if remove is not None:
-            self.cluster.remove_node(remove)
+            if self.hierarchical:
+                self.cluster.remove_node(*remove)
+            else:
+                self.cluster.remove_node(remove)
         if add is not None:
             self.cluster.add_node(*add)
         after = self.route(ids)
@@ -157,6 +196,13 @@ class ReplicaRouter:
                 "live scale migrations ride on ASURA's dual-version table "
                 f"artifacts; this router routes via {self.algorithm!r} -- "
                 "use plan_scale_event for the instantaneous-swap plan"
+            )
+        if self.hierarchical:
+            raise NotImplementedError(
+                "live scale-migration windows are flat-router only for "
+                "now; hierarchical routers plan instantaneous swaps via "
+                "plan_scale_event (the engine's diff_replica_domains_device "
+                "gives the per-slot moves for external drivers)"
             )
         live = self._scale_migration
         if live is not None and not (live.done or live.aborted):

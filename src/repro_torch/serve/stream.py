@@ -9,9 +9,12 @@ The port of the reference's ``RequestStreamDriver`` on one card.  One
      (``place_replicas_cuda`` with the fused node output, and with its
      stats vector when instrumented), or under a baseline algorithm
      through the fan-out kernel (``baseline_replicas_cuda``, with its
-     ``[reprobes]`` stat) -- where the reference routes through its jnp
-     twins, the port routes through the kernels, and the result is the
-     same bit for bit;
+     ``[reprobes]`` stat), or on a hierarchical engine through the
+     two-level kernel B8 (``hier_place_replicas_cuda``, its node plane:
+     the R holders lie in R distinct failure domains; uninstrumented, as
+     the reference has no stats plane there) -- where the reference
+     routes through its jnp twins, the port routes through the kernels,
+     and the result is the same bit for bit;
   3. select: ``primary``, ``random`` or ``pow2`` (power-of-two-choices
      against the start-of-batch per-node counters);
   4. count: a scatter-add histogram into a preallocated zeros tensor
@@ -41,6 +44,7 @@ import torch
 
 from ..kernels.asura_place import place_replicas_cuda
 from ..kernels.baselines import baseline_replicas_cuda
+from ..kernels.hierarchy import hier_place_replicas_cuda
 from ..kernels.ref import DEPTH_BINS
 from ..kernels.u32 import to_u32
 from ..obs.trace import TraceLedger
@@ -60,6 +64,10 @@ def route_statics(engine, algorithm: str | None = None):
     ``tables`` are the device operands, ``statics`` the hashable key that
     fully determines the body."""
     alg = engine._resolve_algorithm(algorithm)
+    if engine.hierarchical:
+        art, p = engine.hier_artifact(), engine.params
+        statics = ("hier", art.top_level, art.max_top, art.s_pad, p.s_log2, p.max_draws)
+        return art.tables_dev, statics
     art = engine._device_artifact(alg)
     if alg == "asura":
         tables = (art.len32_dev, art.node_of_dev)
@@ -74,8 +82,27 @@ def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = Fals
     """``(ids, *tables) -> (batch, R) int32`` replica nodes, and with
     ``emit_stats`` the algorithm's uint32 stats vector (ASURA:
     ``[depth_hist..., nonconverged]``; baselines: ``[reprobes]``).
+    ``hier`` statics route the two-level kernel and give its NODE plane;
+    they have no stats plane (``emit_stats`` raises, as in the reference).
     ``ids`` are u32 values in int64 or a uint32 tensor."""
     alg = statics[0]
+    if alg == "hier":
+        if emit_stats:
+            raise NotImplementedError(
+                "hierarchical serving has no stats plane yet; route with "
+                "emit_stats=False"
+            )
+        _, top_level, max_top, s_pad, s_log2, max_draws = statics
+
+        def owners(ids, *tables):
+            if ids.dtype != torch.uint32:
+                ids = to_u32(ids)
+            return hier_place_replicas_cuda(
+                ids, *tables, top_level=top_level, max_top=max_top, s_pad=s_pad,
+                s_log2=s_log2, max_draws=max_draws, n_replicas=n_replicas,
+            )[1].T  # (batch, R) node plane
+
+        return owners
     if alg != "asura":
         def owners(ids, keys, vals):
             if ids.dtype != torch.uint32:
@@ -101,6 +128,8 @@ def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = Fals
 
 def top_node(art) -> int:
     """The largest node id a table artifact can route to."""
+    if hasattr(art, "node_domain"):  # a hierarchical artifact
+        return max(art.node_domain)
     if getattr(art, "algorithm", "asura") == "asura":
         return int(art.node_of.max())
     return int((art.keys if art.algorithm == "wrh" else art.vals).max())
@@ -184,6 +213,10 @@ class RequestStreamDriver:
             hot_fraction=hot_fraction, hot_keys=hot_keys, seed=seed,
         )
         nodes = getattr(engine.cluster, "nodes", None)
+        if nodes is None and engine.hierarchical:
+            # two-level cluster: the artifact's node -> domain map is the
+            # flat node-id space the load and queue planes index
+            nodes = engine.hier_artifact().node_domain
         if n_bins is not None:
             self.n_bins = int(n_bins)
         elif nodes:
@@ -302,7 +335,8 @@ class RequestStreamDriver:
         card an out-of-range scatter would be a device-side fault)."""
         tables, statics = route_statics(self.engine, self.algorithm)
         if self.engine.cluster.version != self._checked_version:
-            art = self.engine.artifact(self.algorithm)
+            art = (self.engine.hier_artifact() if self.engine.hierarchical
+                   else self.engine.artifact(self.algorithm))
             top = top_node(art)
             if top >= self.n_bins:
                 raise ValueError(

@@ -190,10 +190,5 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="algorithm must be one of"):
         c.engine.place_nodes(_ids(4), algorithm="hrw")
 
-    class Hier:
-        is_hierarchical = True
-
-    with pytest.raises(NotImplementedError, match="A6"):
-        PlacementEngine(Hier(), device="cpu")
     with pytest.raises(ValueError):
         PlacementEngine(c, device="cpu", backend="pallas")

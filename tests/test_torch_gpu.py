@@ -361,3 +361,107 @@ def test_baseline_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device, alg
     for name, v in out["cuda"][1].items():
         assert np.array_equal(np.asarray(v), np.asarray(out["cpu"][1][name])), name
     assert out["cuda"][2] == out["cpu"][2] == 1
+
+
+# ---------------------------------------------------------------------------
+# the bounded placement kernel (B9) and the two-level kernel (B8)
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import HierarchicalCluster  # noqa: E402
+from repro_torch.kernels.asura_place import place_cuda  # noqa: E402
+from repro_torch.kernels.hierarchy import hier_place_replicas_cuda  # noqa: E402
+from repro_torch.kernels.hierarchy_ref import hier_place_replicas_ref  # noqa: E402
+
+
+@pytest.mark.parametrize("max_draws", [128, 1, 0])
+def test_place_kernel_matches_twin(cuda_device, max_draws):
+    art = _artifact(CAPS, cuda_device, AsuraParams(max_draws=max_draws))
+    ids = _ids(100_003, cuda_device, seed=max_draws)
+    kw = dict(top_level=art.top_level, s_log2=1, max_draws=max_draws)
+    before = LAUNCHES["place"]
+    got = place_cuda(ids, art.len32_dev, **kw)
+    assert LAUNCHES["place"] == before + 1
+    want = ref.place_ref(ids, art.len32_dev, **kw)
+    assert torch.equal(got, want)
+    assert bool((got < 0).any()) == (max_draws <= 1)
+
+
+def _hierarchy(device, shape):
+    """``uniform``: 6 domains of 5 nodes; ``ragged``: 1 to 128 nodes per
+    domain (several per-domain top levels); ``few``: 4 domains."""
+    h = HierarchicalCluster(device=device)
+    rng = np.random.default_rng(len(shape))
+    sizes = {"uniform": [5] * 6, "few": [3] * 4,
+             "ragged": [1] + [int(x) for x in rng.integers(1, 129, 8)]}[shape]
+    nid = 0
+    for d, size in enumerate(sizes):
+        for _ in range(size):
+            h.add_node(2 * d + 1, nid, float(rng.uniform(0.5, 2.0)))
+            nid += 1
+    return h
+
+
+@pytest.mark.parametrize("shape,R,max_draws", [
+    ("uniform", 1, 128), ("uniform", 3, 128), ("ragged", 3, 128), ("ragged", 5, 128),
+    ("ragged", 3, 1), ("uniform", 9, 128), ("few", 5, 128),
+])
+def test_hier_kernel_matches_twin(cuda_device, shape, R, max_draws):
+    """B8 against its twin: R in 1..9 (R > 8 takes the scratch rows), the
+    ragged hierarchy's per-lane top levels, the forced tail (max_draws=1)
+    and R = D + 1 (the last slot stays -1)."""
+    art = _hierarchy(cuda_device, shape).engine.hier_artifact()
+    ids = _ids(65_537, cuda_device, seed=R)
+    kw = dict(top_level=art.top_level, max_top=art.max_top, s_pad=art.s_pad,
+              s_log2=1, max_draws=max_draws, n_replicas=R)
+    before = LAUNCHES["hier_replicas"]
+    got = hier_place_replicas_cuda(ids, *art.tables_dev, **kw)
+    assert LAUNCHES["hier_replicas"] == before + 1
+    assert torch.equal(got, hier_place_replicas_ref(ids, *art.tables_dev, **kw))
+    if shape == "few":
+        assert bool((got[:, 4:] == -1).all()) and bool((got[:, :4] >= 0).all())
+
+
+def test_hier_wrapper_rejects_bad_cuda_inputs(cuda_device):
+    art = _hierarchy(cuda_device, "uniform").engine.hier_artifact()
+    tabs = list(art.tables_dev)
+    kw = dict(top_level=art.top_level, max_top=art.max_top, s_pad=art.s_pad, n_replicas=2)
+    ids = _ids(1024, cuda_device)
+    before = dict(LAUNCHES)
+    with pytest.raises(TypeError):
+        hier_place_replicas_cuda(ids.to(torch.int64), *tabs, **kw)
+    for i, bad in ((3, tabs[3].to(torch.int64)), (5, tabs[5][:-1]), (6, tabs[6].cpu())):
+        wrong = list(tabs)
+        wrong[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            hier_place_replicas_cuda(ids, *wrong, **kw)
+    with pytest.raises(TypeError):
+        place_cuda(ids.to(torch.int32), art.tables_dev[0], top_level=art.top_level)
+    with pytest.raises(ValueError):
+        place_cuda(ids, art.tables_dev[0][None], top_level=art.top_level)
+    assert LAUNCHES == before
+
+
+def test_hier_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device):
+    """``place_replica_pairs_device`` and the hierarchical serving driver
+    under ``set_sync_debug_mode("error")``, equal to the CPU run."""
+    topo = {d: {10 * d + i: 1.0 + 0.1 * i for i in range(6)} for d in range(7)}
+    cfg = dict(policy="pow2", law="zipf", batch=4096, n_keys=10_000, seed=2, n_replicas=3)
+    gpu_router, cpu_router = Router(topo, device=cuda_device), Router(topo, device="cpu")
+    gpu, cpu = (r.stream_driver(**cfg) for r in (gpu_router, cpu_router))
+    ids = _ids(50_001, cuda_device, seed=3)
+    gpu_router.engine.hier_artifact()
+    before = LAUNCHES["hier_replicas"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pairs = gpu_router.engine.place_replica_pairs_device(ids, 3)
+        chosen = [gpu.step() for _ in range(3)] + list(gpu.superstep(2))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["hier_replicas"] == before + 6
+    assert torch.equal(pairs.cpu(), cpu_router.engine.place_replica_pairs_device(ids.cpu(), 3))
+    want = [cpu.step() for _ in range(3)] + list(cpu.superstep(2))
+    for c, w in zip(chosen, want):
+        assert torch.equal(c.cpu(), w)
+    for name in ("counts", "queue", "qhist"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))

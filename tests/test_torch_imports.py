@@ -39,7 +39,8 @@ def test_import_loads_neither_jax_nor_the_reference():
         "repro_torch.serve, repro_torch.migrate, repro_torch.migrate.live, "
         "repro_torch.kernels.baselines, repro_torch.kernels.baselines_ref, "
         "repro_torch.core.consistent_hashing, repro_torch.core.random_slicing, "
-        "repro_torch.core.wrh, repro_torch.core.straw\n"
+        "repro_torch.core.wrh, repro_torch.core.straw, repro_torch.core.hierarchy, "
+        "repro_torch.kernels.hierarchy, repro_torch.kernels.hierarchy_ref\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)"

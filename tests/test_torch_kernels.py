@@ -503,3 +503,52 @@ def test_addition_numbers_ref_matches_reference(R):
         assert got.dtype == torch.int32
         assert np.array_equal(got.numpy(), want)
         assert (want >= 0).any() and (want < 0).any()  # both kinds of lane
+
+
+# ---------------------------------------------------------------------------
+# the bounded placement kernel (B9): no tail, no gather
+# ---------------------------------------------------------------------------
+
+from repro.kernels.asura_place import place_pallas  # noqa: E402
+from repro_torch.kernels.asura_place import place_cuda  # noqa: E402
+
+
+@pytest.mark.parametrize("max_draws", [128, 1])
+@pytest.mark.parametrize("name", ["mixed", "heavy_tail"])
+def test_place_wrapper_matches_place_pallas(name, max_draws):
+    """The CPU wrapper (``place_ref``) equals the reference's ``place_pallas``
+    (interpret mode) and its jnp body, -1 lanes included: with max_draws=1
+    a share of the lanes does not converge."""
+    params = AsuraParams(max_draws=max_draws)
+    c = make_cluster(CLUSTERS[name], params=params)
+    len32_j, top = jops.table_prep(c.seg_lengths(), params)  # lane-padded
+    ids = _ids(4096, seed=max_draws + len(name))
+    kw = dict(top_level=top, s_log2=params.s_log2, max_draws=max_draws)
+    want = np.asarray(place_pallas(jnp.asarray(ids), len32_j, interpret=True, **kw))
+    body = np.asarray(jref.place_ref(jnp.asarray(ids), len32_j, **kw))
+    got = place_cuda(_t(ids), _t(np.asarray(len32_j)), **kw)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(body, want)
+    # the real table length gives the same segments as the lane-padded one
+    n_segs = len(c.seg_lengths())
+    assert np.array_equal(place_cuda(_t(ids), _t(np.asarray(len32_j)[:n_segs]), **kw).numpy(), want)
+    assert ((want < 0).any() == (max_draws == 1)) and (want >= 0).any()
+    assert np.array_equal(want, place_batch_u32(ids, np.asarray(len32_j), top, params))
+
+
+def test_place_wrapper_checks_and_launches_nothing_on_cpu():
+    len32, _, _, _, top = _small_tables()
+    ids = _t(_ids(32))
+    before = dict(LAUNCHES)
+    assert place_cuda(ids, len32, top_level=top).shape == (32,)
+    assert place_cuda(ids[:0], len32, top_level=top).shape == (0,)
+    assert LAUNCHES == before
+    with pytest.raises(TypeError):
+        place_cuda(ids.to(torch.int64), len32, top_level=top)
+    with pytest.raises(TypeError):
+        place_cuda(ids, len32.view(torch.int32), top_level=top)
+    with pytest.raises(ValueError):
+        place_cuda(ids, len32, top_level=31)
+    with pytest.raises(ValueError):
+        place_cuda(ids, len32, top_level=top, max_draws=-1)

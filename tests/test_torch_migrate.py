@@ -197,17 +197,28 @@ def test_addition_numbers_device_matches_reference(R):
     assert np.array_equal(want[known], host[known])
 
 
-def test_hierarchical_replica_diff_raises_naming_a6():
-    """Two-level replica diffs are not ported: a hierarchical cluster is
-    refused, naming A6, before an engine (and its diffs) exists."""
-
-    class Hier:
-        is_hierarchical = True
-
-    with pytest.raises(NotImplementedError, match="A6"):
-        PlacementEngine(Hier(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        Router({0: {1: 1.0}}, device="cpu")
+def test_hierarchical_refusals_match_reference():
+    """What the reference still refuses in the two-level mode, the port
+    refuses too: a live scale window on a hierarchical router
+    (``NotImplementedError``) and the ADDITION-NUMBER prefilter on a
+    hierarchical engine (``ValueError``)."""
+    topo = {d: {10 * d + i: 1.0 for i in range(3)} for d in range(4)}
+    ids = _ids(64)
+    for router in (JaxRouter(topo), Router(topo, device="cpu")):
+        with pytest.raises(NotImplementedError, match="flat-router only"):
+            router.begin_scale_migration(ids, add=(0, 99, 1.0), n_replicas=3)
+    for make_planner, router in ((JaxPlanner, JaxRouter(topo)),
+                                 (MigrationPlanner, Router(topo, device="cpu"))):
+        router.engine.hier_artifact()
+        v0 = router.cluster.version
+        router.cluster.add_node(1, 99, 1.0)
+        with pytest.raises(ValueError, match="flat-table semantics"):
+            make_planner(router.engine).plan_replicas(
+                ids, v0, router.cluster.version, 3, max_new_seg=12
+            )
+    # the single-owner plan's prefilter reads the flat table: refused
+    with pytest.raises(ValueError, match="HierarchicalCluster"):
+        MigrationPlanner(router.engine).plan(ids, v0, router.cluster.version, max_new_seg=12)
 
 
 # ---------------------------------------------------------------------------

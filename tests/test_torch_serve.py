@@ -200,8 +200,8 @@ def test_router_matches_reference():
     assert tr.cluster.to_json() == jr.cluster.to_json()
     assert np.array_equal(tr.route_replicas(sessions, 2), jr.route_replicas(sessions, 2))
     assert tr.table_uploads == 2
-    with pytest.raises(NotImplementedError, match="A6"):
-        Router({0: {1: 1.0}}, device="cpu")
+    topo = {0: {1: 1.0}, 1: {2: 1.0, 3: 0.5}}  # {domain: {replica: capacity}}
+    assert np.array_equal(Router(topo, device="cpu").route(sessions), JRouter(topo).route(sessions))
     with pytest.raises(ValueError, match="algorithm must be one of"):
         Router(caps, algorithm="straw", device="cpu")
 
