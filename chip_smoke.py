@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--profile]
+    python3 chip_smoke.py --against DIR   # time every kernel against DIR's
 
 The main path is ASURA STEP 2 -- placing a batch of u32 datum ids against
 one versioned segment table -- reached two ways: bulk placement through
@@ -14,7 +15,8 @@ capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
 cluster.  Phases (each passes or raises; any failure exits non-zero):
 
   1. card name and power limit; build the CUDA kernels from the sources
-     in this checkout;
+     in this checkout; registers, stack frame and spill bytes (``-Xptxas
+     -v``) of B5, B6, the fan-out, B8 and B2;
   2. the fused placement kernel against its plain-torch twin on the card,
      exact equality, emit_nodes both ways: 2**20 + 13 ids on both
      clusters, and the forced tail (max_draws 0 and 1);
@@ -55,7 +57,12 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
          on 2**16 + 13 ids on the 4096-node cluster and on a 4097-node one
          (a padding tail); the fan-out kernel at R in {1, 3, 5, 12} with
          its [reprobes] stat, and at R = 6 on a 4-node cluster (slots stay
-         -1); all exact;
+         -1); B5, B6 and the fan-out on synthetic tables at every edge of
+         their staged search (the index stride the launcher picks, equal
+         keys across bucket boundaries, lengths not a multiple of the
+         stride, an unaligned table, the largest table staged whole), with
+         ids on, above and below every index key, each launch plan held to
+         ``kernels/launch.py``; all exact;
      9b. bulk: ``PlacementEngine(cluster, algorithm=alg)`` on the card,
          ``place_nodes_device`` and ``place_replica_nodes_device`` (R = 3)
          on 2**24 ids (2**20 for wrh, O(N) per id), median of 10 CUDA-event
@@ -78,8 +85,12 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
       10a. kernel B8 against its twin on 2**20 + 13 ids, R in {1, 3, 5}
            on 64x64 and ragged, R = 3 on 12x8, R = D + 1 on 4 domains
            (-1 planes), and max_draws=1 (the per-domain tail on the lanes
-           that miss); B9 against ``place_ref`` on the flat 4096-node
-           table, also at max_draws=1 (-1 lanes); all exact;
+           that miss); R = 9 on 64x64 and R in {1, 3, 9} and max_draws=1
+           on the 10,000-node cluster in racks of 64 (2**18 ids at R = 9),
+           and the 64x64 domain ladder started 4 levels higher (more draws
+           reach the counters B8 keeps in local memory); B9 against
+           ``place_ref`` on the flat 4096-node table, also at max_draws=1
+           (-1 lanes); all exact;
       10b. bulk: ``place_replica_pairs_device`` (R = 3) and
            ``place_nodes_device`` on the 64x64 hierarchy, B9 alone on the
            flat table, 2**24 ids, median of 10 CUDA-event timings, under
@@ -105,6 +116,11 @@ hierarchical serving steps and 4 two-level diffs of phase 10d's add with
 ``torch.profiler`` and prints the
 device busy time per batch, the idle share and the kernels that fill it
 (PERF.md section 5).
+
+``--against DIR`` runs no phase: it imports the ``repro_torch`` of the
+checkout in DIR beside this one, builds both, and times every kernel of
+both on the same inputs at the bulk sizes in turns (theirs, ours, ours,
+theirs; outputs must be equal), with both builds' ptxas numbers.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
@@ -190,6 +206,7 @@ RACK = 64  # nodes per domain of the full-width hierarchy: node_id // 64
 DURABILITY_LAYOUT = (12, 8)  # benchmarks/durability.py FULL: 12 domains x 8 nodes
 RAGGED_DOMAINS = 40  # 1 to 128 nodes each
 HIER_ADD_RACK, HIER_GONE_RACK = 7, 40
+DEEP_LEVELS = 4  # phase 10a: levels added on top of a domain ladder
 
 
 def require(cond, msg: str) -> None:
@@ -313,6 +330,47 @@ def bound(bytes_moved: float, ops: float, f32_ops: float = 0.0) -> tuple[float, 
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# (label, library, pattern of the mangled kernel names): the kernels whose
+# registers, stack frame and spills phase 1 prints
+PTXAS_KERNELS = (
+    ("ch_place", "baselines", r"13lookup_kernelINS_8ChLookup"),
+    ("rs_place", "baselines", r"13lookup_kernelINS_8RsLookup"),
+    (f"{FANOUT} ch", "baselines", r"15replicas_kernelINS_8ChLookupE"),
+    (f"{FANOUT} rs", "baselines", r"15replicas_kernelINS_8RsLookupE"),
+    (f"{FANOUT} wrh", "baselines", r"15replicas_kernelINS_9WrhLookupE"),
+    ("hier_replicas", "hierarchy", r"20hier_replicas_kernelI"),
+    ("place_replicas", "asura_place", r"21place_replicas_kernelI"),
+)
+
+
+def ptxas_rows(report_of) -> list[tuple[str, str, dict]]:
+    """(label, variant, ptxas numbers) of every instantiation of the
+    PTXAS_KERNELS, from ``report_of(library) -> build.parse_ptxas``
+    output; the variant names the slots' template bound (RMAX; 0 keeps
+    them in rows) and, for B8, the staged or global branch."""
+    import re
+
+    rows = []
+    for label, lib, pattern in PTXAS_KERNELS:
+        for sym, numbers in sorted(report_of(lib).items()):
+            if not re.search(pattern, sym):
+                continue
+            staged = re.search(r"ILb([01])E", sym)
+            rmax = re.search(r"Li(\d+)EE", sym)
+            variant = " ".join(filter(None, (
+                staged and ("staged" if staged.group(1) == "1" else "global"),
+                rmax and f"RMAX={rmax.group(1)}")))
+            rows.append((label, variant, numbers))
+    return rows
+
+
+def print_ptxas(report_of, tag: str = "ptxas") -> None:
+    for label, variant, x in ptxas_rows(report_of):
+        print(f"  {tag} {label:22s} {variant:18s} {x.get('registers')} registers, "
+              f"{x.get('stack')} B stack frame, {x.get('spill_stores')} B spill stores, "
+              f"{x.get('spill_loads')} B spill loads")
+
+
 def unfmix32(np, h):
     """Ids whose MurmurHash3 finalizer is ``h`` (the finalizer inverted)."""
     h = h.astype(np.uint64)
@@ -322,6 +380,63 @@ def unfmix32(np, h):
     h = (h * pow(0x85EBCA6B, -1, 2**32)) & 0xFFFFFFFF
     h ^= h >> 16
     return h.astype(np.uint32)
+
+
+def search_edges() -> tuple:
+    """(keys, equal-key run length, offset) of the synthetic search tables
+    of phase 9a: the 4096-node ring's size, one not a multiple of its
+    stride, the 10,000-node ring's size, an unaligned view of one (scalar
+    bucket loads), the largest table staged whole, one key more (S = 2),
+    and S = 8 with a ragged last bucket."""
+    from repro_torch.kernels import launch
+
+    whole = launch.INDEX_BUDGET // launch.KEY_BYTES
+    return ((409_600, 6, 0), (409_603, 0, 0), (1_000_064, 5, 0), (1_000_003, 0, 1),
+            (whole, 0, 0), (whole + 1, 2, 0), (4 * whole + 5, 3, 0))
+
+
+def search_table(np, n: int, seed: int, runs: int):
+    """A sorted u32 table of ``n`` keys and random owners; with ``runs``,
+    runs of equal keys straddle every index bucket boundary of the stride
+    the launcher picks for ``n``, and the last ``runs`` keys are the
+    0xFFFFFFFF padding."""
+    from repro_torch.kernels import launch
+
+    rng = np.random.default_rng(seed + n)
+    keys = np.sort(rng.integers(0, 2**32, n, dtype=np.uint32))
+    if runs:
+        S = 1 << launch.index_shift(n)
+        for b in range(max(S, 2), n - runs, S):
+            keys[b - runs // 2: b + runs - runs // 2] = keys[b - runs // 2]
+        keys[-runs:] = np.uint32(0xFFFFFFFF)
+        keys = np.sort(keys)
+    return keys, rng.integers(0, LADDER_NODES, n).astype(np.int32)
+
+
+def index_edge_ids(np, keys):
+    """Ids hashing to every key of the sampled index the launcher stages
+    for ``keys``, one above and one below each, 0 and 0xFFFFFFFF."""
+    from repro_torch.kernels import launch
+
+    idx = keys[:: 1 << launch.index_shift(keys.shape[0])].astype(np.int64)
+    h = np.concatenate([[0, 2**32 - 1], idx - 1, idx, idx + 1])
+    return unfmix32(np, np.unique(np.clip(h, 0, 2**32 - 1)))
+
+
+def search_plan(tb, alg: str, keys, n: int, R: int) -> dict:
+    """The CH / RS launcher's plan for ``n`` ids, held to its statement
+    in ``launch.baseline_plan``."""
+    from repro_torch.kernels import launch
+
+    plan = tb.launch_plan(alg, keys, n, n_replicas=R)
+    stated = launch.baseline_plan(alg, n, keys.shape[0], plan["sms"], plan["blocks_per_sm"])
+    require(plan == stated, f"{alg} launch plan {plan} != its statement {stated}")
+    return plan
+
+
+def plan_text(plan: dict) -> str:
+    return (f"S={1 << plan['shift']} index {plan['smem']} B, grid {plan['grid']} x "
+            f"{plan['block']} ({plan['blocks_per_sm']} per SM)")
 
 
 def edge_ids(np, points):
@@ -363,10 +478,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"phase 1: built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    for name, info in built.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas(build.ptxas_report)
 
     # -- phase 2: fused placement kernel vs twin -----------------------------
     print(f"phase 2: place_fused_cuda vs twin, {CHECK_IDS} ids, exact")
@@ -572,7 +684,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     base = phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile)
 
     # -- phase 10: failure-domain-aware placement ----------------------------
-    hier = phase10(torch, np, dev, caps[LADDER_NODES], seed, ids, bulk, hold, profile)
+    hier = phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile)
 
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
@@ -936,10 +1048,32 @@ def phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -
                 edge = torch.from_numpy(edge_ids(np, art.keys)).to(dev)
                 sub = torch.cat([ids, edge])
                 place = getattr(tb, f"{kernel[alg]}_cuda")
+                plan = search_plan(tb, alg, art.keys_dev, sub.shape[0], 0)
                 hold(kernel[alg], f"{n_nodes} nodes, {art.n_entries} entries, "
-                     f"{ids.shape[0]}+{edge.shape[0]} edge ids",
+                     f"{ids.shape[0]}+{edge.shape[0]} edge ids, {plan_text(plan)}",
                      place(sub, art.keys_dev, art.vals_dev),
                      tr.LOOKUPS[alg](sub, art.keys_dev, art.vals_dev))
+        for alg in ("ch", "rs"):  # the staged search at every kind of bucket edge
+            for n_keys, runs, offset in search_edges():
+                keys, owners = search_table(np, n_keys + offset, seed, runs)
+                if alg == "rs":
+                    keys[0] = 0  # random slicing's first interval starts at 0
+                k = torch.from_numpy(keys).to(dev)[offset:]
+                v = torch.from_numpy(owners).to(dev)[offset:]
+                sub = torch.cat([ids[: 1 << 16], torch.from_numpy(
+                    index_edge_ids(np, keys[offset:])).to(dev)])
+                what = (f"{n_keys} keys{' (unaligned)' if offset else ''}, runs {runs}, "
+                        f"{plan_text(search_plan(tb, alg, k, sub.shape[0], 0))}, "
+                        f"{sub.shape[0]} ids")
+                place = getattr(tb, f"{kernel[alg]}_cuda")
+                hold(kernel[alg], what, place(sub, k, v), tr.LOOKUPS[alg](sub, k, v))
+                search_plan(tb, alg, k, sub.shape[0], 3)
+                got, st = tb.baseline_replicas_cuda(alg, sub, k, v, n_replicas=3,
+                                                    emit_stats=True)
+                want, st_t = tr.baseline_replicas_lookup(alg, sub, k, v, n_replicas=3,
+                                                         emit_stats=True)
+                hold(FANOUT, f"{alg} R=3 on {what}", got, want)
+                hold(FANOUT, f"{alg} R=3 on {n_keys} keys [reprobes]", st, st_t)
         tail_caps = np.concatenate([caps[n], [1.0]])  # 4097 nodes: a padding tail
         for cc in (caps[n], tail_caps):
             art = artifact("wrh", cc)
@@ -1169,11 +1303,13 @@ def phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -
     return out
 
 
-def hier_topologies(np, caps, seed) -> dict:
+def hier_topologies(np, caps, seed, huge=None) -> dict:
     """The phase-10 deployments as ``{domain: {node: capacity}}``: the
     4096-node cluster in racks of 64, the durability benchmark's 12 x 8,
     a ragged one (1 to 128 nodes per domain, capacities from the seed in
-    [0.5, 2.0)) and 4 domains of 3 (for R = D + 1)."""
+    [0.5, 2.0)), 4 domains of 3 (for R = D + 1) and, given ``huge``
+    capacities, the 10,000-node cluster in racks of 64 (157 racks: tables
+    too large for B8's staged variant)."""
     n_dom, per = DURABILITY_LAYOUT
     rng = np.random.default_rng(seed + 10)
     ragged, nid = {}, 0
@@ -1186,6 +1322,9 @@ def hier_topologies(np, caps, seed) -> dict:
         "12x8": {d: {d * per + i: 1.0 for i in range(per)} for d in range(n_dom)},
         "ragged": ragged,
         "4 domains": {d: {3 * d + i: 1.0 for i in range(3)} for d in range(4)},
+        **({} if huge is None else {f"{len(huge)} nodes": {
+            d: {n: float(huge[n]) for n in range(d * RACK, min((d + 1) * RACK, len(huge)))}
+            for d in range(-(-len(huge) // RACK))}}),
     }
 
 
@@ -1249,7 +1388,7 @@ def hier_work(torch, art, ids, R: int) -> tuple[int, int]:
     return 4 * n + 8 * R * n + table_bytes, ops
 
 
-def phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) -> dict:
+def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = False) -> dict:
     """Failure-domain-aware placement on the card: 10a B8 and B9 against
     their twins, 10b bulk, 10c serving, 10d movement.  Returns the two
     kernels' times, twin times, work and the main paths' launch counts."""
@@ -1261,7 +1400,9 @@ def phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) 
     from repro_torch.migrate import MigrationPlanner
     from repro_torch.serve import Router, TrafficModel
 
-    topo = hier_topologies(np, caps, seed)
+    caps = all_caps[LADDER_NODES]
+    huge = f"{HUGE_NODES} nodes"
+    topo = hier_topologies(np, caps, seed, all_caps[HUGE_NODES])
     out = {"ms": {}, "plain": {}, "work": {}}
 
     def hier(t, where=dev):
@@ -1285,22 +1426,29 @@ def phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) 
               f"table top level {art.top_level}, per-domain top levels {tops}, s_pad {art.s_pad}")
     require(len(set(arts["ragged"].tables_dev[6][: arts["ragged"].n_domains].tolist())) > 2,
             "the ragged hierarchy has too few distinct top levels")
-    cases = [("64x64", R, 128) for R in (1, 3, 5)] + [("ragged", R, 128) for R in (1, 3, 5)]
-    cases += [("12x8", 3, 128), ("4 domains", 5, 128), ("64x64", 3, 1), ("ragged", 3, 1)]
+    cases = [("64x64", R, 128, 0) for R in (1, 3, 5)] + [("ragged", R, 128, 0) for R in (1, 3, 5)]
+    cases += [("12x8", 3, 128, 0), ("4 domains", 5, 128, 0), ("64x64", 3, 1, 0), ("ragged", 3, 1, 0)]
+    cases += [("64x64", 9, 128, 0)] + [(huge, R, 128, 0) for R in (1, 3, 9)]
+    cases += [(huge, 3, 1, 0), ("64x64", 3, 128, DEEP_LEVELS)]
     with uncounted(LAUNCHES):
-        for name, R, md in cases:
+        for name, R, md, extra in cases:
             art = arts[name]
+            sub = ids if R <= 5 else ids[: 1 << 18]
             kw = statics(art, max_draws=md, n_replicas=R)
-            want = hier_place_replicas_ref(ids, *art.tables_dev, **kw)
+            kw["top_level"] += extra
+            want = hier_place_replicas_ref(sub, *art.tables_dev, **kw)
             short = int((want[0] < 0).sum())
             what = f"{name} R={R} max_draws={md}: {short} slots -1"
+            if extra:
+                what = f"{name} R={R}, domain ladder {extra} levels deeper: {short} slots -1"
             if md == 1:
-                what += f", {hier_tail_lanes(torch, art, ids, R)} tails"
-            hold("hier_replicas", what, hier_place_replicas_cuda(ids, *art.tables_dev, **kw), want)
+                what += f", {hier_tail_lanes(torch, art, sub, R)} tails"
+            hold("hier_replicas", what, hier_place_replicas_cuda(sub, *art.tables_dev, **kw),
+                 want)
             if name == "4 domains":
-                require(short == ids.shape[0] and bool((want[0, :4] >= 0).all()),
+                require(short == sub.shape[0] and bool((want[0, :4] >= 0).all()),
                         "R = D + 1: only the last slot of every lane may stay -1")
-            elif md == 128:
+            elif md == 128 and not extra:
                 require(short == 0, f"{name} R={R}: a slot stayed -1")
         flat = PlacementEngine(make_cluster(caps), device=dev)._device_artifact()
         for md in (128, 1):
@@ -1516,11 +1664,127 @@ def phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile: bool = False) 
     return out
 
 
+def load_tree(tree: Path):
+    """The ``repro_torch`` package of another checkout at ``tree``,
+    imported as ``against_repro_torch`` beside this one (its kernels
+    build from its own sources into its own ``_build``)."""
+    import importlib.util
+
+    src = tree / "src" / "repro_torch"
+    require((src / "__init__.py").is_file(), f"{tree} holds no src/repro_torch")
+    spec = importlib.util.spec_from_file_location(
+        "against_repro_torch", src / "__init__.py", submodule_search_locations=[str(src)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compare(seed: int, dev, tree: Path) -> dict:
+    """Every kernel of this checkout against the same kernel of the
+    checkout at ``tree`` (built from its own sources), on the same inputs
+    at the bulk sizes: outputs equal, then CUDA-event times taken in turns
+    (theirs, ours, ours, theirs; TIMED_CALLS calls each), and both
+    builds' ptxas numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PlacementEngine, make_cluster
+    from repro_torch.core import HierarchicalCluster
+    from repro_torch.kernels import build
+    import repro_torch
+
+    theirs = load_tree(tree)
+    t0 = time.perf_counter()
+    ours_built = build.build_all()
+    their_built = theirs.kernels.build.build_all()
+    print(f"compare: built this checkout's {sorted(ours_built)} and {tree}'s "
+          f"{sorted(their_built)} in {time.perf_counter() - t0:.2f} s")
+    print_ptxas(build.ptxas_report)
+    print_ptxas(lambda lib: build.parse_ptxas(their_built[lib]["log"]) if lib in their_built
+                else {}, "ptxas (against)")
+
+    rng = np.random.default_rng(seed)
+    caps, huge = rng.uniform(0.5, 2.0, LADDER_NODES), rng.uniform(0.5, 2.0, HUGE_NODES)
+    bulk = torch.from_numpy(rng.integers(0, 2**32, BULK_IDS, dtype=np.uint32)).to(dev)
+    cluster = make_cluster(caps)
+    engine = PlacementEngine(cluster, device=dev)
+    engine.artifact()
+    v0 = cluster.version
+    a = engine._device_artifact_for(v0)
+    cluster.add_node(LADDER_NODES, 1.0)
+    b = engine._device_artifact_for(cluster.version)
+    flat = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev)
+    dkw = dict(top_a=a.top_level, top_b=b.top_level)
+    base = {alg: PlacementEngine(make_cluster(caps), device=dev, algorithm=alg)
+            ._device_artifact() for alg in BASELINES}
+    topo = hier_topologies(np, caps, seed, huge)
+    hier = {}
+    for name in ("64x64", f"{HUGE_NODES} nodes", "ragged", "12x8"):
+        h = HierarchicalCluster(device=dev)
+        for d, members in topo[name].items():
+            for node, cap in members.items():
+                h.add_node(d, node, cap)
+        art = h.engine.hier_artifact()
+        hier[name] = (art.tables_dev, dict(top_level=art.top_level, max_top=art.max_top,
+                                           s_pad=art.s_pad))
+    wrh_ids = bulk[:WRH_IDS]
+    cases = [
+        ("place_fused", "asura_place", "place_fused_cuda", (bulk, *flat),
+         dict(top_level=a.top_level, emit_nodes=True)),
+        ("place_replicas R=3", "asura_place", "place_replicas_cuda",
+         (bulk, a.len32_dev, a.node_of_dev), dict(top_level=a.top_level, n_replicas=3,
+                                                  emit_nodes=True)),
+        ("diff_nodes (add)", "asura_place", "diff_nodes_cuda",
+         (bulk, *flat, b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev), dkw),
+        ("diff_replicas R=3 (add)", "asura_place", "diff_replicas_cuda",
+         (bulk, a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev),
+         dict(dkw, n_replicas=3)),
+        ("place", "asura_place", "place_cuda", (bulk, a.len32_dev),
+         dict(top_level=a.top_level)),
+        ("ch_place", "baselines", "ch_place_cuda", (bulk, base["ch"].keys_dev,
+                                                    base["ch"].vals_dev), {}),
+        ("rs_place", "baselines", "rs_place_cuda", (bulk, base["rs"].keys_dev,
+                                                    base["rs"].vals_dev), {}),
+        ("wrh_place (2**20 ids)", "baselines", "wrh_place_cuda",
+         (wrh_ids, base["wrh"].keys_dev, base["wrh"].vals_dev), {}),
+    ]
+    for alg in BASELINES:
+        cases.append((f"{FANOUT} {alg} R=3" + (" (2**20 ids)" if alg == "wrh" else ""),
+                      "baselines", "baseline_replicas_cuda",
+                      (alg, wrh_ids if alg == "wrh" else bulk, base[alg].keys_dev,
+                       base[alg].vals_dev), dict(n_replicas=3)))
+    for name, (tabs, kw) in hier.items():
+        for R in ((3, 1) if name == "64x64" else (3,)):
+            cases.append((f"hier_replicas {name} R={R}", "hierarchy",
+                          "hier_place_replicas_cuda", (bulk, *tabs), dict(kw, n_replicas=R)))
+    rows = []
+    for label, mod, fn, args, kw in cases:
+        f_theirs = getattr(getattr(theirs.kernels, mod), fn)
+        f_ours = getattr(getattr(repro_torch.kernels, mod), fn)
+        bad, _ = mismatches(torch, f_ours(*args, **kw), f_theirs(*args, **kw))
+        require(bad == 0, f"{label}: {bad} outputs differ between the two checkouts")
+        t_theirs, t_ours = [], []
+        for f, acc in ((f_theirs, t_theirs), (f_ours, t_ours), (f_ours, t_ours),
+                       (f_theirs, t_theirs)):
+            acc += cuda_ms(torch, lambda: f(*args, **kw), TIMED_CALLS)
+        row = {"kernel": label, "against_ms": statistics.median(t_theirs),
+               "ms": statistics.median(t_ours)}
+        row["ratio"] = row["ms"] / row["against_ms"]
+        rows.append(row)
+        print(f"  {label:36s} against {row['against_ms']:9.4f} ms, this {row['ms']:9.4f} ms, "
+              f"ratio {row['ratio']:.4f}, outputs equal")
+    return {"against": str(tree), "kernels": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace serving steps with torch.profiler")
+    ap.add_argument("--against", type=Path, default=None,
+                    help="instead of the phases, time every kernel against the same "
+                         "kernel of the checkout in this directory")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -1538,7 +1802,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"card: {smi}")
-    result = run(args.seed, torch.device("cuda", torch.cuda.current_device()), args.profile)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if args.against is not None:
+        result = compare(args.seed, dev, args.against.resolve())
+    else:
+        result = run(args.seed, dev, args.profile)
     print(json.dumps(result))
     print(smi)
     print(json.dumps({

@@ -41,6 +41,7 @@ from . import baselines_ref as bref
 from . import build
 from .asura_place import LAUNCHES, _check, _raise_on, _stream
 from .baselines_ref import REPLICA_FANOUT_LEVEL, REPLICA_MAX_TRIES
+from .launch import PLAN_FIELDS
 
 ALGORITHMS = ("ch", "rs", "wrh")
 LANE = 128  # the reference's table padding unit
@@ -58,6 +59,8 @@ def _lib() -> ctypes.CDLL:
         fn.restype = i32
     lib.baseline_replicas.argtypes = [i32] + [p] * 5 + [i64, i32, i32, i32, p]
     lib.baseline_replicas.restype = i32
+    lib.baseline_launch_plan.argtypes = [i32, p, i64, i32, i32, p]
+    lib.baseline_launch_plan.restype = i32
     return lib
 
 
@@ -224,6 +227,20 @@ def baseline_replicas_cuda(
     if emit_stats:
         return out, stats.view(torch.uint32)
     return out
+
+
+def launch_plan(algorithm: str, keys: torch.Tensor, n: int, n_replicas: int = 0) -> dict:
+    """The plan the CUDA launcher computes for ``n`` ids against the
+    device table ``keys`` (``n_replicas`` 0: B5 / B6's lookup kernel, else
+    the fan-out), read back without launching: the fields of
+    ``launch.PLAN_FIELDS``."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {algorithm!r}")
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
+    rc = _lib().baseline_launch_plan(_ALG_CODE[algorithm], keys.data_ptr(), n,
+                                     keys.shape[0], int(n_replicas), plan)
+    _raise_on(rc, "baseline_launch_plan")
+    return dict(zip(PLAN_FIELDS, plan))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ by a hash of the source, of every header it includes from ``csrc/`` (the
 shared ``hash.cuh``) and of the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them.  A failed build
-raises with the compiler's output; nothing falls back.
+raises with the compiler's output; nothing falls back.  ``-Xptxas -v``'s
+report (registers, stack frame and spill bytes per kernel) is kept beside
+each library and read back by ``ptxas_report``.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ def build_all(names=SOURCES) -> dict:
     """Compile every source not yet built, all ``nvcc`` processes at once.
 
     Returns ``{name: {"path", "seconds", "log"}}`` for what was compiled
-    (``log`` holds ``-Xptxas -v``'s register and spill report)."""
+    (``log`` holds ``-Xptxas -v``'s register and spill report, also kept
+    beside the library)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -97,6 +100,7 @@ def build_all(names=SOURCES) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         built[name] = {
             "path": str(out), "seconds": time.perf_counter() - t0, "log": log,
@@ -109,3 +113,36 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built first if needed)."""
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas(log: str) -> dict:
+    """``-Xptxas -v`` output -> ``{mangled kernel: {"registers", "stack",
+    "spill_stores", "spill_loads"}}`` for every entry function."""
+    kernels: dict[str, dict] = {}
+    entry = props = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            kernels.setdefault(entry, {})
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _FRAME.search(line)) and props in kernels:
+            kernels[props].update(zip(("stack", "spill_stores", "spill_loads"),
+                                      map(int, m.groups())))
+        elif (m := _REGS.search(line)) and entry is not None:
+            kernels[entry]["registers"] = int(m.group(1))
+    return kernels
+
+
+def ptxas_report(name: str) -> dict:
+    """``parse_ptxas`` of the kept build log of ``csrc/<name>.cu`` (built
+    first if needed; empty for a library built without one)."""
+    build_all((name,))
+    log = library_path(name).with_suffix(".log")
+    return parse_ptxas(log.read_text()) if log.exists() else {}

@@ -3,6 +3,12 @@
 // B9) and hierarchy.cu (B8, whose level 1 is B2's body and whose level 2
 // is B1's).  kernels/build.py hashes this header with every source that
 // includes it.
+//
+// The bodies take the ladder's counters as a policy: ArrayLadder, the
+// caller's per-lane array indexed by level (B1-B4 and B9: a run-time
+// index, so the array lives in local memory, a 128-byte stack frame, read
+// and written on every consulted level), or TopLadder<K> (B8): the top K
+// levels' counters in registers, the deeper ones in local memory.
 
 #pragma once
 
@@ -18,22 +24,86 @@ using port_hash::draw_u32;
 // wrappers check s_log2 + top_level <= 31).
 constexpr int kMaxLevels = 32;
 
-// One ASURA number: descend from top_level while the draw's MSB is clear,
-// ticking each consulted level's counter; k = floor, f = fraction * 2**32.
-__device__ __forceinline__ void next_asura(uint32_t id, uint32_t* ctr,
-                                           int top_level, int s_log2,
-                                           uint32_t& k, uint32_t& f) {
-  int level = top_level;
-  uint32_t h = draw_u32(id, level, ctr[level]);
-  ctr[level] += 1u;
-  while (level > 0 && h < 0x80000000u) {
-    --level;
-    h = draw_u32(id, level, ctr[level]);
-    ctr[level] += 1u;
-  }
+// k = floor, f = fraction * 2**32 of the ASURA number drawn at ``level``.
+__device__ __forceinline__ void split(uint32_t h, int level, int s_log2,
+                                      uint32_t& k, uint32_t& f) {
   k = h >> (32 - s_log2 - level);
   f = h << (s_log2 + level);
 }
+
+// The caller's array of >= top_level + 1 counters, indexed by level.
+struct ArrayLadder {
+  uint32_t* ctr;
+
+  __device__ __forceinline__ void reset(int top_level) {
+    for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  }
+
+  // One ASURA number: descend from top_level while the draw's MSB is
+  // clear, ticking each consulted level's counter.
+  __device__ __forceinline__ void next(uint32_t id, int top_level, int s_log2,
+                                       uint32_t& k, uint32_t& f) {
+    int level = top_level;
+    uint32_t h = draw_u32(id, level, ctr[level]);
+    ctr[level] += 1u;
+    while (level > 0 && h < 0x80000000u) {
+      --level;
+      h = draw_u32(id, level, ctr[level]);
+      ctr[level] += 1u;
+    }
+    split(h, level, s_log2, k, f);
+  }
+};
+
+// The counters of the top K levels in registers, c[j] for level
+// top_level - j, and those of the deeper levels in the caller's array
+// ``deep`` (indexed by level), zeroed lazily: the descent reaches level
+// top_level - j with probability 2**-j per draw, so the registers serve
+// all but ~2**-K of the consults, and a ladder no deeper than K never
+// touches ``deep``.  The descent visits top, top - 1, ... in order, so a
+// fully unrolled loop reaches each register counter by a compile-time
+// index.
+template <int K>
+struct TopLadder {
+  uint32_t c[K];
+  uint32_t* deep;  // >= top_level + 1 - K entries
+  int fresh;       // deep levels >= fresh were zeroed since the reset
+
+  __device__ __forceinline__ void reset(int top_level) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) c[j] = 0u;
+    fresh = top_level - K + 1;
+  }
+
+  __device__ __forceinline__ void next(uint32_t id, int top_level, int s_log2,
+                                       uint32_t& k, uint32_t& f) {
+    int level = top_level;
+    uint32_t h = 0u;
+    bool done = false;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      level = top_level - j;
+      h = draw_u32(id, level, c[j]);
+      c[j] += 1u;
+      if (level == 0 || h >= 0x80000000u) {
+        done = true;
+        break;
+      }
+    }
+    if (!done) {  // level = top_level - K + 1 > 0 and h's MSB is clear
+      do {
+        --level;
+        if (level < fresh) {
+          deep[level] = 0u;
+          fresh = level;
+        }
+        h = draw_u32(id, level, deep[level]);
+        deep[level] += 1u;
+      } while (level > 0 && h < 0x80000000u);
+    }
+    split(h, level, s_log2, k, f);
+  }
+};
 
 __device__ __forceinline__ bool hits(uint32_t k, uint32_t f, int n_segs,
                                      const uint32_t* __restrict__ len32) {
@@ -66,19 +136,19 @@ static __device__ int resolve_tail(uint32_t id, int top_level, int n_segs,
 // that did not hit within max_draws draws is resolved on chip by the tail,
 // and with ``emit_nodes`` the segment goes through the seg->node gather.
 // !kTotal (B9's body): no tail and no gather -- the segment, or -1 for a
-// lane that did not converge.  ``ctr`` holds >= top_level + 1 entries;
-// they are zeroed here, so a second call restarts the stream.
-template <bool kTotal>
-__device__ __forceinline__ int32_t place_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+// lane that did not converge.  The ladder's counters are zeroed here, so
+// a second call restarts the stream.
+template <bool kTotal, class Ladder>
+__device__ __forceinline__ int32_t place_lane_with(
+    uint32_t id, Ladder& ladder, const uint32_t* __restrict__ len32,
     const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
     const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
     int max_draws, int emit_nodes) {
-  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  ladder.reset(top_level);
   int seg = -1;
   for (int d = 0; d < max_draws; ++d) {
     uint32_t k, f;
-    next_asura(id, ctr, top_level, s_log2, k, f);
+    ladder.next(id, top_level, s_log2, k, f);
     if (hits(k, f, n_segs, len32)) {
       seg = static_cast<int>(k);
       break;
@@ -92,21 +162,33 @@ __device__ __forceinline__ int32_t place_lane(
   }
 }
 
+// The array form, for B1, B3 and B9: ``ctr`` holds >= top_level + 1 entries.
+template <bool kTotal>
+__device__ __forceinline__ int32_t place_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int emit_nodes) {
+  ArrayLadder ladder{ctr};
+  return place_lane_with<kTotal>(id, ladder, len32, cum_hi, cum_lo, node_of, n_segs,
+                                 top_level, s_log2, max_draws, emit_nodes);
+}
+
 // B2's per-lane body: the first R hits on distinct nodes within
 // max_draws * max(1, R) draws, written to ``row`` (R entries, -1 for
 // unfilled slots; segments, or nodes with ``emit_nodes``).  Returns the
-// number of slots filled; ``ctr`` is zeroed here and left holding the
-// lane's per-level draw counts.
+// number of slots filled; the ladder's counters are zeroed here and left
+// holding the lane's per-level draw counts.
 // RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
 // RMAX == 0: kept in the lane's scratch rows ``gseg`` / ``gnode`` (any R);
 // ``row`` may be ``gnode`` itself when nodes are emitted.
-template <int RMAX>
-__device__ __forceinline__ int place_replicas_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+template <int RMAX, class Ladder>
+__device__ __forceinline__ int place_replicas_lane_with(
+    uint32_t id, Ladder& ladder, const uint32_t* __restrict__ len32,
     const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
     int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
     int32_t* gnode) {
-  for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
+  ladder.reset(top_level);
   int32_t rseg[RMAX > 0 ? RMAX : 1];
   int32_t rnode[RMAX > 0 ? RMAX : 1];
 #pragma unroll
@@ -115,7 +197,7 @@ __device__ __forceinline__ int place_replicas_lane(
   const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
   for (int64_t d = 0; d < cap && found < R; ++d) {
     uint32_t k, f;
-    next_asura(id, ctr, top_level, s_log2, k, f);
+    ladder.next(id, top_level, s_log2, k, f);
     if (!hits(k, f, n_segs, len32)) continue;
     const int32_t node = __ldg(node_of + k);
     bool dup = false;
@@ -148,6 +230,20 @@ __device__ __forceinline__ int place_replicas_lane(
     for (int r = 0; r < R; ++r) row[r] = r < found ? src[r] : -1;
   }
   return found;
+}
+
+// The array form, for B2 and B4: ``ctr`` holds >= top_level + 1 entries, left
+// holding the per-level draw counts.
+template <int RMAX>
+__device__ __forceinline__ int place_replicas_lane(
+    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
+    int32_t* gnode) {
+  ArrayLadder ladder{ctr};
+  return place_replicas_lane_with<RMAX>(id, ladder, len32, node_of, n_segs, top_level,
+                                        s_log2, max_draws, R, emit_nodes, row, gseg,
+                                        gnode);
 }
 
 }  // namespace port_lane

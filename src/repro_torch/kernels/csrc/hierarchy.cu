@@ -32,13 +32,23 @@
 // uses for every replica slot, so each (id, domain) stream starts fresh as
 // the reference's does.
 //
-// What bounds it on an H100.  Per id it reads 4 bytes and writes 8 * R;
-// the tables (a 64 x 64-node hierarchy: a ~100-entry domain table and
-// 64 rows of 128 stacked entries, ~130 KB over the four arrays) stay in
-// L1/L2.  The work is one B2 pass over the domain table plus R B1 passes,
-// ~20 int32 operations per consulted ladder level, so the kernel is
-// operation-bound, like B1 and B2.  R <= 8 keeps the level-1 slots in
-// registers; larger R keeps them in the lane's scratch rows, as B2 does.
+// What bounds it on an H100.  Per id it reads 4 bytes and writes 8 * R.
+// The work is one B2 pass over the domain table plus R B1 passes, ~20
+// int32 operations per consulted ladder level, so the kernel is
+// operation-bound, like B1 and B2; its dependent hash chains need many
+// resident warps.  The tables of a 64 x 64-node hierarchy (a
+// ~5,100-segment domain table, top level ~12, and 64 rows of 128 stacked
+// entries, ~150 KB over the six arrays the draws read) stay in L1 / L2
+// and are read through __ldg.  A per-lane counter array indexed by a
+// run-time level lives in local memory (a 128-byte stack frame) and is
+// read and written on every consulted level; here the counters of the top
+// kTopCounters levels sit in registers (port_lane::TopLadder), which serve
+// all but ~2**-kTopCounters of the consults, and only the deeper levels
+// stay in the local array.  Keeping all of them in registers (16 or 32)
+// or staging the tables in shared memory per persistent block both cost
+// more resident warps than they save, on every hierarchy measured
+// (PERF.md).  R <= 8 keeps the level-1 slots in registers; larger R keeps
+// them in the lane's scratch rows, as B2 does.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,10 +60,13 @@ namespace {
 using port_hash::fmix32;
 using port_hash::kGolden;
 using port_lane::kMaxLevels;
-using port_lane::place_lane;
-using port_lane::place_replicas_lane;
+using port_lane::place_lane_with;
+using port_lane::place_replicas_lane_with;
+using port_lane::TopLadder;
 
 constexpr int kThreads = 256;
+constexpr int kTopCounters = 6;  // ladder counters kept in registers
+using Ladder = TopLadder<kTopCounters>;
 
 // The eight tables, in the operand order of the reference kernel (read
 // only; level 1 and level 2 read them through __ldg).
@@ -71,7 +84,7 @@ struct HierTables {
 // Level 2 of one replica slot: (domain id, node id), or (-1, -1) for an
 // unfilled slot.
 __device__ __forceinline__ void place_in_domain(uint32_t id, int32_t slot,
-                                                const HierTables& t, uint32_t* ctr,
+                                                const HierTables& t, Ladder& ladder,
                                                 int s_pad, int s_log2, int max_draws,
                                                 int32_t& did, int32_t& node) {
   if (slot < 0) {
@@ -83,9 +96,9 @@ __device__ __forceinline__ void place_in_domain(uint32_t id, int32_t slot,
   const int top = __ldg(t.dom_top + slot);
   const uint32_t salted = fmix32(id ^ (static_cast<uint32_t>(did) * kGolden));
   const int64_t base = static_cast<int64_t>(slot) * s_pad;
-  node = place_lane<true>(salted, ctr, t.dom_len32 + base, t.dom_cum_hi + base,
-                          t.dom_cum_lo + base, t.dom_node + base, s_pad, top,
-                          s_log2, max_draws, 1);
+  node = place_lane_with<true>(salted, ladder, t.dom_len32 + base,
+                                    t.dom_cum_hi + base, t.dom_cum_lo + base,
+                                    t.dom_node + base, s_pad, top, s_log2, max_draws, 1);
 }
 
 template <int RMAX>
@@ -97,31 +110,33 @@ hier_replicas_kernel(const uint32_t* __restrict__ ids, HierTables t,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t id = ids[i];
-  uint32_t ctr[kMaxLevels];  // max(top_level, max_top) + 1 <= 31 entries used
+  uint32_t deep[kMaxLevels];  // the counters below the top kTopCounters levels
+  Ladder ladder;
+  ladder.deep = deep;
   int32_t* dom_out = out;
   int32_t* node_out = out + static_cast<int64_t>(R) * n;
   if constexpr (RMAX > 0) {
     int32_t slots[RMAX];
-    place_replicas_lane<RMAX>(id, ctr, t.top_len32, t.top_slot_of, n_segs_top,
-                              top_level, s_log2, max_draws, R, 1, slots, nullptr,
-                              nullptr);
+    place_replicas_lane_with<RMAX>(id, ladder, t.top_len32, t.top_slot_of,
+                                        n_segs_top, top_level, s_log2, max_draws, R, 1,
+                                        slots, nullptr, nullptr);
 #pragma unroll
     for (int r = 0; r < RMAX; ++r) {
       if (r < R) {
         int32_t did, node;
-        place_in_domain(id, slots[r], t, ctr, s_pad, s_log2, max_draws, did, node);
+        place_in_domain(id, slots[r], t, ladder, s_pad, s_log2, max_draws, did, node);
         dom_out[r * n + i] = did;
         node_out[r * n + i] = node;
       }
     }
   } else {
     int32_t* slots = slots_buf + i * R;  // the lane's scratch rows
-    place_replicas_lane<0>(id, ctr, t.top_len32, t.top_slot_of, n_segs_top,
-                           top_level, s_log2, max_draws, R, 1, slots,
-                           segs_buf + i * R, slots);
+    place_replicas_lane_with<0>(id, ladder, t.top_len32, t.top_slot_of, n_segs_top,
+                                     top_level, s_log2, max_draws, R, 1, slots,
+                                     segs_buf + i * R, slots);
     for (int r = 0; r < R; ++r) {
       int32_t did, node;
-      place_in_domain(id, slots[r], t, ctr, s_pad, s_log2, max_draws, did, node);
+      place_in_domain(id, slots[r], t, ladder, s_pad, s_log2, max_draws, did, node);
       dom_out[r * n + i] = did;
       node_out[r * n + i] = node;
     }

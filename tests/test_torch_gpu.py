@@ -465,3 +465,106 @@ def test_hier_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device):
         assert torch.equal(c.cpu(), w)
     for name in ("counts", "queue", "qhist"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+
+
+# ---------------------------------------------------------------------------
+# the staged searches (B5, B6, the fan-out) and B8's ladder counters
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import launch  # noqa: E402
+
+
+def _search_table(n, seed, *, runs=0):
+    """A sorted u32 table of ``n`` keys (random owners): with ``runs``,
+    runs of equal keys cross every index bucket boundary of the stride
+    the launcher picks for ``n``, and the last keys are 0xFFFFFFFF."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, 2**32, n, dtype=np.uint32))
+    if runs:
+        S = 1 << launch.index_shift(n)
+        for b in range(max(S, 2), n - runs, S):
+            keys[b - runs // 2: b + runs - runs // 2] = keys[b - runs // 2]
+        keys[-runs:] = np.uint32(0xFFFFFFFF)
+        keys = np.sort(keys)
+    return keys, rng.integers(0, 4096, n).astype(np.int32)
+
+
+def _index_edge_ids(keys, rng, extra=50_000):
+    """Ids hashing to every index key of the stride the launcher picks,
+    one above and one below each, 0 and 0xFFFFFFFF, plus random ids."""
+    idx = keys[:: 1 << launch.index_shift(keys.shape[0])].astype(np.int64)
+    h = np.unique(np.clip(np.concatenate([[0, 2**32 - 1], idx - 1, idx, idx + 1]),
+                          0, 2**32 - 1)).astype(np.uint32)
+    return np.concatenate([_unfmix32(h), rng.integers(0, 2**32, extra, dtype=np.uint32)])
+
+
+@pytest.mark.parametrize("n,runs,offset", [
+    (409_600, 6, 0),  # the 4096-node ring, S = 16, duplicates across buckets
+    (409_603, 0, 0),  # not a multiple of S: a last bucket of 3 keys
+    (1_000_064, 5, 0),  # the 10,000-node ring, S = 64
+    (1_000_003, 0, 1),  # unaligned keys (a view one key in): scalar bucket loads
+    (launch.INDEX_BUDGET // 4, 0, 0),  # the largest table staged whole
+    (launch.INDEX_BUDGET // 4 + 1, 2, 0),  # S = 2
+    (4 * (launch.INDEX_BUDGET // 4) + 5, 3, 0),  # S = 8, a ragged last bucket
+])
+@pytest.mark.parametrize("alg", ["ch", "rs"])
+def test_staged_search_matches_twin_at_bucket_edges(cuda_device, alg, n, runs, offset):
+    """B5 / B6 and the fan-out against the twins on tables that take each
+    index stride: ids on, above and below every index key, equal keys
+    straddling bucket boundaries, padding, ragged and unaligned tables."""
+    keys, owners = _search_table(n + offset, seed=n, runs=runs)
+    if alg == "rs":
+        keys[0] = 0  # random slicing's first interval starts at 0
+    k = torch.from_numpy(keys).to(cuda_device)[offset:]
+    v = torch.from_numpy(owners).to(cuda_device)[offset:]
+    ids = torch.from_numpy(_index_edge_ids(keys[offset:], np.random.default_rng(n))).to(
+        cuda_device)
+    place = getattr(tb, f"{alg}_place_cuda")
+    assert torch.equal(place(ids, k, v), tr.LOOKUPS[alg](ids, k, v))
+    got, st = tb.baseline_replicas_cuda(alg, ids, k, v, n_replicas=3, emit_stats=True)
+    want, st_t = tr.baseline_replicas_lookup(alg, ids, k, v, n_replicas=3, emit_stats=True)
+    assert torch.equal(got, want) and torch.equal(as_u32(st), as_u32(st_t))
+
+
+@pytest.mark.parametrize("n_keys", [1, 4096, 12_288, 28_672, 28_673, 409_600, 1_000_064])
+@pytest.mark.parametrize("alg,R", [
+    ("ch", 0), ("ch", 1), ("ch", 3), ("ch", 12), ("rs", 0), ("rs", 1), ("rs", 3), ("rs", 12),
+    ("wrh", 1), ("wrh", 3), ("wrh", 12),  # B7 has a kernel of its own: the fan-out only
+])
+def test_baseline_launch_plan_matches_its_statement(cuda_device, alg, R, n_keys):
+    """The launcher's own plan (R = 0: B5 / B6's kernel, else the
+    fan-out's) equals ``launch.baseline_plan`` on the launcher's SM count
+    and occupancy."""
+    keys = torch.zeros(n_keys, dtype=torch.uint32, device=cuda_device)
+    for n in (1, 65_536 * 3, 2**24):
+        got = tb.launch_plan(alg, keys, n, n_replicas=R)
+        assert got == launch.baseline_plan(alg, n, n_keys, got["sms"], got["blocks_per_sm"])
+        if alg != "wrh":
+            props = torch.cuda.get_device_properties(cuda_device)
+            assert got["sms"] == props.multi_processor_count and got["blocks_per_sm"] >= 1
+
+
+def _racks(device, n_nodes, rack=64, seed=0):
+    h = HierarchicalCluster(device=device)
+    caps = np.random.default_rng(seed).uniform(0.5, 2.0, n_nodes)
+    for n, c in enumerate(caps):
+        h.add_node(n // rack, n, float(c))
+    return h
+
+
+@pytest.mark.parametrize("n_nodes", [4096, 10_000])
+@pytest.mark.parametrize("R,max_draws,extra_levels", [
+    (1, 128, 0), (3, 128, 0), (9, 128, 0), (3, 1, 0), (3, 128, 4),
+])
+def test_hier_kernel_matches_twin_at_full_width(cuda_device, n_nodes, R, max_draws,
+                                                extra_levels):
+    """B8 on 64 racks of 64 and on 157 racks of up to 64 (10,000 nodes)
+    at R = 1, 3, 9, with the per-domain tail forced (max_draws=1), and
+    with 4 levels more on the domain table's ladder: the counters below
+    the register-held top levels in use on every draw that descends."""
+    art = _racks(cuda_device, n_nodes).engine.hier_artifact()
+    ids = _ids(70_001, cuda_device, seed=R + max_draws)
+    kw = dict(top_level=art.top_level + extra_levels, max_top=art.max_top,
+              s_pad=art.s_pad, s_log2=1, max_draws=max_draws, n_replicas=R)
+    assert torch.equal(hier_place_replicas_cuda(ids, *art.tables_dev, **kw),
+                       hier_place_replicas_ref(ids, *art.tables_dev, **kw))

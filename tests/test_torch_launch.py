@@ -1,0 +1,220 @@
+"""The redesigned kernels' host-side choices and algorithms, without a card.
+
+``repro_torch.kernels.launch`` restates, as pure functions of sizes, the
+plan the CH / RS launcher computes: the index stride, its shared memory
+and the persistent grid.  The card holds the launcher to these functions
+(``test_torch_gpu.py``); here they are held to the sizes of the
+deployments ``chip_smoke.py`` runs and to their own definitions.  NumPy
+models of the two algorithms the kernels changed check, lane by lane,
+that counting one bucket after the sampled index lands where
+``searchsorted`` lands (duplicates across bucket boundaries and padding
+included), and that B8's ladder with its top K counters in registers
+draws exactly what a counter per level draws.
+"""
+
+import numpy as np
+import pytest
+
+from repro_torch.core.rng import draw_u32_np
+from repro_torch.kernels import build, launch
+
+BUDGET_KEYS = launch.INDEX_BUDGET // launch.KEY_BYTES
+
+
+@pytest.mark.parametrize("n_keys,shift", [
+    (1, 0), (128, 0),
+    (4096, 0),  # an RS table at build (4096 nodes)
+    (12_288, 0),  # the RS table after an add and a removal, lane-padded
+    (BUDGET_KEYS, 0), (BUDGET_KEYS + 1, 1),
+    (409_600, 4),  # the CH ring of 4096 nodes at 100 virtual nodes: S = 16
+    (1_000_064, 6),  # 10,000 nodes, lane-padded: S = 64
+    (2**31 - 1, 17),
+])
+def test_index_shift_at_deployment_sizes(n_keys, shift):
+    assert launch.index_shift(n_keys) == shift
+    assert launch.index_bytes(n_keys) <= launch.INDEX_BUDGET
+
+
+@pytest.mark.parametrize("n_keys", [1, 3, 1000, 28_928, 28_929, 57_857, 409_600, 409_601,
+                                    777_777, 1_000_064, 5_000_000])
+def test_index_stride_is_the_least_that_fits(n_keys):
+    shift = launch.index_shift(n_keys)
+    S, m = 1 << shift, launch.index_entries(n_keys)
+    assert (m - 1) * S < n_keys <= m * S  # every key in exactly one bucket
+    assert launch.index_bytes(n_keys) == 4 * m <= launch.INDEX_BUDGET
+    if shift:
+        assert 4 * -(-n_keys // (S // 2)) > launch.INDEX_BUDGET
+
+
+def test_index_shift_rejects_an_empty_table():
+    with pytest.raises(ValueError):
+        launch.index_shift(0)
+
+
+@pytest.mark.parametrize("n,block,sms,bps,grid", [
+    (1, 512, 132, 2, 1),
+    (65_536 * 3, 512, 132, 2, 264),  # a serving batch's fan-out: capped
+    (65_536, 256, 132, 2, 256),  # one pass: no more blocks than ids need
+    (2**24, 256, 132, 2, 264),
+    (2**24, 512, 114, 3, 342),
+    (0, 256, 132, 2, 0),
+])
+def test_persistent_grid(n, block, sms, bps, grid):
+    assert launch.persistent_grid(n, block, sms, bps) == grid
+
+
+@pytest.mark.parametrize("sms,bps", [(0, 2), (132, 0)])
+def test_persistent_grid_needs_a_resident_block(sms, bps):
+    with pytest.raises(ValueError):
+        launch.persistent_grid(1024, 256, sms, bps)
+
+
+def test_plans_compose_the_choices():
+    p = launch.baseline_plan("ch", 2**24, 409_600, 132, 2)
+    assert p == dict(shift=4, smem=102_400, block=launch.SEARCH_THREADS, blocks_per_sm=2,
+                     sms=132, grid=264)
+    p = launch.baseline_plan("rs", 1000, 12_288, 132, 4)
+    assert (p["shift"], p["smem"], p["grid"]) == (0, 49_152, 2)
+    p = launch.baseline_plan("wrh", 2**20, 4096, 0, 0)
+    assert (p["shift"], p["smem"], p["block"], p["grid"]) == (0, 0, 256, 4096)
+
+
+# ---------------------------------------------------------------------------
+# a NumPy model of the CH / RS kernels' two-level search
+# ---------------------------------------------------------------------------
+
+
+def indexed_search(keys: np.ndarray, h: np.ndarray, side_left: bool, shift: int) -> np.ndarray:
+    """The kernels' search, lane by lane: the branchless lower bound over
+    the index keys[j << shift], then the count of passing keys in the
+    one bucket it names."""
+    n, S = keys.shape[0], 1 << shift
+    idx = keys[::S]
+    out = np.empty(h.shape[0], dtype=np.int64)
+    for lane, x in enumerate(h):
+        def passes(k):
+            return k < x if side_left else k <= x
+        base, length = 0, idx.shape[0]
+        while length > 1:
+            half = length >> 1
+            base += half if passes(idx[base + half - 1]) else 0
+            length -= half
+        b = base + int(passes(idx[base]))
+        if shift == 0 or b == 0:
+            out[lane] = b
+            continue
+        lo = (b - 1) << shift
+        out[lane] = lo + int(sum(passes(k) for k in keys[lo: min(lo + S, n)]))
+    return out
+
+
+def _edge_hashes(keys: np.ndarray) -> np.ndarray:
+    p = keys.astype(np.int64)
+    h = np.concatenate([[0, 1, 2**32 - 2, 2**32 - 1], p - 1, p, p + 1])
+    return np.unique(np.clip(h, 0, 2**32 - 1)).astype(np.uint32)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 3, 5])
+@pytest.mark.parametrize("n", [1, 7, 128, 200, 333])
+def test_indexed_search_lands_where_searchsorted_lands(n, shift):
+    rng = np.random.default_rng(n * 8 + shift)
+    keys = np.sort(rng.integers(0, 2**32, n, dtype=np.uint32))
+    if n > 20:  # runs of equal keys across every bucket boundary
+        S = 1 << shift
+        for b in range(S, n - 2, S):
+            keys[b - 2: b + 3] = keys[b - 2]
+        keys[-3:] = np.uint32(0xFFFFFFFF)  # the lane padding
+        keys = np.sort(keys)
+    h = np.concatenate([_edge_hashes(keys), keys[:: max(1, 1 << shift)],
+                        rng.integers(0, 2**32, 64, dtype=np.uint32)])
+    for side_left in (True, False):
+        want = np.searchsorted(keys, h, side="left" if side_left else "right")
+        assert np.array_equal(indexed_search(keys, h, side_left, shift), want)
+
+
+# ---------------------------------------------------------------------------
+# a NumPy model of B8's ladder counters (csrc/asura_lane.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _draw(lane_id, level, counter) -> int:
+    return int(draw_u32_np(lane_id, level, counter)[0])
+
+
+class ArrayLadder:
+    """A counter per level, indexed by level (B1-B4, B9)."""
+
+    def reset(self, top):
+        self.ctr = [0] * (top + 1)
+
+    def next(self, lane_id, top):
+        level = top
+        while True:
+            h = _draw(lane_id, level, self.ctr[level])
+            self.ctr[level] += 1
+            if level == 0 or h >= 2**31:
+                return level, h
+            level -= 1
+
+
+class TopLadder:
+    """The top K counters by distance from the top, the deeper ones in a
+    lazily zeroed array that keeps stale values from earlier resets."""
+
+    def __init__(self, K):
+        self.K, self.deep = K, [0xDEAD] * 32
+
+    def reset(self, top):
+        self.c, self.fresh = [0] * self.K, top - self.K + 1
+
+    def next(self, lane_id, top):
+        for j in range(self.K):
+            level = top - j
+            h = _draw(lane_id, level, self.c[j])
+            self.c[j] += 1
+            if level == 0 or h >= 2**31:
+                return level, h
+        while True:
+            level -= 1
+            if level < self.fresh:
+                self.deep[level], self.fresh = 0, level
+            h = _draw(lane_id, level, self.deep[level])
+            self.deep[level] += 1
+            if level == 0 or h >= 2**31:
+                return level, h
+
+
+@pytest.mark.parametrize("K", [1, 4, 6])
+def test_top_ladder_draws_what_a_counter_per_level_draws(K):
+    """Draw sequences of one lane over several resets (a B8 lane: level 1,
+    then one level-2 placement per replica) at top levels below, at and
+    above K, with the deep array reused across resets."""
+    rng = np.random.default_rng(K)
+    for lane_id in rng.integers(0, 2**32, 12, dtype=np.uint32):
+        want, got = ArrayLadder(), TopLadder(K)
+        for top in (12, 3, K - 1 if K > 1 else 0, K, 20, 6):
+            want.reset(top)
+            got.reset(top)
+            seq_w = [want.next(int(lane_id), top) for _ in range(40)]
+            seq_g = [got.next(int(lane_id), top) for _ in range(40)]
+            assert seq_g == seq_w
+
+
+def test_parse_ptxas_reads_registers_stack_and_spills():
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113lookup_kernelINS_8ChLookupEEEvT_PKjPix' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113lookup_kernelINS_8ChLookupEEEvT_PKjPix
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z12place_kernelPKjS0_Piiiii' for 'sm_90a'
+ptxas info    : Function properties for _Z12place_kernelPKjS0_Piiiii
+    128 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 40 registers, 388 bytes cmem[0]
+"""
+    got = build.parse_ptxas(log)
+    assert got == {
+        "_ZN12_GLOBAL__N_113lookup_kernelINS_8ChLookupEEEvT_PKjPix":
+            dict(registers=26, stack=0, spill_stores=0, spill_loads=0),
+        "_Z12place_kernelPKjS0_Piiiii":
+            dict(registers=40, stack=128, spill_stores=4, spill_loads=8),
+    }
