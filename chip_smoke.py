@@ -16,7 +16,7 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
 
   1. card name and power limit; build the CUDA kernels from the sources
      in this checkout; registers, stack frame and spill bytes (``-Xptxas
-     -v``) of B5, B6, the fan-out, B8 and B2;
+     -v``) of B5, B6, the fan-out, B8, B2, B3 and B4;
   2. the fused placement kernel against its plain-torch twin on the card,
      exact equality, emit_nodes both ways: 2**20 + 13 ids on both
      clusters, and the forced tail (max_draws 0 and 1);
@@ -32,9 +32,12 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
      (the twins) at the same seed;
   7. the two-version diff kernels (B3, B4) against their twins on the
      card, exact: the 4096-node cluster before and after adding a node of
-     capacity 1.0, before and after removing one, and an add that reuses
-     the freed hole, on 2**20 + 13 ids; a small cluster whose add lifts
-     the top level; a forced tail (max_draws 1); B4 at R = 1, 3, 12;
+     capacity 1.0, before and after removing one, an add that reuses the
+     freed hole, and 1024 nodes joining (top level 12 -> 13) and the same
+     tables swapped (the top goes down), on 2**20 + 13 ids; a small
+     cluster whose add lifts the top level by one (also swapped) and by
+     two; one version as both tables (both rows equal); a forced tail
+     (max_draws 1); B4 at R = 1, 3, 9, 12;
   8. migration main path on the 4096-node cluster: ``MigrationPlanner``
      ``plan_stream`` over 2**24 tracked ids in 16 chunks of 2**20 (add
      event, CUDA events, sync-debug "error"), ``plan`` with and without
@@ -108,7 +111,9 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d), time at
      the bulk size, the twin's time, the least time the card could take
-     for the same work, and for B5 / B6 the time of ``torch.searchsorted``.
+     for the same work (for B3 / B4 one walk of the deeper ladder, with
+     the count of two complete walks beside it), and for B5 / B6 the time
+     of ``torch.searchsorted``.
 
 ``--profile`` also traces 4 serving steps, 4 ``serve_migrating``
 batches on the drained window, 4 serving steps under each baseline, 4
@@ -120,7 +125,8 @@ device busy time per batch, the idle share and the kernels that fill it
 ``--against DIR`` runs no phase: it imports the ``repro_torch`` of the
 checkout in DIR beside this one, builds both, and times every kernel of
 both on the same inputs at the bulk sizes in turns (theirs, ours, ours,
-theirs; outputs must be equal), with both builds' ptxas numbers.
+theirs; outputs must be equal), with both builds' ptxas numbers; B3 and
+B4 on the add, the removal and the 1024-node scale-out (top change).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
@@ -207,6 +213,15 @@ DURABILITY_LAYOUT = (12, 8)  # benchmarks/durability.py FULL: 12 domains x 8 nod
 RAGGED_DOMAINS = 40  # 1 to 128 nodes each
 HIER_ADD_RACK, HIER_GONE_RACK = 7, 40
 DEEP_LEVELS = 4  # phase 10a: levels added on top of a domain ladder
+SCALE_OUT = 1024  # the full-width top-change event: 4096 -> 5120 nodes, top 12 -> 13
+
+
+def scale_out(np, cluster) -> None:
+    """The full-width top-change event: SCALE_OUT nodes join the 4096-node
+    cluster, capacities drawn as its own, in [0.5, 2.0)."""
+    caps = np.random.default_rng(1).uniform(0.5, 2.0, SCALE_OUT)
+    for i, cap in enumerate(caps):
+        cluster.add_node(LADDER_NODES + i, float(cap))
 
 
 def require(cond, msg: str) -> None:
@@ -340,6 +355,8 @@ PTXAS_KERNELS = (
     (f"{FANOUT} wrh", "baselines", r"15replicas_kernelINS_9WrhLookupE"),
     ("hier_replicas", "hierarchy", r"20hier_replicas_kernelI"),
     ("place_replicas", "asura_place", r"21place_replicas_kernelI"),
+    ("diff_nodes", "asura_place", r"17diff_nodes_kernel"),
+    ("diff_replicas", "asura_place", r"20diff_replicas_kernelI"),
 )
 
 
@@ -711,8 +728,12 @@ def run(seed: int, dev, profile: bool = False) -> dict:
             entry["note"] = ("no TPU counterpart: the reference runs this R-way "
                              "fan-out as a jnp loop; times are ch at R=3")
             entry["ms_by_algorithm"] = base["fanout_ms"]
+        if name in diff_work["two_walks"]:
+            entry["bound_two_walks_ms"] = diff_work["two_walks"][name]
         kernels.append(entry)
         lib = "" if entry["library_ms"] is None else f", library {entry['library_ms']:.4f} ms"
+        if "bound_two_walks_ms" in entry:
+            lib += f", two-walk bound {entry['bound_two_walks_ms']:.4f} ms"
         print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
               f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms"
               f"{lib}")
@@ -751,11 +772,22 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
         ("tail max_draws=1 add", caps, AsuraParams(max_draws=1), add),
         ("top change 14 -> 17 segs", [0.75] * 14, AsuraParams(),
          lambda c: c.add_node(14, 3.0)),
+        ("top +2 14 -> 33 segs", [0.75] * 14, AsuraParams(),
+         lambda c: c.add_node(14, 19.0)),
+        (f"scale-out {n} -> {n + SCALE_OUT} nodes", caps, AsuraParams(),
+         lambda c: scale_out(np, c)),
     ]
     print(f"phase 7: diff_nodes_cuda / diff_replicas_cuda vs twins, {ids.shape[0]} ids, exact")
     arts = {}
     for name, cc, params, event in cases:
         arts[name] = (event_artifacts(cc, params, event), params)
+    # the top changes swapped (the top goes down), and one version as both
+    (a, b), _ = arts["top change 14 -> 17 segs"]
+    arts["top down 17 -> 14 segs"] = ((b, a), AsuraParams())
+    (a, b), _ = arts[f"scale-out {n} -> {n + SCALE_OUT} nodes"]
+    arts[f"scale-in {n + SCALE_OUT} -> {n} nodes"] = ((b, a), AsuraParams())
+    (a, _), _ = arts["add"]
+    arts["same version (A = B)"] = ((a, a), AsuraParams())
     # the reused hole: from the removal's table, an add reuses the number
     cluster = make_cluster(caps)
     cluster.remove_node(victim)
@@ -766,23 +798,32 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
     require(new[0] < n, f"the add did not reuse a freed number: {new}")
     arts["reuse hole"] = ((engine._device_artifact_for(v_holes),
                            engine._device_artifact_for(cluster.version)), AsuraParams())
-    (a, b), _ = arts["top change 14 -> 17 segs"]
-    require(a.top_level != b.top_level, "the top-change case kept its top level")
-    print(f"  top levels {a.top_level} -> {b.top_level}; segments "
-          + ", ".join(f"{k}: {x.n_segs}->{y.n_segs}" for k, ((x, y), _) in arts.items()))
+    for name, shift in (("top change 14 -> 17 segs", 1), ("top +2 14 -> 33 segs", 2),
+                        ("top down 17 -> 14 segs", -1),
+                        (f"scale-out {n} -> {n + SCALE_OUT} nodes", 1),
+                        (f"scale-in {n + SCALE_OUT} -> {n} nodes", -1)):
+        (a, b), _ = arts[name]
+        require(b.top_level - a.top_level == shift, f"{name}: top {a.top_level} -> {b.top_level}")
+    print("  segments (top levels) " + ", ".join(
+        f"{k}: {x.n_segs} ({x.top_level}) -> {y.n_segs} ({y.top_level})"
+        for k, ((x, y), _) in arts.items()))
     for name, ((a, b), params) in arts.items():
         kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=params.s_log2,
                   max_draws=params.max_draws)
         tabs = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
                 b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev)
-        hold("diff_nodes", name, ap.diff_nodes_cuda(ids, *tabs, **kw),
-             ref.diff_fused_ref(ids, *tabs, **kw))
+        got = ap.diff_nodes_cuda(ids, *tabs, **kw)
+        hold("diff_nodes", name, got, ref.diff_fused_ref(ids, *tabs, **kw))
+        if a is b:
+            require(torch.equal(got[0], got[1]), f"{name}: the two rows differ")
         rtabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
-        for R in (1, 3, 12):
-            sub = ids if R < 12 else ids[: 1 << 16]
-            hold("diff_replicas", f"{name} R={R}",
-                 ap.diff_replicas_cuda(sub, *rtabs, n_replicas=R, **kw),
+        for R in (1, 3, 9, 12):
+            sub = ids if R < 9 else ids[: 1 << 16]
+            got = ap.diff_replicas_cuda(sub, *rtabs, n_replicas=R, **kw)
+            hold("diff_replicas", f"{name} R={R}", got,
                  ref.diff_replicas_fused_ref(sub, *rtabs, n_replicas=R, **kw))
+            if a is b:
+                require(torch.equal(got[0], got[1]), f"{name} R={R}: the two rows differ")
 
     # times at 2**24 ids on the add event, and the work this data needs
     (a, b), params = arts["add"]
@@ -803,7 +844,11 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
             torch, lambda: ref.diff_fused_ref(bulk, *tabs, **kw), 2))
         out["plain"]["diff_replicas"] = statistics.median(cuda_ms(
             torch, lambda: ref.diff_replicas_fused_ref(bulk, *rtabs, n_replicas=3, **kw), 2))
+        # one walk of the deeper ladder serves both tables: its consulted
+        # levels are at least the larger table's; every draw of each table
+        # is tested (and B4's hits gathered) and each table's tail resolved
         fused_ops, rep_ops, segs = 0, 0, 0
+        levels = {1: [], 3: []}
         for art in (a, b):
             lk = dict(top_level=art.top_level, s_log2=1, max_draws=128, emit_stats=True)
             _, st1 = ap.place_replicas_cuda(bulk, art.len32_dev, art.node_of_dev,
@@ -814,14 +859,22 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
             tail1 = int(st1[ref.DEPTH_BINS].view(torch.int32))
             levels3, draws3 = ladder_work(torch, st3, art.top_level)
             search = (art.n_segs - 1).bit_length()
-            fused_ops += (OPS_PER_LEVEL * (levels1 + tail1) + OPS_PER_DRAW * draws1
-                          + 6 * search * tail1)
-            rep_ops += OPS_PER_LEVEL * levels3 + (OPS_PER_DRAW + 3) * draws3
+            fused_ops += OPS_PER_LEVEL * tail1 + OPS_PER_DRAW * draws1 + 6 * search * tail1
+            rep_ops += (OPS_PER_DRAW + 3) * draws3
+            levels[1].append(levels1)
+            levels[3].append(levels3)
             segs += art.n_segs
             print(f"  work on v{art.version} ({art.n_segs} segs): R=1 {levels1} levels / "
                   f"{draws1} draws / {tail1} tail lanes; R=3 {levels3} levels / {draws3} draws")
-    out["work"]["diff_nodes"] = (4 * BULK_IDS + 2 * 4 * BULK_IDS + 16 * segs, fused_ops)
-    out["work"]["diff_replicas"] = (4 * BULK_IDS + 2 * 4 * 3 * BULK_IDS + 8 * segs, rep_ops)
+    nodes_bytes = 4 * BULK_IDS + 2 * 4 * BULK_IDS + 16 * segs
+    replicas_bytes = 4 * BULK_IDS + 2 * 4 * 3 * BULK_IDS + 8 * segs
+    out["work"]["diff_nodes"] = (nodes_bytes, fused_ops + OPS_PER_LEVEL * max(levels[1]))
+    out["work"]["diff_replicas"] = (replicas_bytes, rep_ops + OPS_PER_LEVEL * max(levels[3]))
+    # the earlier count, two complete walks, so that its ratios still compare
+    out["two_walks"] = {
+        "diff_nodes": bound(nodes_bytes, fused_ops + OPS_PER_LEVEL * sum(levels[1]))[0],
+        "diff_replicas": bound(replicas_bytes, rep_ops + OPS_PER_LEVEL * sum(levels[3]))[0],
+    }
     for k in ("diff_nodes", "diff_replicas"):
         print(f"  {k:15s} median {out['ms'][k]:.4f} ms over {TIMED_CALLS} calls on "
               f"{BULK_IDS} ids (R=3 for replicas), twin {out['plain'][k]:.2f} ms")
@@ -1707,15 +1760,23 @@ def compare(seed: int, dev, tree: Path) -> dict:
     rng = np.random.default_rng(seed)
     caps, huge = rng.uniform(0.5, 2.0, LADDER_NODES), rng.uniform(0.5, 2.0, HUGE_NODES)
     bulk = torch.from_numpy(rng.integers(0, 2**32, BULK_IDS, dtype=np.uint32)).to(dev)
-    cluster = make_cluster(caps)
-    engine = PlacementEngine(cluster, device=dev)
-    engine.artifact()
-    v0 = cluster.version
-    a = engine._device_artifact_for(v0)
-    cluster.add_node(LADDER_NODES, 1.0)
-    b = engine._device_artifact_for(cluster.version)
+    def event(change):
+        """(A, B) device artifacts of the 4096-node cluster before and
+        after ``change(cluster)``."""
+        cluster = make_cluster(caps)
+        engine = PlacementEngine(cluster, device=dev)
+        engine.artifact()
+        v0 = cluster.version
+        change(cluster)
+        return engine._device_artifact_for(v0), engine._device_artifact_for(cluster.version)
+
+    events = {
+        "add": event(lambda c: c.add_node(LADDER_NODES, 1.0)),
+        "remove": event(lambda c: c.remove_node(LADDER_NODES // 2)),
+        "top change": event(lambda c: scale_out(np, c)),
+    }
+    a, _ = events["add"]
     flat = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev)
-    dkw = dict(top_a=a.top_level, top_b=b.top_level)
     base = {alg: PlacementEngine(make_cluster(caps), device=dev, algorithm=alg)
             ._device_artifact() for alg in BASELINES}
     topo = hier_topologies(np, caps, seed, huge)
@@ -1735,11 +1796,6 @@ def compare(seed: int, dev, tree: Path) -> dict:
         ("place_replicas R=3", "asura_place", "place_replicas_cuda",
          (bulk, a.len32_dev, a.node_of_dev), dict(top_level=a.top_level, n_replicas=3,
                                                   emit_nodes=True)),
-        ("diff_nodes (add)", "asura_place", "diff_nodes_cuda",
-         (bulk, *flat, b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev), dkw),
-        ("diff_replicas R=3 (add)", "asura_place", "diff_replicas_cuda",
-         (bulk, a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev),
-         dict(dkw, n_replicas=3)),
         ("place", "asura_place", "place_cuda", (bulk, a.len32_dev),
          dict(top_level=a.top_level)),
         ("ch_place", "baselines", "ch_place_cuda", (bulk, base["ch"].keys_dev,
@@ -1749,6 +1805,14 @@ def compare(seed: int, dev, tree: Path) -> dict:
         ("wrh_place (2**20 ids)", "baselines", "wrh_place_cuda",
          (wrh_ids, base["wrh"].keys_dev, base["wrh"].vals_dev), {}),
     ]
+    for ev, (ea, eb) in events.items():
+        dkw = dict(top_a=ea.top_level, top_b=eb.top_level)
+        cases.append((f"diff_nodes ({ev})", "asura_place", "diff_nodes_cuda",
+                      (bulk, ea.len32_dev, ea.cum_hi_dev, ea.cum_lo_dev, ea.node_of_dev,
+                       eb.len32_dev, eb.cum_hi_dev, eb.cum_lo_dev, eb.node_of_dev), dkw))
+        cases.append((f"diff_replicas R=3 ({ev})", "asura_place", "diff_replicas_cuda",
+                      (bulk, ea.len32_dev, ea.node_of_dev, eb.len32_dev, eb.node_of_dev),
+                      dict(dkw, n_replicas=3)))
     for alg in BASELINES:
         cases.append((f"{FANOUT} {alg} R=3" + (" (2**20 ids)" if alg == "wrh" else ""),
                       "baselines", "baseline_replicas_cuda",

@@ -50,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     lib.asura_place_replicas.restype = i32
     lib.asura_diff_nodes.argtypes = [p] * 10 + [i64] + [i32] * 6 + [p]
     lib.asura_diff_nodes.restype = i32
-    lib.asura_diff_replicas.argtypes = [p] * 8 + [i64] + [i32] * 7 + [p]
+    lib.asura_diff_replicas.argtypes = [p] * 6 + [i64] + [i32] * 7 + [p]
     lib.asura_diff_replicas.restype = i32
     return lib
 
@@ -316,6 +316,8 @@ def diff_replicas_cuda(
     R = int(n_replicas)
     if R < 1:
         raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if max_draws * R >= 2**31:  # the kernel counts draws in int32, as the reference does
+        raise ValueError(f"max_draws * n_replicas must be < 2**31, got {max_draws} * {R}")
     if dev.type == "cpu":
         return ref.diff_replicas_fused_ref(
             ids, len32_a, node_a, len32_b, node_b, top_a=top_a, top_b=top_b,
@@ -327,16 +329,9 @@ def diff_replicas_cuda(
     out = torch.empty((2, n, R), dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    # R > 8: each lane keeps its picks in its own rows of these (both
-    # passes reuse them)
-    scratch = (
-        [torch.empty((n, R), dtype=torch.int32, device=dev) for _ in range(2)]
-        if R > 8 else [None, None]
-    )
     rc = _lib().asura_diff_replicas(
         ids.data_ptr(), len32_a.data_ptr(), node_a.data_ptr(),
         len32_b.data_ptr(), node_b.data_ptr(), out.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in scratch),
         n, n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws, R, _stream(dev),
     )
     _raise_on(rc, "asura_diff_replicas")

@@ -5,10 +5,12 @@
 // includes it.
 //
 // The bodies take the ladder's counters as a policy: ArrayLadder, the
-// caller's per-lane array indexed by level (B1-B4 and B9: a run-time
+// caller's per-lane array indexed by level (B1, B2 and B9: a run-time
 // index, so the array lives in local memory, a 128-byte stack frame, read
-// and written on every consulted level), or TopLadder<K> (B8): the top K
-// levels' counters in registers, the deeper ones in local memory.
+// and written on every consulted level), or TopLadder<K> (B8, and the
+// diff kernels B3 / B4, whose bodies walk both tables' ladders at once):
+// the top K levels' counters in registers, the deeper ones in local
+// memory.
 
 #pragma once
 
@@ -75,10 +77,10 @@ struct TopLadder {
     fresh = top_level - K + 1;
   }
 
-  __device__ __forceinline__ void next(uint32_t id, int top_level, int s_log2,
-                                       uint32_t& k, uint32_t& f) {
+  // One ASURA number: descend from top_level while the draw's MSB is
+  // clear -> the level it stopped at, its draw in ``h``.
+  __device__ __forceinline__ int walk(uint32_t id, int top_level, uint32_t& h) {
     int level = top_level;
-    uint32_t h = 0u;
     bool done = false;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
@@ -101,6 +103,13 @@ struct TopLadder {
         deep[level] += 1u;
       } while (level > 0 && h < 0x80000000u);
     }
+    return level;
+  }
+
+  __device__ __forceinline__ void next(uint32_t id, int top_level, int s_log2,
+                                       uint32_t& k, uint32_t& f) {
+    uint32_t h;
+    const int level = walk(id, top_level, h);
     split(h, level, s_log2, k, f);
   }
 };
@@ -162,7 +171,7 @@ __device__ __forceinline__ int32_t place_lane_with(
   }
 }
 
-// The array form, for B1, B3 and B9: ``ctr`` holds >= top_level + 1 entries.
+// The array form, for B1 and B9: ``ctr`` holds >= top_level + 1 entries.
 template <bool kTotal>
 __device__ __forceinline__ int32_t place_lane(
     uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
@@ -232,8 +241,8 @@ __device__ __forceinline__ int place_replicas_lane_with(
   return found;
 }
 
-// The array form, for B2 and B4: ``ctr`` holds >= top_level + 1 entries, left
-// holding the per-level draw counts.
+// The array form, for B2: ``ctr`` holds >= top_level + 1 entries, left
+// holding the per-level draw counts (its stats vector reads them).
 template <int RMAX>
 __device__ __forceinline__ int place_replicas_lane(
     uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
@@ -244,6 +253,153 @@ __device__ __forceinline__ int place_replicas_lane(
   return place_replicas_lane_with<RMAX>(id, ladder, len32, node_of, n_segs, top_level,
                                         s_log2, max_draws, R, emit_nodes, row, gseg,
                                         gnode);
+}
+
+// One table of a two-version diff: its length table, u64 length-cumsum
+// halves (B3's tail; null for B4), seg->node map, length and top level.
+struct DiffTable {
+  const uint32_t* len32;
+  const uint32_t* cum_hi;
+  const uint32_t* cum_lo;
+  const int32_t* node_of;
+  int n_segs;
+  int top_level;
+};
+
+// B3's per-lane body: B1's total placement, nodes out, against both
+// tables of a diff in ONE walk of the deeper ladder.  A draw depends only
+// on (id, level, counter[level]) and both tables' walks start from zeroed
+// counters, so of the numbers drawn from the higher top (table ``hi``),
+// those that reach a level <= the lower top (table ``lo``) are lo's own
+// numbers, in order, and those that stop above it are hi's alone.  Each
+// table tests and counts only its own numbers against max_draws and keeps
+// its own hit, tail and gather, so both nodes are bit for bit what two
+// walks give.  Equal tops (a deployment's add or removal) make it one walk
+// with two hit tests.  Every number starts at hi's top, also once hi is
+// done: resuming at lo's top then is exact too (the counters at and below
+// it are lo's own), but the start it has to select per number cost more
+// than the draws it saves (PERF.md section 6).
+template <class Ladder>
+__device__ __forceinline__ void diff_nodes_lane_with(
+    uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
+    int s_log2, int max_draws, int32_t& node_hi, int32_t& node_lo) {
+  ladder.reset(hi.top_level);
+  int seg_hi = -1, seg_lo = -1;
+  int left_hi = max_draws, left_lo = max_draws;  // numbers each may still test
+  while (left_hi > 0 || left_lo > 0) {
+    uint32_t h, k, f;
+    const int level = ladder.walk(id, hi.top_level, h);
+    split(h, level, s_log2, k, f);
+    if (left_hi > 0) {
+      --left_hi;
+      if (hits(k, f, hi.n_segs, hi.len32)) {
+        seg_hi = static_cast<int>(k);
+        left_hi = 0;
+      }
+    }
+    if (left_lo > 0 && level <= lo.top_level) {
+      --left_lo;
+      if (hits(k, f, lo.n_segs, lo.len32)) {
+        seg_lo = static_cast<int>(k);
+        left_lo = 0;
+      }
+    }
+  }
+  if (seg_hi < 0) seg_hi = resolve_tail(id, hi.top_level, hi.n_segs, hi.cum_hi, hi.cum_lo);
+  if (seg_lo < 0) seg_lo = resolve_tail(id, lo.top_level, lo.n_segs, lo.cum_hi, lo.cum_lo);
+  node_hi = __ldg(hi.node_of + seg_hi);
+  node_lo = __ldg(lo.node_of + seg_lo);
+}
+
+// The distinct nodes a lane has picked, in pick order, for its R-entry
+// output row.  RMAX > 0: in registers (R <= RMAX), written to the row at
+// the end (the row is not kept in the set: holding it cost B4 2 % on the
+// card, PERF.md section 6).
+template <int RMAX>
+struct NodeSet {
+  int32_t node[RMAX];
+  int found;
+
+  __device__ __forceinline__ explicit NodeSet(int32_t*) : found(0) {}
+
+  // Adds ``n`` unless it is held already -> the number held.
+  __device__ __forceinline__ int add(int32_t n) {
+    bool dup = false;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) dup |= (r < found) && (node[r] == n);
+    if (!dup) {
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r == found) node[r] = n;
+      }
+      ++found;
+    }
+    return found;
+  }
+
+  // The row's R entries, -1 for unfilled slots.
+  __device__ __forceinline__ void write(int32_t* row, int R) const {
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      if (r < R) row[r] = r < found ? node[r] : -1;
+    }
+  }
+};
+
+// Any R: the picks live in the output row itself, which the dedup scans.
+template <>
+struct NodeSet<0> {
+  int32_t* row;
+  int found;
+
+  __device__ __forceinline__ explicit NodeSet(int32_t* out_row) : row(out_row), found(0) {}
+
+  __device__ __forceinline__ int add(int32_t n) {
+    for (int r = 0; r < found; ++r) {
+      if (row[r] == n) return found;
+    }
+    row[found] = n;
+    return ++found;
+  }
+
+  __device__ __forceinline__ void write(int32_t*, int R) const {
+    for (int r = found; r < R; ++r) row[r] = -1;
+  }
+};
+
+// B4's per-lane body: B2's first R hits on distinct nodes, nodes out,
+// against both tables in one walk of the deeper ladder, as B3's body
+// above: each table tests and counts only its own numbers, against
+// max_draws * max(1, R), and keeps its own node set; the lane stops when
+// each table holds R nodes or reached its cap.  ``row_hi`` / ``row_lo``
+// are the tables' R-entry output rows, -1 for unfilled slots.
+template <int RMAX, class Ladder>
+__device__ __forceinline__ void diff_replicas_lane_with(
+    uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
+    int s_log2, int max_draws, int R, int32_t* row_hi, int32_t* row_lo) {
+  ladder.reset(hi.top_level);
+  NodeSet<RMAX> set_hi(row_hi), set_lo(row_lo);
+  const int cap = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
+  int left_hi = cap, left_lo = cap;
+  while (left_hi > 0 || left_lo > 0) {
+    uint32_t h, k, f;
+    const int level = ladder.walk(id, hi.top_level, h);
+    split(h, level, s_log2, k, f);
+    if (left_hi > 0) {
+      --left_hi;
+      if (hits(k, f, hi.n_segs, hi.len32) && set_hi.add(__ldg(hi.node_of + k)) == R) {
+        left_hi = 0;
+      }
+    }
+    if (left_lo > 0 && level <= lo.top_level) {
+      --left_lo;
+      if (hits(k, f, lo.n_segs, lo.len32) && set_lo.add(__ldg(lo.node_of + k)) == R) {
+        left_lo = 0;
+      }
+    }
+  }
+  set_hi.write(row_hi, R);
+  set_lo.write(row_lo, R);
 }
 
 }  // namespace port_lane

@@ -16,19 +16,21 @@
 //       optional node output and the [depth_hist..., nonconverged] stats
 //       vector the serving path folds into its metrics slab;
 //   * asura_diff_nodes     <- diff_nodes_pallas (body _diff_kernel): B1's
-//       body run twice per id, against table A (version v) and then, with
-//       fresh counters, against table B (v+1) -> (2, n) nodes, the
-//       migration planner's (src, dst);
+//       total placement against table A (version v) and table B (v+1) ->
+//       (2, n) nodes, the migration planner's (src, dst);
 //   * asura_diff_replicas  <- diff_replicas_pallas (body
-//       _diff_replicas_kernel): B2's body run the same way -> (2, n, R)
-//       replica-node sets (the per-slot alignment is plain torch outside).
+//       _diff_replicas_kernel): B2's replica placement the same way ->
+//       (2, n, R) replica-node sets (the per-slot alignment is plain
+//       torch outside).
 //
 // The two tables of a diff differ in length (an add appends segments, a
-// removal leaves length-0 holes) and may differ in top level, so each
-// pass takes its own n_segs and top level and the per-lane counter array
-// is sized for max(top_a, top_b) + 1 <= 31 levels.  A diff kernel is
-// bound exactly as its single-table kernel, with twice the work per id
-// (one id read, two results written).
+// removal leaves length-0 holes) and may differ in top level.  The
+// reference places each id twice, with fresh counters per table; here
+// one walk of the deeper ladder serves both tables (diff_nodes_lane_with,
+// diff_replicas_lane_with in asura_lane.cuh: the numbers of the shallower
+// table are the deeper walk's numbers that reach its top), so a diff
+// hashes one walk of the deeper ladder, until both tables are done.  Its
+// counters keep the top few levels in registers.
 //
 // What bounds it on an H100.  Per id the kernel moves 8 bytes (a u32 id
 // in, an i32 out; 4 * R out for replicas) plus table gathers that hit
@@ -47,11 +49,12 @@
 // the tile hits, and every ladder level until the deepest lane exits.
 // Here each thread runs its own lane's loop and stops at its own hit, so
 // the work is the data's own (lanes' draws depend only on
-// (id, level, counter[level]), so the results are unchanged).  The
-// per-level counters live in a thread-local array (top_level + 1 <= 31
-// entries); tables are read through the read-only data cache.  R <= 8
-// keeps the picked (segment, node) pairs in registers; larger R keeps
-// them in the lane's own row of the output buffers, so R has no cap.
+// (id, level, counter[level]), so the results are unchanged).  B1, B2
+// and B9 keep the per-level counters in a thread-local array (top_level
+// + 1 <= 31 entries), B3 and B4 the top levels' in registers; tables are
+// read through the read-only data cache.  R <= 8 keeps the picks in
+// registers; larger R keeps them in the lane's own rows of scratch
+// buffers (B2) or of the output (B4), so R has no cap.
 // Stats are derived per lane from its counters after the loop (the
 // number of draws of depth >= d is counter[top - d + 1]), summed in a
 // per-block shared histogram and flushed with one u32 atomicAdd per bin.
@@ -63,12 +66,17 @@
 
 namespace {
 
+using port_lane::DiffTable;
 using port_lane::kMaxLevels;
 using port_lane::place_lane;
 using port_lane::place_replicas_lane;
 
 constexpr int kDepthBins = 34;
 constexpr int kThreads = 256;
+// Ladder levels whose counters B3 / B4 keep in registers, each the
+// fastest of K = 3 .. 8 on the card (PERF.md section 6)
+constexpr int kDiffNodesTopCounters = 4;
+constexpr int kDiffReplicasTopCounters = 6;
 
 // B9: the bounded loop alone, -1 for a non-converged lane.
 __global__ void __launch_bounds__(kThreads)
@@ -97,29 +105,19 @@ place_fused_kernel(const uint32_t* __restrict__ ids,
                             top_level, s_log2, max_draws, emit_nodes);
 }
 
-// B3: B1's body against table A (version v), then with fresh counters
-// against table B (v+1); out is (2, n) int32 nodes, row 0 under A.
+// B3: each id's node under table ``hi`` (the higher top) and ``lo`` in
+// one walk; out_hi / out_lo are the rows of the (2, n) int32 output.
 __global__ void __launch_bounds__(kThreads)
-diff_nodes_kernel(const uint32_t* __restrict__ ids,
-                  const uint32_t* __restrict__ len32_a,
-                  const uint32_t* __restrict__ cum_hi_a,
-                  const uint32_t* __restrict__ cum_lo_a,
-                  const int32_t* __restrict__ node_a,
-                  const uint32_t* __restrict__ len32_b,
-                  const uint32_t* __restrict__ cum_hi_b,
-                  const uint32_t* __restrict__ cum_lo_b,
-                  const int32_t* __restrict__ node_b,
-                  int32_t* __restrict__ out, int64_t n, int n_segs_a,
-                  int n_segs_b, int top_a, int top_b, int s_log2,
-                  int max_draws) {
+diff_nodes_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable lo,
+                  int32_t* __restrict__ out_hi, int32_t* __restrict__ out_lo,
+                  int64_t n, int s_log2, int max_draws) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const uint32_t id = ids[i];
-  uint32_t ctr[kMaxLevels];  // max(top_a, top_b) + 1 <= 31 entries used
-  out[i] = place_lane<true>(id, ctr, len32_a, cum_hi_a, cum_lo_a, node_a,
-                            n_segs_a, top_a, s_log2, max_draws, 1);
-  out[n + i] = place_lane<true>(id, ctr, len32_b, cum_hi_b, cum_lo_b, node_b,
-                                n_segs_b, top_b, s_log2, max_draws, 1);
+  uint32_t deep[kMaxLevels];  // the counters below the register ones
+  port_lane::TopLadder<kDiffNodesTopCounters> ladder;
+  ladder.deep = deep;
+  port_lane::diff_nodes_lane_with(ids[i], ladder, hi, lo, s_log2, max_draws,
+                                  out_hi[i], out_lo[i]);
 }
 
 template <int RMAX>
@@ -161,31 +159,22 @@ place_replicas_kernel(const uint32_t* __restrict__ ids,
   }
 }
 
-// B4: B2's body against table A, then with fresh counters against table
-// B; out is (2, n, R) int32 replica-node sets, row-major.  For R > 8 the
-// two passes share the lane's scratch rows (the first pass has written
-// its row of ``out`` before the second starts).
+// B4: each id's R-replica node set under ``hi`` and ``lo`` in one walk;
+// out_hi / out_lo are the (n, R) halves of the (2, n, R) int32 output.
+// RMAX > 0 keeps both sets in registers; RMAX == 0 (R > 8) in the lane's
+// own output rows.
 template <int RMAX>
 __global__ void __launch_bounds__(kThreads)
-diff_replicas_kernel(const uint32_t* __restrict__ ids,
-                     const uint32_t* __restrict__ len32_a,
-                     const int32_t* __restrict__ node_a,
-                     const uint32_t* __restrict__ len32_b,
-                     const int32_t* __restrict__ node_b,
-                     int32_t* __restrict__ out, int32_t* __restrict__ segs_buf,
-                     int32_t* __restrict__ nodes_buf, int64_t n, int n_segs_a,
-                     int n_segs_b, int top_a, int top_b, int s_log2,
-                     int max_draws, int R) {
+diff_replicas_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable lo,
+                     int32_t* __restrict__ out_hi, int32_t* __restrict__ out_lo,
+                     int64_t n, int s_log2, int max_draws, int R) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const uint32_t id = ids[i];
-  uint32_t ctr[kMaxLevels];  // max(top_a, top_b) + 1 <= 31 entries used
-  int32_t* gseg = RMAX == 0 ? segs_buf + i * R : nullptr;
-  int32_t* gnode = RMAX == 0 ? nodes_buf + i * R : nullptr;
-  place_replicas_lane<RMAX>(id, ctr, len32_a, node_a, n_segs_a, top_a, s_log2,
-                            max_draws, R, 1, out + i * R, gseg, gnode);
-  place_replicas_lane<RMAX>(id, ctr, len32_b, node_b, n_segs_b, top_b, s_log2,
-                            max_draws, R, 1, out + (n + i) * R, gseg, gnode);
+  uint32_t deep[kMaxLevels];
+  port_lane::TopLadder<kDiffReplicasTopCounters> ladder;
+  ladder.deep = deep;
+  port_lane::diff_replicas_lane_with<RMAX>(ids[i], ladder, hi, lo, s_log2, max_draws,
+                                           R, out_hi + i * R, out_lo + i * R);
 }
 
 template <int RMAX>
@@ -258,6 +247,16 @@ extern "C" int asura_place_replicas(const void* ids, const void* len32,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The diff's two tables, the one with the higher top (A on a tie) first,
+// and whether that is A.
+static bool order_tables(const DiffTable& a, const DiffTable& b, DiffTable& hi,
+                  DiffTable& lo) {
+  const bool a_hi = a.top_level >= b.top_level;
+  hi = a_hi ? a : b;
+  lo = a_hi ? b : a;
+  return a_hi;
+}
+
 extern "C" int asura_diff_nodes(const void* ids, const void* len32_a,
                                 const void* cum_hi_a, const void* cum_lo_a,
                                 const void* node_a, const void* len32_b,
@@ -265,43 +264,54 @@ extern "C" int asura_diff_nodes(const void* ids, const void* len32_a,
                                 const void* node_b, void* out, int64_t n,
                                 int n_segs_a, int n_segs_b, int top_a, int top_b,
                                 int s_log2, int max_draws, void* stream) {
+  const DiffTable a{static_cast<const uint32_t*>(len32_a),
+                    static_cast<const uint32_t*>(cum_hi_a),
+                    static_cast<const uint32_t*>(cum_lo_a),
+                    static_cast<const int32_t*>(node_a), n_segs_a, top_a};
+  const DiffTable b{static_cast<const uint32_t*>(len32_b),
+                    static_cast<const uint32_t*>(cum_hi_b),
+                    static_cast<const uint32_t*>(cum_lo_b),
+                    static_cast<const int32_t*>(node_b), n_segs_b, top_b};
+  DiffTable hi, lo;
+  auto* row_a = static_cast<int32_t*>(out);
+  auto* row_b = row_a + n;
+  const bool a_hi = order_tables(a, b, hi, lo);
   diff_nodes_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ids), static_cast<const uint32_t*>(len32_a),
-      static_cast<const uint32_t*>(cum_hi_a), static_cast<const uint32_t*>(cum_lo_a),
-      static_cast<const int32_t*>(node_a), static_cast<const uint32_t*>(len32_b),
-      static_cast<const uint32_t*>(cum_hi_b), static_cast<const uint32_t*>(cum_lo_b),
-      static_cast<const int32_t*>(node_b), static_cast<int32_t*>(out), n,
-      n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws);
+      static_cast<const uint32_t*>(ids), hi, lo, a_hi ? row_a : row_b,
+      a_hi ? row_b : row_a, n, s_log2, max_draws);
   return static_cast<int>(cudaGetLastError());
 }
 
-// segs_buf / nodes_buf: (n, R) int32 scratch, used (and required) only
-// when R > 8.
 extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
                                    const void* node_a, const void* len32_b,
-                                   const void* node_b, void* out, void* segs_buf,
-                                   void* nodes_buf, int64_t n, int n_segs_a,
-                                   int n_segs_b, int top_a, int top_b,
-                                   int s_log2, int max_draws, int R,
+                                   const void* node_b, void* out, int64_t n,
+                                   int n_segs_a, int n_segs_b, int top_a,
+                                   int top_b, int s_log2, int max_draws, int R,
                                    void* stream) {
   const dim3 grid = grid_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* i = static_cast<const uint32_t*>(ids);
-  auto* la = static_cast<const uint32_t*>(len32_a);
-  auto* na = static_cast<const int32_t*>(node_a);
-  auto* lb = static_cast<const uint32_t*>(len32_b);
-  auto* nb = static_cast<const int32_t*>(node_b);
-  auto* o = static_cast<int32_t*>(out);
-  auto* sb = static_cast<int32_t*>(segs_buf);
-  auto* gb = static_cast<int32_t*>(nodes_buf);
+  const DiffTable a{static_cast<const uint32_t*>(len32_a), nullptr, nullptr,
+                    static_cast<const int32_t*>(node_a), n_segs_a, top_a};
+  const DiffTable b{static_cast<const uint32_t*>(len32_b), nullptr, nullptr,
+                    static_cast<const int32_t*>(node_b), n_segs_b, top_b};
+  DiffTable hi, lo;
+  auto* row_a = static_cast<int32_t*>(out);
+  auto* row_b = row_a + n * R;
+  const bool a_hi = order_tables(a, b, hi, lo);
+  int32_t* o_hi = a_hi ? row_a : row_b;
+  int32_t* o_lo = a_hi ? row_b : row_a;
 #define ASURA_DIFF_REPLICAS(RM)                                                \
-  diff_replicas_kernel<RM><<<grid, kThreads, 0, s>>>(                          \
-      i, la, na, lb, nb, o, sb, gb, n, n_segs_a, n_segs_b, top_a, top_b,       \
-      s_log2, max_draws, R)
+  diff_replicas_kernel<RM><<<grid, kThreads, 0, s>>>(i, hi, lo, o_hi, o_lo, n, \
+                                                     s_log2, max_draws, R)
+  // R = 3, the deployments' replication, gets sets of its own size: 7 %
+  // faster than RMAX = 4 on the card (PERF.md section 6)
   if (R <= 1) {
     ASURA_DIFF_REPLICAS(1);
   } else if (R <= 2) {
     ASURA_DIFF_REPLICAS(2);
+  } else if (R <= 3) {
+    ASURA_DIFF_REPLICAS(3);
   } else if (R <= 4) {
     ASURA_DIFF_REPLICAS(4);
   } else if (R <= 8) {

@@ -139,13 +139,16 @@ from repro_torch.kernels.asura_place import diff_nodes_cuda, diff_replicas_cuda 
 from repro_torch.migrate import MigrationPlanner  # noqa: E402
 from repro_torch.serve import Router  # noqa: E402
 
-DIFF_CASES = ("add", "holes", "reuse", "top")
+DIFF_CASES = ("add", "holes", "reuse", "top", "top+2", "top down", "same")
+TOP_SHIFT = {"top": 1, "top+2": 2, "top down": -1}
 
 
 def _diff_event(case, device, params=AsuraParams()):
     """(engine, v0, v1) around one membership event on a 14-node cluster
     (one fractional segment per node, top level 3): an appended segment,
-    a length-0 hole, a reused hole, or an add that lifts the top level."""
+    a length-0 hole, a reused hole, an add that lifts the top level by one
+    or by two, the first of these with the versions swapped (the top goes
+    down), or no event (both tables one version)."""
     caps = np.random.default_rng(7).uniform(0.5, 0.99, 14)
     cluster = make_cluster(caps, params, device=device)
     if case == "reuse":
@@ -155,8 +158,11 @@ def _diff_event(case, device, params=AsuraParams()):
     v0 = cluster.version
     if case == "holes":
         cluster.remove_node(5)
-    else:
-        cluster.add_node(14, {"add": 1.0, "reuse": 0.7, "top": 3.0}[case])
+    elif case != "same":
+        cap = {"add": 1.0, "reuse": 0.7, "top": 3.0, "top+2": 19.0, "top down": 3.0}[case]
+        cluster.add_node(14, cap)
+    if case == "top down":
+        return eng, cluster.version, v0
     return eng, v0, cluster.version
 
 
@@ -164,7 +170,7 @@ def _diff_event(case, device, params=AsuraParams()):
 def test_diff_nodes_kernel_matches_twin(cuda_device, case, max_draws):
     eng, v0, v1 = _diff_event(case, cuda_device, AsuraParams(max_draws=max_draws))
     a, b = eng._device_artifact_for(v0), eng._device_artifact_for(v1)
-    assert (a.top_level != b.top_level) == (case == "top")
+    assert b.top_level - a.top_level == TOP_SHIFT.get(case, 0)
     tabs = (a.len32_dev, a.cum_hi_dev, a.cum_lo_dev, a.node_of_dev,
             b.len32_dev, b.cum_hi_dev, b.cum_lo_dev, b.node_of_dev)
     kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=1, max_draws=max_draws)
@@ -175,7 +181,7 @@ def test_diff_nodes_kernel_matches_twin(cuda_device, case, max_draws):
     assert torch.equal(got, ref.diff_fused_ref(ids, *tabs, **kw))
 
 
-@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("R", [1, 3, 9, 12])
 @pytest.mark.parametrize("case", DIFF_CASES)
 def test_diff_replicas_kernel_matches_twin(cuda_device, case, R):
     eng, v0, v1 = _diff_event(case, cuda_device)

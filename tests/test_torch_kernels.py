@@ -462,6 +462,78 @@ def test_diff_replicas_wrapper_matches_pallas(case, R):
     assert torch.equal(got[2], sets[1])
 
 
+# ---------------------------------------------------------------------------
+# the diff kernels' one walk for both tables (B3, B4), modelled in NumPy
+# (tests/test_torch_launch.py), against the reference's two walks
+# ---------------------------------------------------------------------------
+
+from repro.kernels.asura_place import diff_nodes_pallas  # noqa: E402
+from test_torch_launch import diff_lane  # noqa: E402
+
+# (case, tables swapped, max_draws): the four events, the top-change
+# event with B before A (the top goes down), and the add's forced tail
+JOINT_CASES = [(c, False, 128) for c in DIFF_CASES] + [("top", True, 128), ("add", False, 1)]
+JOINT_IDS = 256
+
+
+def _joint_tables(case, swap, max_draws):
+    """(reference engine artifacts A, B with device tables; their
+    (len32, node_of, top) as the model takes them)."""
+    je, te, v0, v1 = _diff_event(case, AsuraParams(max_draws=max_draws))
+    vs = (v1, v0) if swap else (v0, v1)
+    arts = [je._device_artifact_for(v) for v in vs]
+    tables = [(np.asarray(x.len32_dev), np.asarray(x.node_of_dev), te.artifact_for(v).top_level)
+              for x, v in zip(arts, vs)]
+    if case == "top":
+        assert tables[0][2] - tables[1][2] == (1 if swap else -1)
+    return arts, tables
+
+
+@pytest.mark.parametrize("case,swap,max_draws", JOINT_CASES)
+def test_joint_walk_model_matches_diff_nodes_pallas(case, swap, max_draws):
+    """The model of B3's one walk, with each table's tail and gather, gives
+    the reference's ``diff_nodes_pallas`` rows (interpret mode)."""
+    (ja, jb), tables = _joint_tables(case, swap, max_draws)
+    ids = _ids(JOINT_IDS, seed=len(case) + 2 * swap + max_draws)
+    want = np.asarray(diff_nodes_pallas(
+        jnp.asarray(ids), ja.len32_dev, ja.cum_hi_dev, ja.cum_lo_dev, ja.node_of_dev,
+        jb.len32_dev, jb.cum_hi_dev, jb.cum_lo_dev, jb.node_of_dev,
+        top_a=tables[0][2], top_b=tables[1][2], max_draws=max_draws,
+        rows_per_block=JOINT_IDS // 128,
+    ))
+    segs = np.array([diff_lane(int(i), tables, max_draws=max_draws) for i in ids]).T
+    if max_draws == 1:
+        assert (segs < 0).any()
+    for t, (len32, node_of, top) in enumerate(tables):
+        assert np.array_equal(node_of[resolve_tail_np(ids, segs[t], len32, top)], want[t])
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("case,swap,max_draws", JOINT_CASES[:5])
+def test_joint_walk_model_matches_diff_replicas_pallas(case, swap, max_draws, R):
+    """The model of B4's one walk gives the reference's
+    ``diff_replicas_pallas`` node sets (interpret mode)."""
+    (ja, jb), tables = _joint_tables(case, swap, max_draws)
+    ids = _ids(JOINT_IDS, seed=R + len(case) + 2 * swap)
+    want = np.asarray(diff_replicas_pallas(
+        jnp.asarray(ids), ja.len32_dev, ja.node_of_dev, jb.len32_dev, jb.node_of_dev,
+        top_a=tables[0][2], top_b=tables[1][2], n_replicas=R,
+        rows_per_block=JOINT_IDS // 128,
+    ))
+    got = np.array([diff_lane(int(i), tables, max_draws=max_draws, R=R) for i in ids])
+    assert np.array_equal(got.transpose(1, 0, 2), want)
+
+
+def test_diff_replicas_wrapper_rejects_a_draw_cap_past_int32():
+    """B4 counts each table's draws in int32, as the reference's loop does."""
+    _, te, v0, v1 = _diff_event("add")
+    a, b = te._device_artifact_for(v0), te._device_artifact_for(v1)
+    with pytest.raises(ValueError):
+        diff_replicas_cuda(_t(_ids(16)), a.len32_dev, a.node_of_dev, b.len32_dev,
+                           b.node_of_dev, top_a=a.top_level, top_b=b.top_level,
+                           max_draws=2**30, n_replicas=2)
+
+
 def test_align_replica_sets_matches_reference():
     """The port's host spec and device twin of the per-slot alignment equal
     the reference's, on sets with shared, moved and reordered members."""

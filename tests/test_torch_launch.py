@@ -5,17 +5,18 @@ plan the CH / RS launcher computes: the index stride, its shared memory
 and the persistent grid.  The card holds the launcher to these functions
 (``test_torch_gpu.py``); here they are held to the sizes of the
 deployments ``chip_smoke.py`` runs and to their own definitions.  NumPy
-models of the two algorithms the kernels changed check, lane by lane,
+models of the algorithms the kernels changed check, lane by lane,
 that counting one bucket after the sampled index lands where
 ``searchsorted`` lands (duplicates across bucket boundaries and padding
-included), and that B8's ladder with its top K counters in registers
-draws exactly what a counter per level draws.
+included), that the ladder with its top K counters in registers (B3, B4,
+B8) draws exactly what a counter per level draws, and that the diff
+kernels' one walk for both tables (B3, B4) gives what two walks give.
 """
 
 import numpy as np
 import pytest
 
-from repro_torch.core.rng import draw_u32_np
+from repro_torch.core.rng import draw_u32_np, draw_u32_scalar
 from repro_torch.kernels import build, launch
 
 BUDGET_KEYS = launch.INDEX_BUDGET // launch.KEY_BYTES
@@ -133,12 +134,21 @@ def test_indexed_search_lands_where_searchsorted_lands(n, shift):
 
 
 # ---------------------------------------------------------------------------
-# a NumPy model of B8's ladder counters (csrc/asura_lane.cuh)
+# a NumPy model of the ladder counters (csrc/asura_lane.cuh)
 # ---------------------------------------------------------------------------
 
 
 def _draw(lane_id, level, counter) -> int:
-    return int(draw_u32_np(lane_id, level, counter)[0])
+    return draw_u32_scalar(int(lane_id), level, counter)
+
+
+def test_model_draws_are_the_generator():
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 2**32, 200, dtype=np.uint32)
+    levels = rng.integers(0, 32, 200)
+    ctrs = rng.integers(0, 2**32, 200, dtype=np.uint32)
+    want = draw_u32_np(ids, levels, ctrs)
+    assert [_draw(i, int(lv), int(c)) for i, lv, c in zip(ids, levels, ctrs)] == want.tolist()
 
 
 class ArrayLadder:
@@ -218,3 +228,120 @@ ptxas info    : Used 40 registers, 388 bytes cmem[0]
         "_Z12place_kernelPKjS0_Piiiii":
             dict(registers=40, stack=128, spill_stores=4, spill_loads=8),
     }
+
+
+# ---------------------------------------------------------------------------
+# a NumPy model of the diff kernels' joint walk (B3, B4: diff_nodes_lane_with,
+# diff_replicas_lane_with in csrc/asura_lane.cuh)
+# ---------------------------------------------------------------------------
+
+S_LOG2 = 1
+
+
+def _split(level, h):
+    return h >> (32 - S_LOG2 - level), (h << (S_LOG2 + level)) & 0xFFFFFFFF
+
+
+def _hits(k, f, len32) -> bool:
+    return k < len(len32) and f < int(len32[k])
+
+
+def diff_lane(lane_id, tables, *, max_draws, R=None, K=6):
+    """One lane of B3 (``R`` None: each table's first hit segment, -1 for
+    none; the kernel then resolves a tail and gathers) or of B4 (each
+    table's first R distinct nodes, -1 padded), both tables in one walk of
+    the deeper ladder, every number from its top.  ``tables`` is ((len32,
+    node_of, top) of A, of B); returns [A's result, B's result].  A number
+    is tested against a table only if it reached that table's top; each
+    table counts its own numbers against its cap."""
+    hi, lo = (0, 1) if tables[0][2] >= tables[1][2] else (1, 0)
+    top_hi = tables[hi][2]
+    ladder = TopLadder(K)
+    ladder.reset(top_hi)
+    cap = max_draws if R is None else max_draws * max(1, R)
+    left, picked = [cap, cap], [[], []]
+    while left[hi] > 0 or left[lo] > 0:
+        level, h = ladder.next(lane_id, top_hi)
+        k, f = _split(level, h)
+        for t in (hi, lo):
+            len32, node_of, top = tables[t]
+            if left[t] == 0 or level > top:
+                continue
+            left[t] -= 1
+            if not _hits(k, f, len32):
+                continue
+            if R is None:
+                picked[t], left[t] = [k], 0
+                continue
+            if int(node_of[k]) not in picked[t]:
+                picked[t].append(int(node_of[k]))
+            if len(picked[t]) == R:
+                left[t] = 0
+    if R is None:
+        return [p[0] if p else -1 for p in picked]
+    return [p + [-1] * (R - len(p)) for p in picked]
+
+
+def single_lane(lane_id, table, *, max_draws, R=None):
+    """B1's bounded loop (``R`` None) or B2's, one table, a counter per
+    level: what the reference's diff kernels run once per table."""
+    len32, node_of, top = table
+    ladder = ArrayLadder()
+    ladder.reset(top)
+    picked = []
+    for _ in range(max_draws if R is None else max_draws * max(1, R)):
+        k, f = _split(*ladder.next(lane_id, top))
+        if not _hits(k, f, len32):
+            continue
+        if R is None:
+            return k
+        if int(node_of[k]) not in picked:
+            picked.append(int(node_of[k]))
+        if len(picked) == R:
+            break
+    return -1 if R is None else picked + [-1] * (R - len(picked))
+
+
+def model_table(top, seed, holes=0):
+    """(len32, node_of, top): a table whose ladder tops out at ``top``
+    (s_log2 = 1: 2**top < n_segs <= 2**(top + 1)), one node per segment
+    and ``holes`` length-0 holes (node -1)."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2**top + 1, 2 ** (top + 1) + 1))
+    len32 = np.round(rng.uniform(0.3, 0.999, n) * 2**32).astype(np.uint32)
+    node_of = np.arange(n, dtype=np.int32)
+    gone = rng.choice(n, holes, replace=False)
+    len32[gone], node_of[gone] = 0, -1
+    return len32, node_of, top
+
+
+# (top of A, top of B): equal, B one and two above A, B one below (an
+# add's tables swapped: the top goes down), and ladders deeper than K
+JOINT_TOPS = [(3, 3), (3, 4), (3, 5), (4, 3), (9, 12)]
+
+
+@pytest.mark.parametrize("max_draws", [0, 1, 128])
+@pytest.mark.parametrize("tops", JOINT_TOPS)
+def test_joint_walk_equals_two_walks_b3(tops, max_draws):
+    """B3 keeps K = 4 counters in registers; K = 2 sends more consults to
+    the deep array."""
+    tables = [model_table(tops[0], 1, holes=2), model_table(tops[1], 2, holes=1)]
+    rng = np.random.default_rng(tops[0] * 100 + tops[1] + max_draws)
+    for lane_id in map(int, rng.integers(0, 2**32, 200, dtype=np.uint32)):
+        want = [single_lane(lane_id, t, max_draws=max_draws) for t in tables]
+        for K in (4, 2):
+            assert diff_lane(lane_id, tables, max_draws=max_draws, K=K) == want, (lane_id, K)
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("max_draws", [0, 1, 128])
+@pytest.mark.parametrize("tops", JOINT_TOPS)
+def test_joint_walk_equals_two_walks_b4(tops, max_draws, R):
+    """B4 keeps K = 6 counters in registers."""
+    tables = [model_table(tops[0], 3, holes=1), model_table(tops[1], 4, holes=3)]
+    rng = np.random.default_rng(tops[0] * 100 + tops[1] + R)
+    for lane_id in map(int, rng.integers(0, 2**32, 100, dtype=np.uint32)):
+        want = [single_lane(lane_id, t, max_draws=max_draws, R=R) for t in tables]
+        for K in (6, 2):
+            got = diff_lane(lane_id, tables, max_draws=max_draws, R=R, K=K)
+            assert got == want, (lane_id, K)
