@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py [--seed N] [--profile]
-    python3 chip_smoke.py --against DIR   # time every kernel against DIR's
+    python3 chip_smoke.py --against DIR [DIR ...] [--only LABEL]
 
 The main path is ASURA STEP 2 -- placing a batch of u32 datum ids against
 one versioned segment table -- reached two ways: bulk placement through
@@ -16,12 +16,14 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
 
   1. card name and power limit; build the CUDA kernels from the sources
      in this checkout; registers, stack frame and spill bytes (``-Xptxas
-     -v``) of B5, B6, the fan-out, B8, B2, B3 and B4;
+     -v``) of B5, B6, the fan-out, B8, B1, B9, B2, B3 and B4;
   2. the fused placement kernel against its plain-torch twin on the card,
      exact equality, emit_nodes both ways: 2**20 + 13 ids on both
      clusters, and the forced tail (max_draws 0 and 1);
   3. the replica kernel against its twin, R in {1, 3, 5} (and R = 12,
-     the lane-rows path), emit_nodes both ways, with the stats vector;
+     the lane-rows path), emit_nodes both ways, with the stats vector, on
+     both clusters (ladders deeper than the kernel's register levels) and
+     at max_draws 1;
   4. bulk main path: ``PlacementEngine(cluster)`` on the card,
      ``place_nodes_device`` on 2**24 ids and ``place_replica_nodes_device``
      at R = 3 under ``torch.cuda.set_sync_debug_mode("error")``; one
@@ -111,9 +113,11 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d), time at
      the bulk size, the twin's time, the least time the card could take
-     for the same work (for B3 / B4 one walk of the deeper ladder, with
-     the count of two complete walks beside it), and for B5 / B6 the time
-     of ``torch.searchsorted``.
+     for the same work (an ASURA ladder hashing each distinct level's seed
+     once per lane, with the count that hashes it at every consult beside
+     it; for B3 / B4 one walk of the deeper ladder, with the count of two
+     complete walks beside it), and for B5 / B6 the time of
+     ``torch.searchsorted``.
 
 ``--profile`` also traces 4 serving steps, 4 ``serve_migrating``
 batches on the drained window, 4 serving steps under each baseline, 4
@@ -122,11 +126,15 @@ hierarchical serving steps and 4 two-level diffs of phase 10d's add with
 device busy time per batch, the idle share and the kernels that fill it
 (PERF.md section 5).
 
-``--against DIR`` runs no phase: it imports the ``repro_torch`` of the
-checkout in DIR beside this one, builds both, and times every kernel of
-both on the same inputs at the bulk sizes in turns (theirs, ours, ours,
-theirs; outputs must be equal), with both builds' ptxas numbers; B3 and
-B4 on the add, the removal and the 1024-node scale-out (top change).
+``--against DIR [DIR ...]`` runs no phase: it imports the ``repro_torch``
+of the checkout in each DIR beside this one, builds them, and times every
+kernel of this checkout and of each other one on the same inputs at the
+bulk sizes in turns (theirs, ours, ours, theirs; outputs must be equal),
+with each build's ptxas numbers; B2 at R = 3 with and without the stats
+vector and at R = 1; B3 and B4 on the add, the removal and the
+1024-node scale-out (top change).
+``--only LABEL`` (repeatable) keeps the kernels whose label starts with
+LABEL, and builds only their libraries.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
@@ -161,10 +169,16 @@ HBM_BYTES_PER_S = 3.35e12
 # sheet's SM count and clock that give its 67 TFLOP/s FP32 row
 # (132 x 128 FP32 lanes x 2 x 1.98 GHz).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 ops the kernels spend per consulted ladder level (two fmix32 at 8
-# ops each + seed add, counter multiply, xor, counter tick) and per draw
-# (floor shift, fraction shift, bound and length compares).
+# int32 ops per consulted ladder level when every consult hashes its
+# level's seed anew (two fmix32 at 8 ops each + seed add, counter
+# multiply, xor, counter tick), and per draw (floor shift, fraction shift,
+# bound and length compares).  The seed is a function of (id, level)
+# alone, so the least work hashes it once per distinct level a lane
+# consults (fmix32 + seed add) and then spends one fmix32, the counter
+# multiply, xor and tick per consult.
 OPS_PER_LEVEL = 20
+OPS_PER_SEED = 9
+OPS_PER_CONSULT = OPS_PER_LEVEL - OPS_PER_SEED
 OPS_PER_DRAW = 4
 SOURCE = "src/repro_torch/kernels/csrc/asura_place.cu"
 SOURCE_BASELINES = "src/repro_torch/kernels/csrc/baselines.cu"
@@ -298,6 +312,22 @@ def ladder_work(torch, stats, top_level: int) -> tuple[int, int]:
     return int((hist * depth).sum()), int(hist.sum())
 
 
+def distinct_levels(ids, len32, node_of, top_level: int, R: int, max_draws: int = 128) -> int:
+    """Distinct ladder levels the lanes of a replica placement consult,
+    summed over lanes (the plain-torch twin counts them; not timed)."""
+    from repro_torch.kernels.ref import place_replicas_ref
+
+    _, levels = place_replicas_ref(ids, len32, node_of, top_level=top_level,
+                                   max_draws=max_draws, n_replicas=R, emit_levels=True)
+    return int(levels)
+
+
+def ladder_ops(consults: int, distinct: int) -> tuple[int, int]:
+    """int32 ops of a ladder's consults: (each distinct level's seed hashed
+    once, every consult hashing its seed)."""
+    return OPS_PER_CONSULT * consults + OPS_PER_SEED * distinct, OPS_PER_LEVEL * consults
+
+
 def profile_steps(torch, step, steps: int) -> dict:
     """Device busy time per serving step and the kernels that fill it, from
     a ``torch.profiler`` trace of ``steps`` calls of ``step`` (after one
@@ -354,6 +384,8 @@ PTXAS_KERNELS = (
     (f"{FANOUT} rs", "baselines", r"15replicas_kernelINS_8RsLookupE"),
     (f"{FANOUT} wrh", "baselines", r"15replicas_kernelINS_9WrhLookupE"),
     ("hier_replicas", "hierarchy", r"20hier_replicas_kernelI"),
+    ("place_fused", "asura_place", r"18place_fused_kernelE"),
+    ("place", "asura_place", r"12place_kernelE"),
     ("place_replicas", "asura_place", r"21place_replicas_kernelI"),
     ("diff_nodes", "asura_place", r"17diff_nodes_kernel"),
     ("diff_replicas", "asura_place", r"20diff_replicas_kernelI"),
@@ -516,18 +548,22 @@ def run(seed: int, dev, profile: bool = False) -> dict:
 
     # -- phase 3: replica kernel vs twin -------------------------------------
     print("phase 3: place_replicas_cuda vs twin, exact, with stats")
-    art = PlacementEngine(make_cluster(caps[LADDER_NODES]), device=dev)._device_artifact()
-    kw = dict(top_level=art.top_level, s_log2=1, max_draws=128)
-    for R, n in ((1, CHECK_IDS), (3, CHECK_IDS), (5, CHECK_IDS), (12, 1 << 16)):
-        sub = ids[:n]
-        for emit in (False, True):
-            out, st = ap.place_replicas_cuda(sub, art.len32_dev, art.node_of_dev, n_replicas=R,
-                                             emit_nodes=emit, emit_stats=True, **kw)
-            out_t, st_t = ref.place_replicas_fused_ref(sub, art.len32_dev, art.node_of_dev,
-                                                       n_replicas=R, emit_nodes=emit,
-                                                       emit_stats=True, **kw)
-            hold("place_replicas", f"R={R} {n} ids nodes={emit}", out, out_t)
-            hold("place_replicas", f"R={R} {n} ids nodes={emit} stats", st, st_t)
+    for n_nodes, max_draws in ((LADDER_NODES, 128), (HUGE_NODES, 128), (LADDER_NODES, 1)):
+        art = PlacementEngine(make_cluster(caps[n_nodes]), device=dev)._device_artifact()
+        kw = dict(top_level=art.top_level, s_log2=1, max_draws=max_draws)
+        for R, n in ((1, CHECK_IDS), (3, CHECK_IDS), (5, CHECK_IDS), (12, 1 << 16)):
+            sub = ids[:n]
+            for emit in (False, True):
+                out, st = ap.place_replicas_cuda(sub, art.len32_dev, art.node_of_dev,
+                                                 n_replicas=R, emit_nodes=emit,
+                                                 emit_stats=True, **kw)
+                out_t, st_t = ref.place_replicas_fused_ref(sub, art.len32_dev, art.node_of_dev,
+                                                           n_replicas=R, emit_nodes=emit,
+                                                           emit_stats=True, **kw)
+                what = (f"{n_nodes} nodes (top {art.top_level}) max_draws={max_draws} R={R} "
+                        f"{n} ids nodes={emit}")
+                hold("place_replicas", what, out, out_t)
+                hold("place_replicas", f"{what} stats", st, st_t)
 
     # -- phase 4: bulk main path ---------------------------------------------
     print(f"phase 4: PlacementEngine on the card, {BULK_IDS} ids")
@@ -589,19 +625,19 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     levels1, draws1 = ladder_work(torch, st1, art.top_level)
     tail1 = int(st1[ref.DEPTH_BINS].view(torch.int32))
     levels3, draws3 = ladder_work(torch, st3, art.top_level)
+    seeds1, seeds3 = (distinct_levels(bulk, art.len32_dev, art.node_of_dev, art.top_level, R)
+                      for R in (1, 3))
     search = (n_segs - 1).bit_length()
-    work = {
-        "place_fused": (
-            8 * BULK_IDS + 16 * n_segs,
-            OPS_PER_LEVEL * (levels1 + tail1) + OPS_PER_DRAW * draws1 + 6 * search * tail1,
-        ),
-        "place_replicas": (
-            4 * BULK_IDS + 4 * 3 * BULK_IDS + 8 * n_segs,
-            OPS_PER_LEVEL * levels3 + (OPS_PER_DRAW + 3) * draws3,
-        ),
-    }
-    print(f"  work: R=1 {levels1} levels / {draws1} draws / {tail1} tail lanes; "
-          f"R=3 {levels3} levels / {draws3} draws")
+    # a tail lane hashes one level-(top + 1) draw: a seed and a consult
+    rest1 = OPS_PER_LEVEL * tail1 + OPS_PER_DRAW * draws1 + 6 * search * tail1
+    bytes1, bytes3 = 8 * BULK_IDS + 16 * n_segs, 4 * BULK_IDS + 4 * 3 * BULK_IDS + 8 * n_segs
+    (ops1, old1), (ops3, old3) = ladder_ops(levels1, seeds1), ladder_ops(levels3, seeds3)
+    work = {"place_fused": (bytes1, ops1 + rest1),
+            "place_replicas": (bytes3, ops3 + (OPS_PER_DRAW + 3) * draws3)}
+    unseeded = {"place_fused": (bytes1, old1 + rest1),
+                "place_replicas": (bytes3, old3 + (OPS_PER_DRAW + 3) * draws3)}
+    print(f"  work: R=1 {levels1} levels of {seeds1} distinct / {draws1} draws / {tail1} tail "
+          f"lanes; R=3 {levels3} levels of {seeds3} distinct / {draws3} draws")
 
     # -- phase 5: serving main path ------------------------------------------
     print(f"phase 5: RequestStreamDriver batch {SERVE_BATCH}, {SERVE_KEYS} keys, "
@@ -708,6 +744,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
         ms.update(part["ms"])
         plain.update(part["plain"])
         work.update(part["work"])
+        unseeded.update(part.get("unseeded", {}))
     library = base["library"]
 
     # -- phase 6: the kernels line -------------------------------------------
@@ -728,10 +765,14 @@ def run(seed: int, dev, profile: bool = False) -> dict:
             entry["note"] = ("no TPU counterpart: the reference runs this R-way "
                              "fan-out as a jnp loop; times are ch at R=3")
             entry["ms_by_algorithm"] = base["fanout_ms"]
+        if name in unseeded:
+            entry["bound_unseeded_ms"] = bound(*unseeded[name])[0]
         if name in diff_work["two_walks"]:
             entry["bound_two_walks_ms"] = diff_work["two_walks"][name]
         kernels.append(entry)
         lib = "" if entry["library_ms"] is None else f", library {entry['library_ms']:.4f} ms"
+        if "bound_unseeded_ms" in entry:
+            lib += f", bound hashing every consult's seed {entry['bound_unseeded_ms']:.4f} ms"
         if "bound_two_walks_ms" in entry:
             lib += f", two-walk bound {entry['bound_two_walks_ms']:.4f} ms"
         print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
@@ -848,7 +889,7 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
         # levels are at least the larger table's; every draw of each table
         # is tested (and B4's hits gathered) and each table's tail resolved
         fused_ops, rep_ops, segs = 0, 0, 0
-        levels = {1: [], 3: []}
+        levels, seeds = {1: [], 3: []}, {1: [], 3: []}
         for art in (a, b):
             lk = dict(top_level=art.top_level, s_log2=1, max_draws=128, emit_stats=True)
             _, st1 = ap.place_replicas_cuda(bulk, art.len32_dev, art.node_of_dev,
@@ -863,13 +904,21 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
             rep_ops += (OPS_PER_DRAW + 3) * draws3
             levels[1].append(levels1)
             levels[3].append(levels3)
+            for R in (1, 3):
+                seeds[R].append(distinct_levels(bulk, art.len32_dev, art.node_of_dev,
+                                                art.top_level, R))
             segs += art.n_segs
-            print(f"  work on v{art.version} ({art.n_segs} segs): R=1 {levels1} levels / "
-                  f"{draws1} draws / {tail1} tail lanes; R=3 {levels3} levels / {draws3} draws")
+            print(f"  work on v{art.version} ({art.n_segs} segs): R=1 {levels1} levels of "
+                  f"{seeds[1][-1]} distinct / {draws1} draws / {tail1} tail lanes; R=3 "
+                  f"{levels3} levels of {seeds[3][-1]} distinct / {draws3} draws")
     nodes_bytes = 4 * BULK_IDS + 2 * 4 * BULK_IDS + 16 * segs
     replicas_bytes = 4 * BULK_IDS + 2 * 4 * 3 * BULK_IDS + 8 * segs
-    out["work"]["diff_nodes"] = (nodes_bytes, fused_ops + OPS_PER_LEVEL * max(levels[1]))
-    out["work"]["diff_replicas"] = (replicas_bytes, rep_ops + OPS_PER_LEVEL * max(levels[3]))
+    out["unseeded"] = {}
+    for name, R, nbytes, ops in (("diff_nodes", 1, nodes_bytes, fused_ops),
+                                 ("diff_replicas", 3, replicas_bytes, rep_ops)):
+        new, old = ladder_ops(max(levels[R]), max(seeds[R]))
+        out["work"][name] = (nbytes, ops + new)
+        out["unseeded"][name] = (nbytes, ops + old)
     # the earlier count, two complete walks, so that its ratios still compare
     out["two_walks"] = {
         "diff_nodes": bound(nodes_bytes, fused_ops + OPS_PER_LEVEL * sum(levels[1]))[0],
@@ -1405,12 +1454,13 @@ def hier_tail_lanes(torch, art, ids, R: int) -> int:
     return tail
 
 
-def hier_work(torch, art, ids, R: int) -> tuple[int, int]:
+def hier_work(torch, art, ids, R: int) -> tuple[tuple[int, int], tuple[int, int]]:
     """(bytes, int32 operations) kernel B8 needs for ``ids`` at R: level 1
     is B2's work on the domain table, level 2 B1's on each replica's
     domain row (draws and tails counted per domain from B2's stats at
     R = 1 on the salted ids routed there), plus per replica the salt
-    (xor, multiply, fmix32) and three gathers."""
+    (xor, multiply, fmix32) and three gathers; each distinct level's seed
+    hashed once, and beside it every consult hashing its seed."""
     from repro_torch.core.rng import GOLDEN
     from repro_torch.kernels import asura_place as ap
     from repro_torch.kernels.ref import DEPTH_BINS, fmix32
@@ -1420,7 +1470,8 @@ def hier_work(torch, art, ids, R: int) -> tuple[int, int]:
     slots, st = ap.place_replicas_cuda(ids, t[0], t[1], top_level=art.top_level,
                                        n_replicas=R, emit_nodes=True, emit_stats=True)
     levels, draws = ladder_work(torch, st, art.top_level)
-    ops = OPS_PER_LEVEL * levels + (OPS_PER_DRAW + 3) * draws
+    ops, old = ladder_ops(levels, distinct_levels(ids, t[0], t[1], art.top_level, R))
+    rest = (OPS_PER_DRAW + 3) * draws
     lane_ids = as_u32(ids)
     for r in range(R):
         col = slots[:, r].long()
@@ -1433,12 +1484,15 @@ def hier_work(torch, art, ids, R: int) -> tuple[int, int]:
                                             n_replicas=1, emit_stats=True)
             lv, dr = ladder_work(torch, st1, top)
             tail = int(st1[DEPTH_BINS].view(torch.int32))
-            ops += (OPS_PER_LEVEL * (lv + tail) + OPS_PER_DRAW * dr
-                    + 6 * art.s_pad.bit_length() * tail)
+            new1, old1 = ladder_ops(lv, distinct_levels(salted, t[2][row], t[3][row], top, 1))
+            ops, old = ops + new1, old + old1
+            rest += (OPS_PER_LEVEL * tail + OPS_PER_DRAW * dr
+                     + 6 * art.s_pad.bit_length() * tail)
     n = ids.shape[0]
-    ops += n * R * (FMIX_OPS + 2 + 3 * GATHER_OPS)
+    rest += n * R * (FMIX_OPS + 2 + 3 * GATHER_OPS)
     table_bytes = 8 * t[0].shape[0] + 16 * t[2].shape[0] + 8 * t[6].shape[0]
-    return 4 * n + 8 * R * n + table_bytes, ops
+    nbytes = 4 * n + 8 * R * n + table_bytes
+    return (nbytes, ops + rest), (nbytes, old + rest)
 
 
 def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = False) -> dict:
@@ -1456,7 +1510,7 @@ def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = Fal
     caps = all_caps[LADDER_NODES]
     huge = f"{HUGE_NODES} nodes"
     topo = hier_topologies(np, caps, seed, all_caps[HUGE_NODES])
-    out = {"ms": {}, "plain": {}, "work": {}}
+    out = {"ms": {}, "plain": {}, "work": {}, "unseeded": {}}
 
     def hier(t, where=dev):
         h = HierarchicalCluster(device=where)
@@ -1564,12 +1618,16 @@ def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = Fal
             torch, lambda: hier_place_replicas_ref(bulk, *art.tables_dev, **kw3), 2))
         out["plain"]["place"] = statistics.median(cuda_ms(
             torch, lambda: ref.place_ref(bulk, flat.len32_dev, top_level=flat.top_level), 2))
-        out["work"]["hier_replicas"] = hier_work(torch, art, bulk, 3)
+        out["work"]["hier_replicas"], out["unseeded"]["hier_replicas"] = hier_work(
+            torch, art, bulk, 3)
         _, st1 = ap.place_replicas_cuda(bulk, flat.len32_dev, flat.node_of_dev,
                                         top_level=flat.top_level, n_replicas=1, emit_stats=True)
         levels1, draws1 = ladder_work(torch, st1, flat.top_level)
-        out["work"]["place"] = (8 * BULK_IDS + 4 * flat.n_segs,
-                                OPS_PER_LEVEL * levels1 + OPS_PER_DRAW * draws1)
+        new1, old1 = ladder_ops(levels1, distinct_levels(bulk, flat.len32_dev, flat.node_of_dev,
+                                                         flat.top_level, 1))
+        nbytes = 8 * BULK_IDS + 4 * flat.n_segs
+        out["work"]["place"] = (nbytes, new1 + OPS_PER_DRAW * draws1)
+        out["unseeded"]["place"] = (nbytes, old1 + OPS_PER_DRAW * draws1)
     print(f"  twins: B8 {out['plain']['hier_replicas']:.2f} ms, B9 {out['plain']['place']:.2f} ms; "
           f"B8 work {out['work']['hier_replicas'][1] / BULK_IDS:.1f} int32 ops per id at R=3")
 
@@ -1717,28 +1775,31 @@ def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = Fal
     return out
 
 
-def load_tree(tree: Path):
+def load_tree(tree: Path, name: str):
     """The ``repro_torch`` package of another checkout at ``tree``,
-    imported as ``against_repro_torch`` beside this one (its kernels
-    build from its own sources into its own ``_build``)."""
+    imported as ``name`` beside this one (its kernels build from its own
+    sources into its own ``_build``)."""
     import importlib.util
 
     src = tree / "src" / "repro_torch"
     require((src / "__init__.py").is_file(), f"{tree} holds no src/repro_torch")
     spec = importlib.util.spec_from_file_location(
-        "against_repro_torch", src / "__init__.py", submodule_search_locations=[str(src)])
+        name, src / "__init__.py", submodule_search_locations=[str(src)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def compare(seed: int, dev, tree: Path) -> dict:
-    """Every kernel of this checkout against the same kernel of the
-    checkout at ``tree`` (built from its own sources), on the same inputs
+def compare(seed: int, dev, trees: list[Path], only: list[str] | None = None) -> dict:
+    """Every kernel of this checkout against the same kernel of each
+    checkout in ``trees`` (built from its own sources), on the same inputs
     at the bulk sizes: outputs equal, then CUDA-event times taken in turns
-    (theirs, ours, ours, theirs; TIMED_CALLS calls each), and both
-    builds' ptxas numbers."""
+    (theirs, ours, ours, theirs; TIMED_CALLS calls each), and the builds'
+    ptxas numbers.  ``only``: just the cases whose label starts with one
+    of these strings (and just the libraries they need)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
 
@@ -1747,19 +1808,11 @@ def compare(seed: int, dev, tree: Path) -> dict:
     from repro_torch.kernels import build
     import repro_torch
 
-    theirs = load_tree(tree)
-    t0 = time.perf_counter()
-    ours_built = build.build_all()
-    their_built = theirs.kernels.build.build_all()
-    print(f"compare: built this checkout's {sorted(ours_built)} and {tree}'s "
-          f"{sorted(their_built)} in {time.perf_counter() - t0:.2f} s")
-    print_ptxas(build.ptxas_report)
-    print_ptxas(lambda lib: build.parse_ptxas(their_built[lib]["log"]) if lib in their_built
-                else {}, "ptxas (against)")
-
+    theirs = [load_tree(t, f"against{k}_repro_torch") for k, t in enumerate(trees)]
     rng = np.random.default_rng(seed)
     caps, huge = rng.uniform(0.5, 2.0, LADDER_NODES), rng.uniform(0.5, 2.0, HUGE_NODES)
     bulk = torch.from_numpy(rng.integers(0, 2**32, BULK_IDS, dtype=np.uint32)).to(dev)
+
     def event(change):
         """(A, B) device artifacts of the 4096-node cluster before and
         after ``change(cluster)``."""
@@ -1790,12 +1843,17 @@ def compare(seed: int, dev, tree: Path) -> dict:
         hier[name] = (art.tables_dev, dict(top_level=art.top_level, max_top=art.max_top,
                                            s_pad=art.s_pad))
     wrh_ids = bulk[:WRH_IDS]
+    reps = (bulk, a.len32_dev, a.node_of_dev)
     cases = [
         ("place_fused", "asura_place", "place_fused_cuda", (bulk, *flat),
          dict(top_level=a.top_level, emit_nodes=True)),
-        ("place_replicas R=3", "asura_place", "place_replicas_cuda",
-         (bulk, a.len32_dev, a.node_of_dev), dict(top_level=a.top_level, n_replicas=3,
-                                                  emit_nodes=True)),
+        ("place_replicas R=3", "asura_place", "place_replicas_cuda", reps,
+         dict(top_level=a.top_level, n_replicas=3, emit_nodes=True)),
+        # the serving step's form (serve/stream.py, instrumented)
+        ("place_replicas R=3 stats", "asura_place", "place_replicas_cuda", reps,
+         dict(top_level=a.top_level, n_replicas=3, emit_nodes=True, emit_stats=True)),
+        ("place_replicas R=1", "asura_place", "place_replicas_cuda", reps,
+         dict(top_level=a.top_level, n_replicas=1, emit_nodes=True)),
         ("place", "asura_place", "place_cuda", (bulk, a.len32_dev),
          dict(top_level=a.top_level)),
         ("ch_place", "baselines", "ch_place_cuda", (bulk, base["ch"].keys_dev,
@@ -1822,23 +1880,43 @@ def compare(seed: int, dev, tree: Path) -> dict:
         for R in ((3, 1) if name == "64x64" else (3,)):
             cases.append((f"hier_replicas {name} R={R}", "hierarchy",
                           "hier_place_replicas_cuda", (bulk, *tabs), dict(kw, n_replicas=R)))
+    if only:
+        cases = [c for c in cases if c[0].startswith(tuple(only))]
+        require(cases, f"no case matches {only}")
+    libs = tuple(sorted({c[1] for c in cases}))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(trees) + 1) as pool:
+        built = list(pool.map(lambda b: b.build_all(libs),
+                              [build] + [t.kernels.build for t in theirs]))
+    print(f"compare: built {libs} of this checkout and of {len(trees)} others in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print_ptxas(build.ptxas_report)
+    for tree, their_built in zip(trees, built[1:]):
+        print_ptxas(lambda lib: build.parse_ptxas(their_built[lib]["log"])
+                    if lib in their_built else {}, f"ptxas ({tree.name})")
+
     rows = []
     for label, mod, fn, args, kw in cases:
-        f_theirs = getattr(getattr(theirs.kernels, mod), fn)
         f_ours = getattr(getattr(repro_torch.kernels, mod), fn)
-        bad, _ = mismatches(torch, f_ours(*args, **kw), f_theirs(*args, **kw))
-        require(bad == 0, f"{label}: {bad} outputs differ between the two checkouts")
-        t_theirs, t_ours = [], []
-        for f, acc in ((f_theirs, t_theirs), (f_ours, t_ours), (f_ours, t_ours),
-                       (f_theirs, t_theirs)):
-            acc += cuda_ms(torch, lambda: f(*args, **kw), TIMED_CALLS)
-        row = {"kernel": label, "against_ms": statistics.median(t_theirs),
-               "ms": statistics.median(t_ours)}
-        row["ratio"] = row["ms"] / row["against_ms"]
-        rows.append(row)
-        print(f"  {label:36s} against {row['against_ms']:9.4f} ms, this {row['ms']:9.4f} ms, "
-              f"ratio {row['ratio']:.4f}, outputs equal")
-    return {"against": str(tree), "kernels": rows}
+        got = f_ours(*args, **kw)
+        for tree, their in zip(trees, theirs):
+            f_theirs = getattr(getattr(their.kernels, mod), fn)
+            want = f_theirs(*args, **kw)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            bad = sum(mismatches(torch, g, w)[0] for g, w in pairs)
+            require(bad == 0, f"{label}: {bad} outputs differ from {tree}'s")
+            t_theirs, t_ours = [], []
+            for f, acc in ((f_theirs, t_theirs), (f_ours, t_ours), (f_ours, t_ours),
+                           (f_theirs, t_theirs)):
+                acc += cuda_ms(torch, lambda: f(*args, **kw), TIMED_CALLS)
+            row = {"kernel": label, "against": tree.name,
+                   "against_ms": statistics.median(t_theirs), "ms": statistics.median(t_ours)}
+            row["ratio"] = row["ms"] / row["against_ms"]
+            rows.append(row)
+            print(f"  {label:36s} against {tree.name:12s} {row['against_ms']:9.4f} ms, this "
+                  f"{row['ms']:9.4f} ms, ratio {row['ratio']:.4f}, outputs equal")
+    return {"against": [str(t) for t in trees], "kernels": rows}
 
 
 def main() -> int:
@@ -1846,9 +1924,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="also trace serving steps with torch.profiler")
-    ap.add_argument("--against", type=Path, default=None,
+    ap.add_argument("--against", type=Path, nargs="+", default=None,
                     help="instead of the phases, time every kernel against the same "
-                         "kernel of the checkout in this directory")
+                         "kernel of the checkout in each of these directories")
+    ap.add_argument("--only", action="append", default=None,
+                    help="with --against: only the kernels whose label starts with this "
+                         "(repeatable)")
     args = ap.parse_args()
     sys.stdout.reconfigure(line_buffering=True)  # progress survives a kill
     import torch
@@ -1868,7 +1949,7 @@ def main() -> int:
     print(f"card: {smi}")
     dev = torch.device("cuda", torch.cuda.current_device())
     if args.against is not None:
-        result = compare(args.seed, dev, args.against.resolve())
+        result = compare(args.seed, dev, [t.resolve() for t in args.against], args.only)
     else:
         result = run(args.seed, dev, args.profile)
     print(json.dumps(result))

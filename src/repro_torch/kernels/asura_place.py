@@ -196,6 +196,8 @@ def place_replicas_cuda(
     R = int(n_replicas)
     if R < 1:
         raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if max_draws * R >= 2**31:  # the kernel counts draws in int32, as the reference does
+        raise ValueError(f"max_draws * n_replicas must be < 2**31, got {max_draws} * {R}")
     if dev.type == "cpu":
         return ref.place_replicas_fused_ref(
             ids, len32, node_of, top_level=top_level, s_log2=s_log2,

@@ -4,13 +4,10 @@
 // is B1's).  kernels/build.py hashes this header with every source that
 // includes it.
 //
-// The bodies take the ladder's counters as a policy: ArrayLadder, the
-// caller's per-lane array indexed by level (B1, B2 and B9: a run-time
-// index, so the array lives in local memory, a 128-byte stack frame, read
-// and written on every consulted level), or TopLadder<K> (B8, and the
-// diff kernels B3 / B4, whose bodies walk both tables' ladders at once):
-// the top K levels' counters in registers, the deeper ones in local
-// memory.
+// The bodies take the ladder's counters as a policy, TopLadder<K, S>: the
+// top K levels' counters in registers, the deeper ones in the caller's
+// local array.  B1, B2 and B9 also keep the top S levels' generator seeds
+// (S > 0); B3, B4 and B8 hash every consult's seed anew (S = 0).
 
 #pragma once
 
@@ -20,10 +17,12 @@
 
 namespace port_lane {
 
+using port_hash::draw_seeded;
 using port_hash::draw_u32;
+using port_hash::level_seed;
 
-// Per-lane counter array: top_level + 1 <= 31 levels are used (the
-// wrappers check s_log2 + top_level <= 31).
+// Ladder levels a lane may use: top_level + 1 <= 31 (the wrappers check
+// s_log2 + top_level <= 31 with s_log2 >= 1).
 constexpr int kMaxLevels = 32;
 
 // k = floor, f = fraction * 2**32 of the ASURA number drawn at ``level``.
@@ -33,30 +32,6 @@ __device__ __forceinline__ void split(uint32_t h, int level, int s_log2,
   f = h << (s_log2 + level);
 }
 
-// The caller's array of >= top_level + 1 counters, indexed by level.
-struct ArrayLadder {
-  uint32_t* ctr;
-
-  __device__ __forceinline__ void reset(int top_level) {
-    for (int l = 0; l <= top_level; ++l) ctr[l] = 0u;
-  }
-
-  // One ASURA number: descend from top_level while the draw's MSB is
-  // clear, ticking each consulted level's counter.
-  __device__ __forceinline__ void next(uint32_t id, int top_level, int s_log2,
-                                       uint32_t& k, uint32_t& f) {
-    int level = top_level;
-    uint32_t h = draw_u32(id, level, ctr[level]);
-    ctr[level] += 1u;
-    while (level > 0 && h < 0x80000000u) {
-      --level;
-      h = draw_u32(id, level, ctr[level]);
-      ctr[level] += 1u;
-    }
-    split(h, level, s_log2, k, f);
-  }
-};
-
 // The counters of the top K levels in registers, c[j] for level
 // top_level - j, and those of the deeper levels in the caller's array
 // ``deep`` (indexed by level), zeroed lazily: the descent reaches level
@@ -65,16 +40,41 @@ struct ArrayLadder {
 // touches ``deep``.  The descent visits top, top - 1, ... in order, so a
 // fully unrolled loop reaches each register counter by a compile-time
 // index.
-template <int K>
+//
+// S > 0 also keeps the top S levels' seeds (level_seed(id, top_level - j),
+// a function of the id and the level alone) in registers, hashed at the
+// reset, so that a consult of one of them hashes once, not twice: a lane
+// consults few distinct levels many times (~9.6 consults of ~3.7 levels
+// per id at R = 3 on the 4096-node table).  Hashing each seed at its
+// first consult instead costs a divergent test per consult and lost on
+// the card (PERF.md section 6).
+template <int K, int S = 0>
 struct TopLadder {
-  uint32_t c[K];
-  uint32_t* deep;  // >= top_level + 1 - K entries
-  int fresh;       // deep levels >= fresh were zeroed since the reset
+  static_assert(0 <= S && S <= K, "seeds are kept for register levels only");
+  static constexpr int kTop = K;
+  // entries of ``deep`` a caller provides: levels <= top_level - K <= 30 - K
+  static constexpr int kDeep = kMaxLevels - K;
 
-  __device__ __forceinline__ void reset(int top_level) {
+  uint32_t c[K];
+  uint32_t seed[S > 0 ? S : 1];
+  uint32_t* deep;
+  int fresh;  // deep levels >= fresh were zeroed since the reset
+
+  __device__ __forceinline__ void reset(uint32_t id, int top_level) {
 #pragma unroll
     for (int j = 0; j < K; ++j) c[j] = 0u;
+#pragma unroll
+    for (int j = 0; j < S; ++j) seed[j] = level_seed(id, top_level - j);
     fresh = top_level - K + 1;
+  }
+
+  // The draw of register level j (``level`` = top_level - j; j is a
+  // compile-time index once the walk is unrolled).
+  __device__ __forceinline__ uint32_t draw_top(uint32_t id, int j, int level) {
+    if constexpr (S > 0) {
+      if (j < S) return draw_seeded(seed[j], c[j]);
+    }
+    return draw_u32(id, level, c[j]);
   }
 
   // One ASURA number: descend from top_level while the draw's MSB is
@@ -85,7 +85,7 @@ struct TopLadder {
 #pragma unroll
     for (int j = 0; j < K; ++j) {
       level = top_level - j;
-      h = draw_u32(id, level, c[j]);
+      h = draw_top(id, j, level);
       c[j] += 1u;
       if (level == 0 || h >= 0x80000000u) {
         done = true;
@@ -111,6 +111,25 @@ struct TopLadder {
     uint32_t h;
     const int level = walk(id, top_level, h);
     split(h, level, s_log2, k, f);
+  }
+
+  // The lane's draws since the reset by depth d = top_level - level + 1
+  // (a draw of depth d consulted levels top_level .. top_level - d + 1,
+  // so c[j] counts the draws of depth > j): depths 1 .. K into
+  // hot[0 .. K-1] from the register counters at compile-time indices, and
+  // each deeper depth with a nonzero count passed to deep_bin(d, count).
+  // Levels below ``fresh`` were never consulted since the reset.
+  template <class DeepBin>
+  __device__ __forceinline__ void depth_hist(int top_level, uint32_t* hot,
+                                             DeepBin&& deep_bin) const {
+#pragma unroll
+    for (int j = 0; j + 1 < K; ++j) hot[j] = c[j] - c[j + 1];
+    int level = top_level - K;  // the highest deep level
+    hot[K - 1] = c[K - 1] - (level >= fresh ? deep[level] : 0u);
+    for (; level >= fresh; --level) {
+      const uint32_t here = deep[level] - (level > fresh ? deep[level - 1] : 0u);
+      if (here) deep_bin(top_level - level + 1, here);
+    }
   }
 };
 
@@ -153,7 +172,7 @@ __device__ __forceinline__ int32_t place_lane_with(
     const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
     const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
     int max_draws, int emit_nodes) {
-  ladder.reset(top_level);
+  ladder.reset(id, top_level);
   int seg = -1;
   for (int d = 0; d < max_draws; ++d) {
     uint32_t k, f;
@@ -171,18 +190,6 @@ __device__ __forceinline__ int32_t place_lane_with(
   }
 }
 
-// The array form, for B1 and B9: ``ctr`` holds >= top_level + 1 entries.
-template <bool kTotal>
-__device__ __forceinline__ int32_t place_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
-    const uint32_t* __restrict__ cum_hi, const uint32_t* __restrict__ cum_lo,
-    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
-    int max_draws, int emit_nodes) {
-  ArrayLadder ladder{ctr};
-  return place_lane_with<kTotal>(id, ladder, len32, cum_hi, cum_lo, node_of, n_segs,
-                                 top_level, s_log2, max_draws, emit_nodes);
-}
-
 // B2's per-lane body: the first R hits on distinct nodes within
 // max_draws * max(1, R) draws, written to ``row`` (R entries, -1 for
 // unfilled slots; segments, or nodes with ``emit_nodes``).  Returns the
@@ -191,20 +198,22 @@ __device__ __forceinline__ int32_t place_lane(
 // RMAX > 0: picked (segment, node) pairs in registers (R <= RMAX).
 // RMAX == 0: kept in the lane's scratch rows ``gseg`` / ``gnode`` (any R);
 // ``row`` may be ``gnode`` itself when nodes are emitted.
-template <int RMAX, class Ladder>
+// Count: the draw loop's counter type; int32_t (B2) needs the wrapper's
+// check max_draws * R < 2**31, int64_t (B8) counts any cap.
+template <int RMAX, class Count = int64_t, class Ladder>
 __device__ __forceinline__ int place_replicas_lane_with(
     uint32_t id, Ladder& ladder, const uint32_t* __restrict__ len32,
     const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
     int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
     int32_t* gnode) {
-  ladder.reset(top_level);
+  ladder.reset(id, top_level);
   int32_t rseg[RMAX > 0 ? RMAX : 1];
   int32_t rnode[RMAX > 0 ? RMAX : 1];
 #pragma unroll
   for (int r = 0; r < (RMAX > 0 ? RMAX : 1); ++r) rseg[r] = rnode[r] = -1;
   int found = 0;
-  const int64_t cap = static_cast<int64_t>(max_draws) * (R > 1 ? R : 1);
-  for (int64_t d = 0; d < cap && found < R; ++d) {
+  const Count cap = static_cast<Count>(max_draws) * (R > 1 ? R : 1);
+  for (Count d = 0; d < cap && found < R; ++d) {
     uint32_t k, f;
     ladder.next(id, top_level, s_log2, k, f);
     if (!hits(k, f, n_segs, len32)) continue;
@@ -241,20 +250,6 @@ __device__ __forceinline__ int place_replicas_lane_with(
   return found;
 }
 
-// The array form, for B2: ``ctr`` holds >= top_level + 1 entries, left
-// holding the per-level draw counts (its stats vector reads them).
-template <int RMAX>
-__device__ __forceinline__ int place_replicas_lane(
-    uint32_t id, uint32_t* ctr, const uint32_t* __restrict__ len32,
-    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
-    int max_draws, int R, int emit_nodes, int32_t* row, int32_t* gseg,
-    int32_t* gnode) {
-  ArrayLadder ladder{ctr};
-  return place_replicas_lane_with<RMAX>(id, ladder, len32, node_of, n_segs, top_level,
-                                        s_log2, max_draws, R, emit_nodes, row, gseg,
-                                        gnode);
-}
-
 // One table of a two-version diff: its length table, u64 length-cumsum
 // halves (B3's tail; null for B4), seg->node map, length and top level.
 struct DiffTable {
@@ -283,7 +278,7 @@ template <class Ladder>
 __device__ __forceinline__ void diff_nodes_lane_with(
     uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
     int s_log2, int max_draws, int32_t& node_hi, int32_t& node_lo) {
-  ladder.reset(hi.top_level);
+  ladder.reset(id, hi.top_level);
   int seg_hi = -1, seg_lo = -1;
   int left_hi = max_draws, left_lo = max_draws;  // numbers each may still test
   while (left_hi > 0 || left_lo > 0) {
@@ -377,7 +372,7 @@ template <int RMAX, class Ladder>
 __device__ __forceinline__ void diff_replicas_lane_with(
     uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
     int s_log2, int max_draws, int R, int32_t* row_hi, int32_t* row_lo) {
-  ladder.reset(hi.top_level);
+  ladder.reset(id, hi.top_level);
   NodeSet<RMAX> set_hi(row_hi), set_lo(row_lo);
   const int cap = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
   int left_hi = cap, left_lo = cap;

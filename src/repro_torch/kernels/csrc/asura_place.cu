@@ -35,12 +35,13 @@
 // What bounds it on an H100.  Per id the kernel moves 8 bytes (a u32 id
 // in, an i32 out; 4 * R out for replicas) plus table gathers that hit
 // L1/L2 (a 4096-node table is ~28 KB per array), and does about two
-// consulted ladder levels per draw, each level two fmix32 hashes plus
-// the seed and counter mixing (~20 int32 ALU ops), at ~1.5 draws per
-// placement on a half-full table.  That is ~60 int32 ops against
-// 8 bytes: at 16.7 T int32 ops/s against 3.35 TB/s the ALU bound is
-// ~2x the memory bound, so the kernel is operation-bound and the ids
-// stream through once.
+// consulted ladder levels per draw, at ~1.5 draws per placement on a
+// half-full table: each consult one fmix32 and the counter mixing (~11
+// int32 ALU ops) once the lane holds that level's seed, and each distinct
+// level's seed one more fmix32 (~9; ~2.4 distinct levels per id at R = 1).
+// That is ~50 int32 ops against 8 bytes: at 16.7 T int32 ops/s against
+// 3.35 TB/s the ALU bound is ~2x the memory bound, so the kernel is
+// operation-bound and the ids stream through once.
 //
 // The lane bodies live in asura_lane.cuh, shared with hierarchy.cu (B8).
 //
@@ -49,15 +50,20 @@
 // the tile hits, and every ladder level until the deepest lane exits.
 // Here each thread runs its own lane's loop and stops at its own hit, so
 // the work is the data's own (lanes' draws depend only on
-// (id, level, counter[level]), so the results are unchanged).  B1, B2
-// and B9 keep the per-level counters in a thread-local array (top_level
-// + 1 <= 31 entries), B3 and B4 the top levels' in registers; tables are
-// read through the read-only data cache.  R <= 8 keeps the picks in
-// registers; larger R keeps them in the lane's own rows of scratch
+// (id, level, counter[level]), so the results are unchanged).  Every
+// kernel keeps the counters of the top few ladder levels in registers
+// (TopLadder; the deeper levels' in a small local array), B1, B2 and B9
+// also those levels' generator seeds, so a consult of them hashes once;
+// tables are read through the read-only data cache.  R <= 8 keeps the
+// picks in registers (three slots for R = 3, the deployments'
+// replication); larger R keeps them in the lane's own rows of scratch
 // buffers (B2) or of the output (B4), so R has no cap.
-// Stats are derived per lane from its counters after the loop (the
-// number of draws of depth >= d is counter[top - d + 1]), summed in a
-// per-block shared histogram and flushed with one u32 atomicAdd per bin.
+// B2's stats are read from its ladder after the loop (the draws of each
+// depth: register differences for the top K depths, the deep array's
+// for the rare deeper ones), the top K depths and the unfilled slots
+// summed per warp (__reduce_add_sync) and added to a per-block shared
+// histogram by one lane, the deeper depths by each lane; the block's
+// histogram is flushed with one u32 atomicAdd per bin.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,8 +74,8 @@ namespace {
 
 using port_lane::DiffTable;
 using port_lane::kMaxLevels;
-using port_lane::place_lane;
-using port_lane::place_replicas_lane;
+using port_lane::place_lane_with;
+using port_lane::place_replicas_lane_with;
 
 constexpr int kDepthBins = 34;
 constexpr int kThreads = 256;
@@ -77,6 +83,11 @@ constexpr int kThreads = 256;
 // fastest of K = 3 .. 8 on the card (PERF.md section 6)
 constexpr int kDiffNodesTopCounters = 4;
 constexpr int kDiffReplicasTopCounters = 6;
+// B1 / B9's and B2's ladders: TopLadder<K, S>, K register levels'
+// counters and the top S levels' seeds, each the fastest of the K and S
+// swept on the card (PERF.md section 6)
+using PlaceLadder = port_lane::TopLadder<6, 3>;
+using ReplicasLadder = port_lane::TopLadder<6, 5>;
 
 // B9: the bounded loop alone, -1 for a non-converged lane.
 __global__ void __launch_bounds__(kThreads)
@@ -85,9 +96,11 @@ place_kernel(const uint32_t* __restrict__ ids, const uint32_t* __restrict__ len3
              int s_log2, int max_draws) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t ctr[kMaxLevels];
-  out[i] = place_lane<false>(ids[i], ctr, len32, nullptr, nullptr, nullptr, n_segs,
-                             top_level, s_log2, max_draws, 0);
+  uint32_t deep[PlaceLadder::kDeep];
+  PlaceLadder ladder;
+  ladder.deep = deep;
+  out[i] = place_lane_with<false>(ids[i], ladder, len32, nullptr, nullptr, nullptr,
+                                  n_segs, top_level, s_log2, max_draws, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -100,9 +113,11 @@ place_fused_kernel(const uint32_t* __restrict__ ids,
                    int top_level, int s_log2, int max_draws, int emit_nodes) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t ctr[kMaxLevels];
-  out[i] = place_lane<true>(ids[i], ctr, len32, cum_hi, cum_lo, node_of, n_segs,
-                            top_level, s_log2, max_draws, emit_nodes);
+  uint32_t deep[PlaceLadder::kDeep];
+  PlaceLadder ladder;
+  ladder.deep = deep;
+  out[i] = place_lane_with<true>(ids[i], ladder, len32, cum_hi, cum_lo, node_of, n_segs,
+                                 top_level, s_log2, max_draws, emit_nodes);
 }
 
 // B3: each id's node under table ``hi`` (the higher top) and ``lo`` in
@@ -120,6 +135,8 @@ diff_nodes_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable lo,
                                   out_hi[i], out_lo[i]);
 }
 
+// B2.  With ``stats``, every lane takes part in the warp sums, also the
+// lanes past n of the last block (with zeros): none returns early.
 template <int RMAX>
 __global__ void __launch_bounds__(kThreads)
 place_replicas_kernel(const uint32_t* __restrict__ ids,
@@ -130,28 +147,39 @@ place_replicas_kernel(const uint32_t* __restrict__ ids,
                       uint32_t* __restrict__ stats, int64_t n, int n_segs,
                       int top_level, int s_log2, int max_draws, int R,
                       int emit_nodes) {
+  constexpr int K = ReplicasLadder::kTop;
   __shared__ uint32_t block_hist[kDepthBins + 1];
   if (stats != nullptr) {
     for (int b = threadIdx.x; b <= kDepthBins; b += blockDim.x) block_hist[b] = 0u;
     __syncthreads();
   }
+  // the lane's draws of depth 1 .. K, then its unfilled slots
+  uint32_t hot[K + 1] = {};
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) {
-    uint32_t ctr[kMaxLevels];
-    const int found = place_replicas_lane<RMAX>(
-        ids[i], ctr, len32, node_of, n_segs, top_level, s_log2, max_draws, R,
+    uint32_t deep[ReplicasLadder::kDeep];
+    ReplicasLadder ladder;
+    ladder.deep = deep;
+    const int found = place_replicas_lane_with<RMAX, int32_t>(
+        ids[i], ladder, len32, node_of, n_segs, top_level, s_log2, max_draws, R,
         emit_nodes, out + i * R, RMAX == 0 ? segs_buf + i * R : nullptr,
         RMAX == 0 ? nodes_buf + i * R : nullptr);
     if (stats != nullptr) {
-      // draws of depth >= d = ctr[top - d + 1]; depth d = top - level + 1
-      for (int level = top_level; level >= 0; --level) {
-        const uint32_t here = ctr[level] - (level > 0 ? ctr[level - 1] : 0u);
-        if (here) atomicAdd(&block_hist[top_level - level + 1], here);
-      }
-      if (found < R) atomicAdd(&block_hist[kDepthBins], static_cast<uint32_t>(R - found));
+      ladder.depth_hist(top_level, hot, [&](int depth, uint32_t count) {
+        atomicAdd(&block_hist[depth], count);
+      });
+      hot[K] = static_cast<uint32_t>(R - found);
     }
   }
   if (stats != nullptr) {
+    // u32 sums wrap and commute: the vector is exact mod 2**32
+#pragma unroll
+    for (int b = 0; b <= K; ++b) {
+      const uint32_t sum = __reduce_add_sync(0xFFFFFFFFu, hot[b]);
+      if ((threadIdx.x & 31) == 0 && sum != 0u) {
+        atomicAdd(&block_hist[b < K ? b + 1 : kDepthBins], sum);
+      }
+    }
     __syncthreads();
     for (int b = threadIdx.x; b <= kDepthBins; b += blockDim.x) {
       if (block_hist[b]) atomicAdd(stats + b, block_hist[b]);
@@ -237,6 +265,8 @@ extern "C" int asura_place_replicas(const void* ids, const void* len32,
     launch_replicas<1>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
   } else if (R <= 2) {
     launch_replicas<2>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
+  } else if (R <= 3) {  // the deployments' replication: sets of its own size
+    launch_replicas<3>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
   } else if (R <= 4) {
     launch_replicas<4>(grid, s, i, l, no, o, sb, nb, st, n, n_segs, top_level, s_log2, max_draws, R, emit_nodes);
   } else if (R <= 8) {

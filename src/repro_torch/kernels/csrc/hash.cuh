@@ -24,10 +24,20 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+// The level-``level`` generator's seed for ``id``: a function of (id,
+// level) alone, so a lane that consults a level again may keep it.
+__device__ __forceinline__ uint32_t level_seed(uint32_t id, uint32_t level) {
+  return fmix32(id + kGolden * (level + 1u));
+}
+
+// The ``counter``-th draw of the generator whose seed is ``seed``.
+__device__ __forceinline__ uint32_t draw_seeded(uint32_t seed, uint32_t counter) {
+  return fmix32(seed ^ (counter * kKmult));
+}
+
 __device__ __forceinline__ uint32_t draw_u32(uint32_t id, uint32_t level,
                                              uint32_t counter) {
-  const uint32_t seed = fmix32(id + kGolden * (level + 1u));
-  return fmix32(seed ^ (counter * kKmult));
+  return draw_seeded(level_seed(id, level), counter);
 }
 
 }  // namespace port_hash

@@ -5,12 +5,12 @@
 // (body _hier_replicas_kernel / _hier_replicas_tile, with
 // _place_vartop, next_asura_vartop and resolve_tail_vartop):
 //   * level 1 -- section 5.A over the DOMAIN table: B2's lane body
-//       (place_replicas_lane) with the dense domain SLOT as the "node", so
-//       R distinct slots are R distinct domains (-1 for a slot the
-//       max_draws * R draws did not fill);
+//       (place_replicas_lane_with) with the dense domain SLOT as the
+//       "node", so R distinct slots are R distinct domains (-1 for a slot
+//       the max_draws * R draws did not fill);
 //   * level 2 -- for each filled slot, one total placement of the salted
 //       id fmix32(id ^ did * GOLDEN) in that domain's own table: B1's lane
-//       body (place_lane<true>) at the domain's own top level, on the
+//       body (place_lane_with<true>) at the domain's own top level, on the
 //       domain's row of the stacked (D * s_pad,) tables, then the row's
 //       seg->node gather;
 //   * out is (2, R, n) int32: plane 0 the domain ids, plane 1 the node

@@ -185,6 +185,7 @@ def place_replicas_ref(
     n_replicas: int = 1,
     emit_stats: bool = False,
     emit_nodes: bool = False,
+    emit_levels: bool = False,
 ):
     """Section 5.A replication -> (batch, R) int32, primary first.
 
@@ -194,7 +195,10 @@ def place_replicas_ref(
     segments.  ``emit_stats`` also returns the (DEPTH_BINS,) int64
     consulted-depth histogram over every draw a lane made while still
     seeking, derived -- as the reference does -- from the first
-    difference of the per-row counter sums (mod 2**32).
+    difference of the per-row counter sums (mod 2**32).  ``emit_levels``
+    also returns (last) the int64 count of distinct ladder levels each
+    lane consulted, summed over lanes: the level seeds a lane that keeps
+    them hashes.
     """
     if n_replicas < 1:
         raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
@@ -212,11 +216,14 @@ def place_replicas_ref(
     nodes = torch.full((n, R), -1, dtype=torch.int64, device=dev)
     found = torch.zeros(n, dtype=torch.int64, device=dev)
     cnt = torch.zeros(top_level + 1, dtype=torch.int64, device=dev)
+    levels = torch.zeros((), dtype=torch.int64, device=dev)
 
     def retire(mask):
-        nonlocal cnt
+        nonlocal cnt, levels
         out[alive[mask]] = (nodes if emit_nodes else segs)[mask]
         cnt = cnt + counters[:, mask].sum(dim=1)
+        if emit_levels:
+            levels = levels + (counters[:, mask] > 0).sum()
 
     for _ in range(max_draws * max(1, R)):
         if alive.numel() == 0:
@@ -238,13 +245,16 @@ def place_replicas_ref(
         segs, nodes, found = segs[keep], nodes[keep], found[keep]
     retire(torch.ones_like(found, dtype=torch.bool))  # non-converged lanes
     out = out.to(torch.int32)
-    if not emit_stats:
-        return out
-    # cnt[r] = draws of depth >= r + 1; hist[d] = cnt[d - 1] - cnt[d]
-    cnt = torch.cat([cnt, cnt.new_zeros(1)]) & M32
-    hist = torch.zeros(DEPTH_BINS, dtype=torch.int64, device=dev)
-    hist[1 : top_level + 2] = (cnt[:-1] - cnt[1:]) & M32
-    return out, hist
+    extra = []
+    if emit_stats:
+        # cnt[r] = draws of depth >= r + 1; hist[d] = cnt[d - 1] - cnt[d]
+        cnt = torch.cat([cnt, cnt.new_zeros(1)]) & M32
+        hist = torch.zeros(DEPTH_BINS, dtype=torch.int64, device=dev)
+        hist[1 : top_level + 2] = (cnt[:-1] - cnt[1:]) & M32
+        extra.append(hist)
+    if emit_levels:
+        extra.append(levels)
+    return (out, *extra) if extra else out
 
 
 def place_fused_ref(

@@ -42,9 +42,23 @@ def _artifact(caps, device, params=AsuraParams()):
     return PlacementEngine(make_cluster(caps, params), device=device)._device_artifact()
 
 
+# Tables of every ladder shape the ASURA kernels meet: one node (top level
+# 0), 10 and 64 nodes (tops below the kernels' register levels) and the
+# 4096- and 10,000-node clusters of chip_smoke.py (tops 12 and 14, deeper
+# than any register ladder, so their counters reach the local array).
+LADDERS = {
+    "10 nodes": CAPS,
+    "1 node": [1.0],
+    "64 nodes": [1.0] * 64,
+    "4096 nodes": np.random.default_rng(0).uniform(0.5, 2.0, 4096).tolist(),
+    "10000 nodes": np.random.default_rng(1).uniform(0.5, 2.0, 10_000).tolist(),
+}
+
+
+@pytest.mark.parametrize("ladder", ["10 nodes", "1 node", "4096 nodes", "10000 nodes"])
 @pytest.mark.parametrize("max_draws", [128, 1, 0])
-def test_place_fused_kernel_matches_twin(cuda_device, max_draws):
-    art = _artifact(CAPS, cuda_device, AsuraParams(max_draws=max_draws))
+def test_place_fused_kernel_matches_twin(cuda_device, max_draws, ladder):
+    art = _artifact(LADDERS[ladder], cuda_device, AsuraParams(max_draws=max_draws))
     tabs = (art.len32_dev, art.cum_hi_dev, art.cum_lo_dev, art.node_of_dev)
     ids = _ids(100_003, cuda_device, seed=max_draws)
     before = LAUNCHES["place_fused"]
@@ -55,13 +69,20 @@ def test_place_fused_kernel_matches_twin(cuda_device, max_draws):
     assert LAUNCHES["place_fused"] == before + 2
 
 
+@pytest.mark.parametrize("ladder,max_draws", [
+    ("64 nodes", 128), ("1 node", 128), ("4096 nodes", 128), ("10000 nodes", 128),
+    ("4096 nodes", 1), ("1 node", 0),
+])
 @pytest.mark.parametrize("R", [1, 3, 12])
-def test_place_replicas_kernel_matches_twin(cuda_device, R):
-    art = _artifact([1.0] * 64, cuda_device)
+def test_place_replicas_kernel_matches_twin(cuda_device, R, ladder, max_draws):
+    """B2 and its stats vector on a ragged batch (100,003 ids: the last
+    block's tail lanes take part in the warp sums with zeros); R = 3 runs
+    the three-slot instantiation, R = 12 the scratch rows."""
+    art = _artifact(LADDERS[ladder], cuda_device, AsuraParams(max_draws=max_draws))
     ids = _ids(100_003, cuda_device, seed=R)
     before = LAUNCHES["place_replicas"]
     for emit in (False, True):
-        kw = dict(top_level=art.top_level, s_log2=1, max_draws=128, n_replicas=R,
+        kw = dict(top_level=art.top_level, s_log2=1, max_draws=max_draws, n_replicas=R,
                   emit_nodes=emit, emit_stats=True)
         got, stats = place_replicas_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
         want, want_stats = ref.place_replicas_fused_ref(
@@ -69,6 +90,39 @@ def test_place_replicas_kernel_matches_twin(cuda_device, R):
         assert torch.equal(got, want)
         assert torch.equal(as_u32(stats), as_u32(want_stats))
     assert LAUNCHES["place_replicas"] == before + 2
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 255, 257, 4097])
+def test_place_replicas_stats_on_ragged_batches(cuda_device, n):
+    """The warp-summed stats vector for batches that end inside a warp or
+    a block, R = 2 and 3, on the 4096-node ladder."""
+    art = _artifact(LADDERS["4096 nodes"], cuda_device)
+    ids = _ids(n, cuda_device, seed=n)
+    for R in (2, 3):
+        kw = dict(top_level=art.top_level, s_log2=1, max_draws=128, n_replicas=R,
+                  emit_nodes=True, emit_stats=True)
+        got, stats = place_replicas_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+        want, want_stats = ref.place_replicas_fused_ref(
+            ids, art.len32_dev, art.node_of_dev, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(as_u32(stats), as_u32(want_stats))
+
+
+def test_ladder_kernels_build_without_a_full_counter_frame(cuda_device):
+    """B1, B9 and every B2 instantiation (RMAX = 3 among them) keep their
+    top counters in registers: a stack frame below the 128 B of a counter
+    per level, and no spills."""
+    from repro_torch.kernels import build
+
+    report = build.ptxas_report("asura_place")
+    names = {"place_fused": "18place_fused_kernelE", "place": "12place_kernelE",
+             "place_replicas": "21place_replicas_kernelI"}
+    for label, pattern in names.items():
+        found = {k: v for k, v in report.items() if pattern in k}
+        assert found, label
+        for sym, x in found.items():
+            assert x["stack"] < 128 and x["spill_stores"] == x["spill_loads"] == 0, (sym, x)
+    assert any("21place_replicas_kernelILi3EE" in k for k in report)
 
 
 def test_kernels_handle_empty_and_ragged_batches(cuda_device):
@@ -379,9 +433,10 @@ from repro_torch.kernels.hierarchy import hier_place_replicas_cuda  # noqa: E402
 from repro_torch.kernels.hierarchy_ref import hier_place_replicas_ref  # noqa: E402
 
 
+@pytest.mark.parametrize("ladder", ["10 nodes", "1 node", "4096 nodes", "10000 nodes"])
 @pytest.mark.parametrize("max_draws", [128, 1, 0])
-def test_place_kernel_matches_twin(cuda_device, max_draws):
-    art = _artifact(CAPS, cuda_device, AsuraParams(max_draws=max_draws))
+def test_place_kernel_matches_twin(cuda_device, max_draws, ladder):
+    art = _artifact(LADDERS[ladder], cuda_device, AsuraParams(max_draws=max_draws))
     ids = _ids(100_003, cuda_device, seed=max_draws)
     kw = dict(top_level=art.top_level, s_log2=1, max_draws=max_draws)
     before = LAUNCHES["place"]

@@ -270,6 +270,44 @@ def test_place_replicas_wrapper_matches_pallas_and_stats(R, emit_nodes):
     assert np.array_equal(stats.numpy(), np.asarray(want_stats))
 
 
+from repro.kernels.asura_place import place_replicas_pallas  # noqa: E402
+from test_torch_launch import stats_warp_summed  # noqa: E402
+
+
+@pytest.mark.parametrize("name,R,max_draws", [
+    ("heavy_tail", 3, 128), ("mixed", 1, 128), ("uniform_128", 12, 128),
+    ("heavy_tail", 3, 1), ("one_node_frac", 3, 4),
+])
+def test_seeded_ladder_model_matches_place_replicas_pallas(name, R, max_draws):
+    """The model of B2's lane on its seeded register ladder
+    (``tests/test_torch_launch.py``) gives the reference's
+    ``place_replicas_pallas`` rows (interpret mode), and its warp-summed
+    stats vector the reference's fused ref's."""
+    c = make_cluster(CLUSTERS[name])
+    len32_j, top = jops.table_prep(c.seg_lengths())
+    node_j = jops.node_table_prep(c.seg_to_node())
+    ids = _ids(256, seed=R + max_draws)
+    kw = dict(top_level=top, s_log2=1, max_draws=max_draws, n_replicas=R)
+    want = np.asarray(place_replicas_pallas(jnp.asarray(ids), len32_j, node_j,
+                                            rows_per_block=2, **kw))
+    _, want_stats = jops._place_replicas_fused_ref(
+        jnp.asarray(ids), len32_j, node_j, emit_nodes=False, emit_stats=True, **kw)
+    n_segs = len(c.seg_lengths())
+    table = (np.asarray(len32_j)[:n_segs], c.seg_to_node().astype(np.int32), top)
+    rows, stats = stats_warp_summed(ids, table, max_draws=max_draws, R=R, K=6, seeds=5)
+    assert np.array_equal(np.array(rows), want)
+    assert stats == np.asarray(want_stats).astype(np.int64).tolist()
+
+
+def test_place_replicas_wrapper_rejects_a_draw_cap_past_int32():
+    """B2 counts its draws in int32, as the reference's loop does."""
+    len32, _, _, node_of, top = _small_tables()
+    for max_draws, R in ((2**30, 2), (2**31, 1), (2**29, 5)):
+        with pytest.raises(ValueError):
+            place_replicas_cuda(_t(_ids(16)), len32, node_of, top_level=top,
+                                max_draws=max_draws, n_replicas=R)
+
+
 def test_nonconverged_slots_counted_per_slot():
     """R above the number of distinct nodes: unfilled slots are -1 and the
     stats' last entry counts SLOTS over (batch, R), as the reference does."""

@@ -9,14 +9,17 @@ models of the algorithms the kernels changed check, lane by lane,
 that counting one bucket after the sampled index lands where
 ``searchsorted`` lands (duplicates across bucket boundaries and padding
 included), that the ladder with its top K counters in registers (B3, B4,
-B8) draws exactly what a counter per level draws, and that the diff
-kernels' one walk for both tables (B3, B4) gives what two walks give.
+B8) draws exactly what a counter per level draws, that the diff
+kernels' one walk for both tables (B3, B4) gives what two walks give,
+and that the ladder which also keeps its register levels' seeds (B1, B2,
+B9) draws the generator's numbers, with B2's stats vector read from it
+and summed per warp as the kernel sums it.
 """
 
 import numpy as np
 import pytest
 
-from repro_torch.core.rng import draw_u32_np, draw_u32_scalar
+from repro_torch.core.rng import GOLDEN, KMULT, draw_u32_np, draw_u32_scalar, fmix32_scalar
 from repro_torch.kernels import build, launch
 
 BUDGET_KEYS = launch.INDEX_BUDGET // launch.KEY_BYTES
@@ -152,7 +155,8 @@ def test_model_draws_are_the_generator():
 
 
 class ArrayLadder:
-    """A counter per level, indexed by level (B1-B4, B9)."""
+    """A counter per level, indexed by level: the plain ladder the
+    register ladders below are held to."""
 
     def reset(self, top):
         self.ctr = [0] * (top + 1)
@@ -345,3 +349,197 @@ def test_joint_walk_equals_two_walks_b4(tops, max_draws, R):
         for K in (6, 2):
             got = diff_lane(lane_id, tables, max_draws=max_draws, R=R, K=K)
             assert got == want, (lane_id, K)
+
+
+# ---------------------------------------------------------------------------
+# a NumPy model of B1 / B2 / B9's ladder, which also keeps its top
+# levels' seeds (TopLadder<K, S> in csrc/asura_lane.cuh), and of B2's
+# stats vector read from it and summed per warp (place_replicas_kernel in
+# csrc/asura_place.cu)
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+DEPTH_BINS = 34  # the stats vector: [draws of depth 0 .. 33, unfilled slots]
+
+
+def _level_seed(lane_id, level) -> int:
+    return fmix32_scalar((lane_id + GOLDEN * (level + 1)) & M32)
+
+
+def _draw_seeded(seed, counter) -> int:
+    return fmix32_scalar(seed ^ ((counter * KMULT) & M32))
+
+
+class SeededTopLadder(TopLadder):
+    """TopLadder whose top ``seeds`` levels draw from seeds hashed at the
+    reset; the other levels hash every draw in full.  ``draws`` logs
+    every (level, counter, draw)."""
+
+    def __init__(self, K, seeds):
+        super().__init__(K)
+        self.seeds = seeds
+
+    def reset(self, top, lane_id):
+        super().reset(top)
+        self.seed = [_level_seed(lane_id, top - j) for j in range(self.seeds)]
+        self.draws = []
+
+    def next(self, lane_id, top):
+        for j in range(self.K):
+            level = top - j
+            if j < self.seeds:
+                h = _draw_seeded(self.seed[j], self.c[j])
+            else:
+                h = _draw(lane_id, level, self.c[j])
+            self.draws.append((level, self.c[j], h))
+            self.c[j] += 1
+            if level == 0 or h >= 2**31:
+                return level, h
+        while True:
+            level -= 1
+            if level < self.fresh:
+                self.deep[level], self.fresh = 0, level
+            h = _draw(lane_id, level, self.deep[level])
+            self.draws.append((level, self.deep[level], h))
+            self.deep[level] += 1
+            if level == 0 or h >= 2**31:
+                return level, h
+
+    def depth_hist(self, top):
+        """(hot, deep): the draws of depth 1 .. K from the register
+        counters' differences (depth K less the counter of level top - K,
+        0 unless zeroed since the reset), and {depth: count} of the deeper
+        depths from the deep levels in [fresh, top - K]."""
+        K, c = self.K, self.c
+        hot = [(c[j] - c[j + 1]) & M32 for j in range(K - 1)]
+        below = top - K
+        hot.append((c[K - 1] - (self.deep[below] if below >= self.fresh else 0)) & M32)
+        deep = {}
+        for level in range(below, self.fresh - 1, -1):
+            here = (self.deep[level] - (self.deep[level - 1] if level > self.fresh else 0)) & M32
+            if here:
+                deep[top - level + 1] = here
+        return hot, deep
+
+
+def replicas_lane(lane_id, table, ladder, *, max_draws, R):
+    """B2's per-lane body: the first R hits on distinct nodes within
+    max_draws * max(1, R) draws -> (the R segments, -1 padded; slots
+    filled).  The ladder is left holding the lane's counters."""
+    len32, node_of, top = table
+    if isinstance(ladder, SeededTopLadder):
+        ladder.reset(top, lane_id)
+    else:
+        ladder.reset(top)
+    segs, nodes = [], []
+    for _ in range(max_draws * max(1, R)):
+        if len(segs) == R:
+            break
+        k, f = _split(*ladder.next(lane_id, top))
+        if _hits(k, f, len32) and int(node_of[k]) not in nodes:
+            segs.append(k)
+            nodes.append(int(node_of[k]))
+    return segs + [-1] * (R - len(segs)), len(segs)
+
+
+def stats_per_level(ids, table, *, max_draws, R):
+    """The stats vector as the counter-per-level kernel built it: each
+    lane's draws of depth top - level + 1 = ctr[level] - ctr[level - 1],
+    and its unfilled slots, summed (mod 2**32)."""
+    top = table[2]
+    rows, stats = [], [0] * (DEPTH_BINS + 1)
+    for lane_id in ids:
+        ladder = ArrayLadder()
+        row, found = replicas_lane(int(lane_id), table, ladder, max_draws=max_draws, R=R)
+        rows.append(row)
+        for level in range(top, -1, -1):
+            here = ladder.ctr[level] - (ladder.ctr[level - 1] if level > 0 else 0)
+            stats[top - level + 1] = (stats[top - level + 1] + here) & M32
+        stats[DEPTH_BINS] = (stats[DEPTH_BINS] + R - found) & M32
+    return rows, stats
+
+
+def stats_warp_summed(ids, table, *, max_draws, R, K, seeds, block=256):
+    """The kernel's epilogue: each lane's depths 1 .. K and unfilled slots
+    summed over its 32-lane warp (lanes past n take part with zeros) and
+    added by one lane to its block's histogram, the deeper depths added
+    per lane, each block's histogram then added to the vector."""
+    top = table[2]
+    rows, stats = [], [0] * (DEPTH_BINS + 1)
+    n = len(ids)
+    for b0 in range(0, n, block):
+        block_hist = [0] * (DEPTH_BINS + 1)
+        for w0 in range(b0, b0 + block, 32):
+            warp = [[0] * (K + 1) for _ in range(32)]  # hot depths, then unfilled slots
+            for lane in range(32):
+                if w0 + lane >= n:
+                    continue
+                ladder = SeededTopLadder(K, seeds)
+                row, found = replicas_lane(int(ids[w0 + lane]), table, ladder,
+                                           max_draws=max_draws, R=R)
+                rows.append(row)
+                hot, deep = ladder.depth_hist(top)
+                warp[lane][:K] = hot
+                warp[lane][K] = R - found
+                for d, count in deep.items():
+                    block_hist[d] = (block_hist[d] + count) & M32
+            for b in range(K + 1):
+                total = sum(warp[lane][b] for lane in range(32)) & M32
+                bin_ = b + 1 if b < K else DEPTH_BINS
+                block_hist[bin_] = (block_hist[bin_] + total) & M32
+        stats = [(x + y) & M32 for x, y in zip(stats, block_hist)]
+    return rows, stats
+
+
+@pytest.mark.parametrize("K,seeds", [(1, 0), (1, 1), (4, 2), (4, 4), (6, 3), (6, 6), (8, 8)])
+def test_seeded_ladder_draws_the_generator(K, seeds):
+    """Every draw of the seeded ladder is ``draw_u32_scalar`` of its
+    (level, counter), and its sequence is the counter-per-level ladder's
+    over several resets (tops below, at and above K, deep array reused)."""
+    rng = np.random.default_rng(K * 10 + seeds)
+    for lane_id in map(int, rng.integers(0, 2**32, 12, dtype=np.uint32)):
+        want, got = ArrayLadder(), SeededTopLadder(K, seeds)
+        for top in (12, 0, 3, K - 1 if K > 1 else 0, K, 20, 6):
+            want.reset(top)
+            got.reset(top, lane_id)
+            seq_w = [want.next(lane_id, top) for _ in range(40)]
+            seq_g = [got.next(lane_id, top) for _ in range(40)]
+            assert seq_g == seq_w
+            assert all(h == draw_u32_scalar(lane_id, lv, c) for lv, c, h in got.draws)
+
+
+# (top level, holes): tops below, at and above the kernels' K, a one-level
+# (top 0) table, and length-0 holes
+REPLICA_TABLES = [(0, 0), (3, 2), (6, 1), (12, 3)]
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("max_draws", [0, 1, 128])
+@pytest.mark.parametrize("top,holes", REPLICA_TABLES)
+def test_b2_lane_and_warp_summed_stats_on_seeded_ladder(top, holes, max_draws, R):
+    """B2's lane on the seeded ladder gives the counter-per-level lane's
+    rows, and its stats vector, read from the ladder and summed per warp
+    over 100 lanes (not a multiple of 32), the per-level stats; K = 6
+    with five seeds kept (B2's ladder) and K = 4 with every register
+    level's."""
+    table = model_table(top, 5 + top, holes=holes)
+    ids = np.random.default_rng(top * 7 + max_draws + R).integers(0, 2**32, 100,
+                                                                   dtype=np.uint32)
+    want_rows, want_stats = stats_per_level(ids, table, max_draws=max_draws, R=R)
+    for K, seeds in ((6, 5), (4, 4)):
+        rows, stats = stats_warp_summed(ids, table, max_draws=max_draws, R=R, K=K,
+                                        seeds=seeds)
+        assert rows == want_rows
+        assert stats == want_stats
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 257, 300])
+def test_warp_summed_stats_on_ragged_batches(n):
+    """Batches that end inside a warp or a block (300 = 256 + 44) on a
+    ladder deeper than K, so that deep depths are counted per lane."""
+    table = model_table(9, 11, holes=4)
+    ids = np.random.default_rng(n).integers(0, 2**32, n, dtype=np.uint32)
+    want_rows, want_stats = stats_per_level(ids, table, max_draws=128, R=3)
+    rows, stats = stats_warp_summed(ids, table, max_draws=128, R=3, K=4, seeds=2)
+    assert rows == want_rows and stats == want_stats
+    assert sum(stats[6:DEPTH_BINS]) > 0 or n < 33  # deep depths were reached
