@@ -8,7 +8,10 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 The main path is ASURA STEP 2 -- placing a batch of u32 datum ids against
 one versioned segment table -- reached two ways: bulk placement through
-``PlacementEngine`` and the batched serving step ``RequestStreamDriver``.
+``PlacementEngine`` and the batched serving step ``RequestStreamDriver``;
+then the migration, baseline and failure-domain paths, and the modules
+through which users meet placement (data pipeline, elastic coordinator,
+checkpoint store, durability simulator).
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -110,8 +113,39 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            ``MigrationPlanner.plan_replicas`` (R = 3) per event, with the
            two-level invariants checked; ``route_replica_pairs`` on 2**18
            keys equal to the CPU's;
+  11. the consumers of placement at full width, under ``--seed``:
+      11a. ``ShardedDataset`` of 2**24 shards on the 4096 ingest hosts,
+           ``DataPipeline`` for 8 of them; one bincount over the card's
+           owners (every shard owned once); add a host, then remove host
+           2048: every pipeline's ``refresh_membership`` gained / lost sets
+           equal B3's diff on all 2**24 ids; batches drawn; the ownership
+           sweep timed (CUDA events and host wall);
+      11b. ``ElasticCoordinator`` over 2**20 tracked ids, R = 1 and 3:
+           add / remove plans equal to the brute-force diff (owners placed
+           at both versions on the card), a live add drained, a live add
+           rolled back, a live removal (its rollback refused) drained, the
+           owner table equal to the placement after each; ``ch``, ``rs``,
+           ``wrh`` add / remove at R = 1; host wall time of each event and
+           of the host ADDITION-NUMBER trace;
+      11c. ``AsuraCheckpointStore`` of 256 nodes (capacities the first 256
+           drawn), R = 3, a 1 GiB state of tensors on the card (16 f32
+           leaves of 4096 x 4096, a bf16 and a ragged leaf): save,
+           ``save_async`` with the state updated in place right after the
+           call, restores byte-exact; 2 nodes failed and restored, then
+           each removed and repaired (copies only of chunks it held, every
+           chunk back on its replica set); a live add drained; ``add_node``
+           moving the minimal copies; GiB/s of save and restore (host wall);
+      11d. the durability simulator (``compare_policies``, R = 3, and
+           ``movement_on_node_add``): ``benchmarks/durability.py``'s QUICK
+           configuration, whose integers must equal ``BENCH_durability.json``
+           (read from the file), its FULL one, and the 4096 nodes in 64
+           racks of 64 at 2**20 objects over a quarter year;
+      11e. the sequence of 11a-11d at 2**18 ids on 64 nodes (a 4 MiB
+           state, QUICK durability) on the card and on the CPU: owned
+           shards, batches, MovePlans, drain rounds, blobs per node,
+           reports and movement must agree bit for bit;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
-     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d), time at
+     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -228,6 +262,23 @@ RAGGED_DOMAINS = 40  # 1 to 128 nodes each
 HIER_ADD_RACK, HIER_GONE_RACK = 7, 40
 DEEP_LEVELS = 4  # phase 10a: levels added on top of a domain ladder
 SCALE_OUT = 1024  # the full-width top-change event: 4096 -> 5120 nodes, top 12 -> 13
+# phase 11, the consumers of placement
+CONSUMER_HOSTS = 8  # DataPipelines driven: hosts k * N / 8 (the removed host N / 2 among them)
+SHARD_TOKENS = 2048  # tokens per shard
+SHARD_VOCAB = 50_257  # the GPT-2 vocabulary
+BATCH_PER_HOST, SEQ_LEN = 8, 1024
+TRACKED = 1 << 20  # ids the elastic coordinator tracks
+STORE_NODES = 256  # checkpoint store nodes, capacities the first 256 of the 4096 drawn
+STATE_LEAVES, STATE_SIDE = 16, 4096  # f32 leaves of 4096 x 4096: 1 GiB, plus bf16 and ragged
+CUT_IDS, CUT_NODES = 1 << 18, 64  # phase 11e, on the card and on the CPU
+RACK_YEARS = 0.25  # 64 racks x 64: ~1,400 node failures per simulated year, each a host scan
+# benchmarks/durability.py QUICK and FULL, and the 4096 nodes in racks of 64
+_MTTF = dict(mttf_node_years=3.0, mttf_domain_years=15.0, seed=7)
+DURABILITY = {
+    "quick": dict(n_domains=6, nodes_per_domain=4, n_objects=20_000, years=10.0, **_MTTF),
+    "full": dict(n_domains=12, nodes_per_domain=8, n_objects=200_000, years=20.0, **_MTTF),
+    "racks": dict(n_objects=1 << 20, years=RACK_YEARS, **_MTTF),
+}
 
 
 def scale_out(np, cluster) -> None:
@@ -739,6 +790,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 10: failure-domain-aware placement ----------------------------
     hier = phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile)
 
+    # -- phase 11: the consumers of placement ---------------------------------
+    consumer_launches = phase11(torch, np, dev, caps[LADDER_NODES], seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -749,7 +803,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
 
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
-                  *hier["launches"])
+                  *hier["launches"], consumer_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -1775,6 +1829,345 @@ def phase10(torch, np, dev, all_caps, seed, ids, bulk, hold, profile: bool = Fal
     return out
 
 
+def card_line(dev) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (every
+    phase-11 timing is printed beside it); "cpu" on the host."""
+    if dev.type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def wall(fn):
+    """(result, host seconds) of ``fn()``; the result stays where it is."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def durability_topology(n_domains: int, nodes_per_domain: int) -> dict:
+    """``benchmarks/durability.py``'s topology: unit capacities, node id
+    ``domain * nodes_per_domain + i``."""
+    return {d: {d * nodes_per_domain + i: 1.0 for i in range(nodes_per_domain)}
+            for d in range(n_domains)}
+
+
+def consumers(torch, np, dev, caps, seed, *, shards: int, tracked: int, store_nodes: int,
+              leaves: int, side: int, durability: tuple, quiet: bool = False) -> dict:
+    """The consumers of placement on ``dev`` (phase 11a-11d) -> their
+    results as host values, for the card-vs-CPU comparison of 11e.  Each
+    sub-phase raises on a wrong result; checks against brute force run
+    ``uncounted``."""
+    from repro_torch.checkpoint import AsuraCheckpointStore, CheckpointManager
+    from repro_torch.core import align_replica_sets, make_cluster
+    from repro_torch.data import DataPipeline, ShardedDataset
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.runtime import ElasticCoordinator
+    from repro_torch.runtime.durability import compare_policies, movement_on_node_add
+
+    say = (lambda *a, **k: None) if quiet else print
+    card = card_line(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    rng = np.random.default_rng(seed + 11)
+    res: dict = {}
+    n = len(caps)
+    victim = n // 2
+
+    # -- 11a: the sharded data pipeline ---------------------------------------
+    say(f"phase 11a: ShardedDataset of {shards} shards on {n} ingest hosts, DataPipeline "
+        f"for {CONSUMER_HOSTS} of them ({card})")
+    cluster = make_cluster(caps, device=dev)
+    engine = cluster.engine
+    ds = ShardedDataset(n_shards=shards, tokens_per_shard=SHARD_TOKENS, vocab=SHARD_VOCAB)
+    hosts = [k * n // CONSUMER_HOSTS for k in range(CONSUMER_HOSTS)]
+    pipes, t_own = wall(lambda: {h: DataPipeline(ds, cluster, h, batch_per_host=BATCH_PER_HOST,
+                                                 seq_len=SEQ_LEN, seed=seed) for h in hosts})
+    shard_ids = torch.arange(shards, dtype=torch.int64, device=dev)
+    with uncounted(LAUNCHES):
+        owners = engine.place_nodes_device(shard_ids)
+        per_node = torch.bincount(owners.long(), minlength=n + 2).cpu().numpy()
+    require(int(per_node.sum()) == shards and int(owners.min()) >= 0, "a shard has no owner")
+    require(set(np.nonzero(per_node)[0].tolist()) <= set(cluster.nodes), "a shard on no node")
+    for h, p in pipes.items():
+        require(len(p.owned_shards) == per_node[h], f"host {h} owns {len(p.owned_shards)} "
+                f"shards, the bincount says {per_node[h]}")
+    say(f"  every shard owned exactly once; {len(hosts)} pipelines built in {t_own:.4f} s "
+        f"(host wall, one placement sweep each)")
+    if cuda:
+        with uncounted(LAUNCHES):
+            times = cuda_ms(torch, lambda: engine.place_nodes_device(shard_ids), 5)
+            _, t_sweep = wall(lambda: pipes[hosts[0]]._compute_owned())
+        say(f"  ownership sweep: B1 over {shards} shard ids median {statistics.median(times):.4f} "
+            f"ms (CUDA events); one pipeline's whole sweep (id upload, B1, the bool mask to "
+            f"the host, the index) {t_sweep * 1e3:.4f} ms host wall")
+    for label, event, new_pipe in (("add host", lambda: cluster.add_node(n, 1.0), n),
+                                   ("remove host", lambda: cluster.remove_node(victim), None)):
+        engine.artifact()  # pin v for the diff below
+        v_from = cluster.version
+        event()
+        if new_pipe is not None:
+            pipes[new_pipe] = DataPipeline(ds, cluster, new_pipe, batch_per_host=BATCH_PER_HOST,
+                                           seq_len=SEQ_LEN, seed=seed)
+        changes, t_ref = wall(lambda: {h: p.refresh_membership() for h, p in pipes.items()})
+        with uncounted(LAUNCHES):
+            moved, src, dst = (x.cpu().numpy() for x in engine.diff_nodes_device(
+                shard_ids, v_from, cluster.version))
+        all_ids = np.arange(shards, dtype=np.uint32)
+        for h, (gained, lost) in changes.items():
+            if h == new_pipe:
+                continue
+            require(np.array_equal(gained, all_ids[moved & (dst == h)])
+                    and np.array_equal(lost, all_ids[moved & (src == h)]),
+                    f"{label}: host {h}'s gained / lost shards differ from B3's diff")
+        if new_pipe is not None:
+            require(np.array_equal(pipes[new_pipe].owned_shards, all_ids[moved & (dst == n)])
+                    and bool((dst[moved] == n).all()), f"{label}: the new host's shards")
+        res[f"pipeline.{label}.moved"] = all_ids[moved]
+        say(f"  {label}: {int(moved.sum())} shards moved, equal to B3's diff on all {shards} "
+            f"ids; refresh_membership of {len(pipes)} pipelines {t_ref:.4f} s host wall")
+    batches = []
+    for h, p in pipes.items():
+        for _, b in zip(range(2), p.batches(epoch=1)):
+            require(b.shape == (BATCH_PER_HOST, SEQ_LEN) and b.dtype == np.int32
+                    and int(b.min()) >= 0 and int(b.max()) < SHARD_VOCAB, f"host {h}'s batch")
+            batches.append(b)
+        res[f"pipeline.owned.{h}"] = p.owned_shards
+    res["pipeline.batches"] = np.stack(batches)
+    say(f"  {len(batches)} batches of ({BATCH_PER_HOST}, {SEQ_LEN}) tokens drawn")
+
+    # -- 11b: the elastic coordinator ------------------------------------------
+    say(f"phase 11b: ElasticCoordinator, {tracked} tracked ids on {n} nodes, R=1 and R=3, "
+        f"and ch / rs / wrh at R=1 ({card})")
+    ids = rng.integers(0, 2**32, tracked, dtype=np.uint32)
+
+    def expected(before, after, R):
+        """The brute-force MovePlan: owners placed at both versions."""
+        if R == 1:
+            rows = np.nonzero(before != after)[0]
+            return dict(zip(ids[rows].tolist(), zip(before[rows].tolist(), after[rows].tolist())))
+        moved, src, _ = align_replica_sets(before, after)
+        b, r = np.nonzero(moved)
+        return dict(zip(ids[b].tolist(), zip(src[b, r].tolist(), after[b, r].tolist())))
+
+    def placed(c, R, algorithm="asura"):
+        with uncounted(LAUNCHES):
+            if R > 1:
+                return c.engine.place_replica_nodes(ids, R)
+            return c.engine.place_nodes(ids, algorithm=algorithm)
+
+    for R in (1, 3):
+        c = make_cluster(caps, device=dev)
+        coord, t_init = wall(lambda: ElasticCoordinator(c, ids, n_replicas=R))
+        _, t_an = wall(coord._addition_numbers)
+        say(f"  R={R}: owners of {tracked} ids {t_init:.4f} s; host ADDITION-NUMBER trace "
+            f"{t_an:.4f} s ({int((coord._an < 0).sum())} ids past the u32 range: candidates)")
+        events = (("add", lambda: coord.add_node(n, 1.0)),
+                  ("remove", lambda: coord.remove_node(victim)))
+        for label, event in events:
+            before = coord.owners()
+            plan, t_ev = wall(event)
+            after = placed(c, R)
+            require(plan.moves == expected(before, after, R),
+                    f"R={R} {label}: the MovePlan differs from the brute-force diff")
+            require(np.array_equal(coord.owners(), after), f"R={R} {label}: owner table")
+            res[f"coord.R{R}.{label}"] = plan.moves
+            say(f"    {label}: {plan.n_moves} moves = brute force, {t_ev:.4f} s host wall")
+        for label, start in (("live add", lambda: coord.add_node_live(n + 1, 1.0,
+                                                                      ingress=WINDOW_INGRESS)),
+                             ("live add + rollback",
+                              lambda: coord.add_node_live(n + 2, 1.0, ingress=WINDOW_INGRESS)),
+                             ("live remove", lambda: coord.remove_node_live(
+                                 victim + 1, ingress=WINDOW_INGRESS))):
+            live, t_ev = wall(start)
+            moves = live.state.plan.n_moves
+            if label == "live add + rollback":
+                if live.state.n_pending > WINDOW_INGRESS:
+                    live.round()  # half-landed: the rollback drains back what landed
+                live = coord.rollback_live(live)
+                require(n + 2 not in c.nodes, "the rollback left the node in")
+            elif label == "live remove":
+                try:
+                    coord.rollback_live(live)
+                    raise RuntimeError("a removal rolled back")
+                except ValueError:
+                    pass
+            rounds, t_drain = wall(live.run)
+            require(np.array_equal(coord.owners(), placed(c, R)),
+                    f"R={R} {label}: the owner table after the drain")
+            res[f"coord.R{R}.{label}.rounds"] = rounds
+            say(f"    {label}: {moves} rows, plan {t_ev:.4f} s, drained in {len(rounds)} rounds "
+                f"{t_drain:.4f} s host wall")
+    for alg in BASELINES:
+        c = make_cluster(caps, device=dev)
+        coord = ElasticCoordinator(c, ids, algorithm=alg)
+        for label, event in (("add", lambda: coord.add_node(n, 1.0)),
+                             ("remove", lambda: coord.remove_node(victim))):
+            before = coord.owners()
+            plan, t_ev = wall(event)
+            after = placed(c, 1, alg)
+            require(plan.moves == expected(before, after, 1),
+                    f"{alg} {label}: the MovePlan differs from the brute-force diff")
+            res[f"coord.{alg}.{label}"] = plan.moves
+            say(f"  {alg} {label}: {plan.n_moves} moves = brute force, {t_ev:.4f} s host wall")
+
+    # -- 11c: the replicated checkpoint store ----------------------------------
+    store_caps = {i: float(cap) for i, cap in enumerate(caps[:store_nodes])}
+
+    def leaf(i: int, *shape):
+        """Seeded values in [-1, 1), exact on every device: an integer hash
+        of the position, scaled by a power of two."""
+        k = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=dev)
+        k = (k * 2654435761 + (seed * 1000 + i) * 40503) & (2**21 - 1)
+        return ((k - 2**20).to(torch.float32) * 2.0**-20).reshape(shape)
+
+    state = {f"layer{i:02d}.weight": leaf(i, side, side) for i in range(leaves)}
+    state["embed.bf16"] = leaf(leaves, side, side // 4).to(torch.bfloat16)
+    state["norm.ragged"] = leaf(leaves + 1, 1007)
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    gib = n_bytes / 2**30
+    say(f"phase 11c: AsuraCheckpointStore of {store_nodes} nodes, R=3, a state of "
+        f"{gib:.4f} GiB in {len(state)} leaves ({card})")
+    store = AsuraCheckpointStore(store_caps, n_replicas=3, device=dev)
+    mgr = CheckpointManager(store)
+
+    def same_as(out, ref):
+        return all(torch.equal(out[k], ref[k]) for k in ref)
+
+    sync()
+    _, t_save = wall(lambda: mgr.save(1, state))
+    n_chunks = len({k for node in store.nodes.values() for k in node.blobs})
+    orig = {k: v.clone() for k, v in state.items()}
+    _, t_async = wall(lambda: mgr.save_async(2, state))
+    for t in state.values():
+        t.add_(1)  # an optimizer step updates in place while the thread writes
+    mgr.wait()
+    out, t_restore = wall(lambda: mgr.restore(2, state))
+    sync()
+    require(same_as(out, orig), "save_async: the restored state differs from the call-time one")
+    require(same_as(mgr.restore(1, state), orig), "save: the restored state differs")
+    say(f"  save {t_save:.4f} s = {gib / t_save:.4f} GiB/s, save_async returned in "
+        f"{t_async:.4f} s, restore {t_restore:.4f} s = {gib / t_restore:.4f} GiB/s (host wall, "
+        f"{n_chunks} chunks of at most 1 MiB per step, byte-exact)")
+    down = sorted(store.nodes)[1:3]
+    for nid in down:
+        store.fail_node(nid)
+    require(same_as(mgr.restore(2, state), orig), "restore with 2 nodes down")
+    for nid in down:
+        held = set(store.nodes[nid].blobs)
+        keys_before = {k: set(node.blobs) for k, node in store.nodes.items()}
+        moved, t_rep = wall(lambda: store.remove_node_and_repair(nid))
+        added = {(key, k) for k, node in store.nodes.items()
+                 for key in set(node.blobs) - keys_before[k]}
+        require(moved == len(added) and {key for key, _ in added} <= held,
+                f"repair of node {nid} moved chunks it did not hold")
+        keys = np.fromiter(held, dtype=np.uint32)
+        for key, row in zip(keys.tolist(), store.replicas_for(keys)):
+            require(all(key in store.nodes[int(x)].blobs for x in row
+                        if store.nodes[int(x)].alive), f"chunk {key} under-replicated")
+        say(f"  node {nid} failed and repaired: {moved} copies, only chunks it held "
+            f"({len(held)}), {t_rep:.4f} s")
+        res[f"store.repair.{nid}"] = moved
+    require(same_as(mgr.restore(2, state), orig), "restore after the repairs")
+    live, t_plan = wall(lambda: store.begin_add_node(store_nodes, 1.5, ingress=WINDOW_INGRESS))
+    rounds = live.run()
+    require(same_as(mgr.restore(2, state), orig), "restore after the live add")
+    say(f"  begin_add_node live: {live.live.state.plan.n_moves} copies in {len(rounds)} "
+        f"rounds ({t_plan:.4f} s to plan), restore byte-exact")
+    keys = np.fromiter({k for node in store.nodes.values() for k in node.blobs}, np.uint32)
+    before = store.replicas_for(keys)
+    moved = store.add_node(store_nodes + 1, 2.0)
+    after = store.replicas_for(keys)
+    want = sum(len(set(a.tolist()) - set(b.tolist())) for a, b in zip(after, before))
+    require(moved == want, f"add_node moved {moved} copies, the minimum is {want}")
+    require(same_as(mgr.restore(2, state), orig), "restore after add_node")
+    say(f"  add_node: {moved} copies, the minimal set; restore byte-exact")
+    res["store.live.rounds"] = rounds
+    res["store.add_node"] = moved
+    res["store.blobs"] = {nid: node.blobs for nid, node in store.nodes.items()}
+    del state, orig, out
+
+    # -- 11d: the durability simulator -----------------------------------------
+    bench = json.loads((HERE / "BENCH_durability.json").read_text())["entries"]
+    for name in durability:
+        cfg = DURABILITY[name]
+        topo = (durability_topology(cfg["n_domains"], cfg["nodes_per_domain"])
+                if name != "racks" else
+                {d: {nid: float(caps[nid]) for nid in range(d * RACK, (d + 1) * RACK)}
+                 for d in range(n // RACK)})
+        kw = {k: cfg[k] for k in ("n_objects", "years", "mttf_node_years",
+                                  "mttf_domain_years", "seed")}
+        reports, t_sim = wall(lambda: compare_policies(topo, n_replicas=3, device=dev, **kw))
+        moved, t_mov = wall(lambda: movement_on_node_add(
+            topo, n_objects=min(cfg["n_objects"], 50_000), n_replicas=3, device=dev))
+        flat, hier = reports["flat"], reports["hier"]
+        say(f"phase 11d ({name}): {len(topo)} domains x {len(topo[0])} nodes, "
+            f"{cfg['n_objects']} objects, R=3, {cfg['years']} years: {flat.node_failures} node "
+            f"and {flat.domain_failures} domain failures; flat {flat.objects_lost} lost in "
+            f"{flat.loss_incidents} incidents, hier {hier.objects_lost} in "
+            f"{hier.loss_incidents}; rows repaired {flat.rows_repaired} / "
+            f"{hier.rows_repaired}; movement {100 * moved['flat']:.3f} % / "
+            f"{100 * moved['hier']:.3f} %; {t_sim:.4f} s simulation + {t_mov:.4f} s movement "
+            f"host wall ({card})")
+        require(hier.objects_lost < flat.objects_lost or flat.objects_lost == 0,
+                f"{name}: domain-aware placement lost {hier.objects_lost} >= flat")
+        if name == "quick":
+            got = {
+                "durability_flat_objects_lost": flat.objects_lost,
+                "durability_hier_objects_lost": hier.objects_lost,
+                "durability_flat_loss_incidents": flat.loss_incidents,
+                "durability_hier_loss_incidents": hier.loss_incidents,
+                "durability_trace_node_failures": flat.node_failures,
+                "durability_trace_domain_failures": flat.domain_failures,
+                "durability_flat_repair_rows": flat.rows_repaired,
+                "durability_hier_repair_rows": hier.rows_repaired,
+                "durability_move_on_add_flat_pct": round(100 * moved["flat"], 3),
+                "durability_move_on_add_hier_pct": round(100 * moved["hier"], 3),
+            }
+            for key, value in got.items():
+                require(value == bench[key]["value"],
+                        f"{key}: {value} here, {bench[key]['value']} in BENCH_durability.json")
+            say(f"  equal to BENCH_durability.json in {len(got)} entries")
+        res[f"durability.{name}"] = (reports, moved)
+    return res
+
+
+def phase11(torch, np, dev, caps, seed) -> dict:
+    """The consumers of placement at full width (11a-11d, the main path,
+    launches counted) and at a cut size on the card and on the CPU (11e)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    full = dict(shards=BULK_IDS, tracked=TRACKED, store_nodes=STORE_NODES,
+                leaves=STATE_LEAVES, side=STATE_SIDE, durability=("quick", "full", "racks"))
+    cut = dict(shards=CUT_IDS, tracked=CUT_IDS, store_nodes=CUT_NODES, leaves=4, side=512,
+               durability=("quick",))
+    t0 = time.perf_counter()
+    reset_launches()
+    consumers(torch, np, dev, caps, seed, **full)
+    launches = dict(LAUNCHES)
+    print(f"  phase 11 main path: launches {launches}, {time.perf_counter() - t0:.1f} s")
+    for name in ("place_fused", "place_replicas", "diff_nodes", "diff_replicas", "ch_place",
+                 "rs_place", "wrh_place", "hier_replicas"):
+        require(launches[name] > 0, f"the consumers did not launch {name}")
+    print(f"phase 11e: the sequence at {CUT_IDS} ids on {CUT_NODES} nodes, QUICK durability, "
+          "on the card and on the CPU")
+    t0 = time.perf_counter()
+    with uncounted(LAUNCHES):
+        card, host = (consumers(torch, np, where, caps[:CUT_NODES], seed, quiet=True, **cut)
+                      for where in (dev, torch.device("cpu")))
+    require(card.keys() == host.keys(), "phase 11e results differ in keys")
+    for key, a in card.items():
+        b = host[key]
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        require(same, f"phase 11e: {key} differs between the card and the CPU")
+    print(f"  equal on the card and the CPU in {len(card)} results (owned shards, batches, "
+          f"MovePlans, drain rounds, stored blobs per node, DurabilityReports, movement; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def load_tree(tree: Path, name: str):
     """The ``repro_torch`` package of another checkout at ``tree``,
     imported as ``name`` beside this one (its kernels build from its own
@@ -1942,12 +2335,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE / "src"))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(f"card: {smi}")
     dev = torch.device("cuda", torch.cuda.current_device())
+    smi = card_line(dev)
+    print(f"card: {smi}")
     if args.against is not None:
         result = compare(args.seed, dev, [t.resolve() for t in args.against], args.only)
     else:

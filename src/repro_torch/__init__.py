@@ -4,11 +4,16 @@ A port of the JAX/Pallas reference package, module for module: ``core``
 (cluster, host oracles, ``PlacementEngine``), ``kernels`` (hand-written
 CUDA kernels + plain-torch twins), ``obs`` (metrics slab, trace ledger),
 ``migrate`` (planner, throttled mover, dual-version serving window),
-``serve`` (traffic, serving driver, router) and ``convert`` (carrying the
-reference's cluster and tables across).  Imports torch and numpy only;
+``serve`` (traffic, serving driver, router), the consumers of placement
+-- ``runtime`` (elastic coordinator, failure detection, stragglers,
+durability simulator), ``data`` (sharded pipeline) and ``checkpoint``
+(replicated checkpoint store) -- and ``convert`` (carrying the
+reference's cluster, tables and stores across).  Imports torch and numpy only;
 entry points run on the CUDA card unless given ``device="cpu"``.
 """
 
-from . import convert, core, kernels, migrate, obs, serve
+from . import checkpoint, convert, core, data, kernels, migrate, obs, runtime, serve
 
-__all__ = ["convert", "core", "kernels", "migrate", "obs", "serve"]
+__all__ = [
+    "checkpoint", "convert", "core", "data", "kernels", "migrate", "obs", "runtime", "serve",
+]

@@ -32,6 +32,14 @@ The failure-domain-aware mode carries over the same way:
     a reference artifact's eight tables (``tables_dev`` as NumPy arrays)
     and its statics ``(top_level, max_top, s_pad)``.
 
+A replicated checkpoint store carries over the same way:
+
+  * ``checkpoint_store_from_reference`` rebuilds a port
+    ``AsuraCheckpointStore`` from the reference store's cluster blob
+    (``store.cluster.to_json()``), its per-node blobs and alive flags and
+    its ``n_replicas``: chunk ids and placement are the same, so the
+    port's ``CheckpointManager`` restores what the reference saved.
+
 All take plain JSON / NumPy / Python values, so nothing of the reference
 is imported.
 """
@@ -164,3 +172,26 @@ def hier_artifact_from_arrays(
         node_domain={},  # the tables carry no node -> domain view
         tables_dev=tuple(torch.from_numpy(a).to(dev) for a in host),
     )
+
+
+def checkpoint_store_from_reference(
+    cluster_blob: str, blobs: dict, n_replicas: int, *, alive=None, device=None,
+):
+    """A port ``AsuraCheckpointStore`` holding what a reference store
+    holds: ``cluster_blob`` is its ``store.cluster.to_json()``, ``blobs``
+    maps each node id to that node's ``{chunk key: bytes}``, ``alive``
+    (default: every node) maps node ids to their alive flags, and the
+    store's engine places on ``device`` (None: the card)."""
+    from .checkpoint.sharded import AsuraCheckpointStore, StorageNode
+
+    store = AsuraCheckpointStore({}, n_replicas=n_replicas, device=device)
+    store.cluster = Cluster.from_json(cluster_blob, device=device)
+    store.engine = store.cluster.engine
+    alive = alive or {}
+    store.nodes = {
+        nid: StorageNode(
+            nid, info.capacity, dict(blobs.get(nid, {})), alive=bool(alive.get(nid, True))
+        )
+        for nid, info in store.cluster.nodes.items()
+    }
+    return store

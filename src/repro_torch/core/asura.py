@@ -298,18 +298,22 @@ def addition_number(
     range is extended (extra levels) until an unused anterior number exists;
     extension only inserts numbers, never reorders existing ones, so the
     trace stays consistent (section 2.B).
+
+    The extended range ends at 2**32 (a u32 draw has no more bits).  A
+    datum whose every level up to there descends -- about one id in 2**20
+    on a 4096-node table (top level 12) -- has no ADDITION NUMBER in range:
+    -1 is returned, "unknown", which every prefilter treats as a candidate
+    (the reference raises ``ValueError`` from a negative shift there).
     """
-    extra = 0
-    while True:
+    top = params.level_for(_upper_bound(np.asarray(seg_lengths, dtype=np.float64)))
+    for extra in range(32 - params.s_log2 - top + 1):
         _, numbers, used = placement_trace(
             datum_id, seg_lengths, seg_to_node, n_replicas, params, extra_levels=extra
         )
         unused = [v for v, u in zip(numbers[:-1], used[:-1]) if not u]
         if unused:
             return int(min(unused))
-        extra += 1
-        if extra > 32:
-            raise RuntimeError("could not find an unused anterior number")
+    return -1
 
 
 def remove_numbers(
@@ -485,6 +489,17 @@ def place_batch(
     return resolve_tail_np(ids, result, len32, top)
 
 
+def place_nodes_batch(
+    datum_ids: np.ndarray,
+    seg_lengths: Sequence[float],
+    seg_to_node: Sequence[int],
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> np.ndarray:
+    """Batch placement straight to node ids."""
+    segs = place_batch(datum_ids, seg_lengths, params)
+    return np.asarray(seg_to_node)[segs]
+
+
 def place_replicas_batch(
     datum_ids: np.ndarray,
     seg_lengths: Sequence[float],
@@ -519,7 +534,7 @@ def addition_numbers_batch(
     without float64 round-off).  Lanes whose trace needs the rare
     range-extension path (every anterior number used) or does not converge in
     the bounded loop fall back to the exact scalar ``addition_number``.
-    Matches ``addition_number`` lane-by-lane (tested).
+    Matches ``addition_number`` lane-by-lane (tested), -1 included.
     """
     ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
     lengths = np.asarray(seg_lengths, dtype=np.float64)
@@ -550,9 +565,53 @@ def addition_numbers_batch(
         picked_nodes[rows, found[rows]] = node_k[rows]
         found[rows] += 1
     an = (min_unused >> np.uint64(32)).astype(np.int64)
-    needs_scalar = (found < n_replicas) | (min_unused == no_min)
-    for i in np.nonzero(needs_scalar)[0]:
+    extend = (found >= n_replicas) & (min_unused == no_min)
+    if extend.any():
+        an[extend] = _extended_addition_numbers(ids[extend], n_replicas, top, params)
+    for i in np.nonzero(found < n_replicas)[0]:
         an[i] = addition_number(int(ids[i]), lengths, node_of, n_replicas, params)
+    return an
+
+
+def _extended_addition_numbers(
+    ids: np.ndarray, n_replicas: int, top: int, params: AsuraParams
+) -> np.ndarray:
+    """ADDITION NUMBERs of lanes whose first ``n_replicas`` numbers at
+    ``top`` all selected a replica (no unused anterior number), through
+    the range extension of ``addition_number`` in closed form.
+
+    With the range extended to level L > top, every number starts at L
+    and the numbers of the trace at L - 1 are exactly its descents, in
+    order.  Numbers emitted at a level above ``top`` lie past every
+    segment (unused), and an emission at a lower level is smaller than
+    any at a higher one.  So if the trace at L - 1 still had no unused
+    anterior number, the unused anterior numbers at L are the level-L
+    draws that emit before the ``n_replicas``-th descent, and the
+    ADDITION NUMBER is the smallest of their floors; with none, the next
+    level is tried, up to 2**32 (then -1, as ``addition_number``).
+    Equal to ``addition_number`` lane by lane (tested)."""
+    s = params.s_log2
+    an = np.full(ids.shape[0], -1, dtype=np.int64)
+    rows = np.arange(ids.shape[0])
+    for level in range(top + 1, 33 - s):
+        if rows.size == 0:
+            break
+        sub = ids[rows]
+        best = np.full(rows.size, np.iinfo(np.int64).max, dtype=np.int64)
+        descents = np.zeros(rows.size, dtype=np.int64)
+        live = np.arange(rows.size)
+        counter = 0
+        while live.size:
+            h = draw_u32_np(sub[live], np.uint32(level), np.uint32(counter))
+            emit = h >= np.uint32(2**31)
+            k = (h.astype(np.int64) >> (32 - s - level))
+            best[live[emit]] = np.minimum(best[live[emit]], k[emit])
+            descents[live[~emit]] += 1
+            live = live[descents[live] < n_replicas]
+            counter += 1
+        found = best != np.iinfo(np.int64).max
+        an[rows[found]] = best[found]
+        rows = rows[~found]
     return an
 
 

@@ -414,6 +414,11 @@ class PlacementEngine:
         alg = self._resolve_algorithm(algorithm)
         return self._with_device_tables(alg, self.artifact_for(version, alg))
 
+    def invalidate(self) -> None:
+        """Drop every cached artifact, all algorithms (the next placement
+        rebuilds and uploads)."""
+        self._artifacts.clear()
+
     # -- hierarchical artifacts ----------------------------------------------
 
     def _build_hier_artifact(self, version: int) -> HierArtifact:

@@ -19,6 +19,8 @@ import numpy as np
 GOLDEN = 0x9E3779B9  # 2**32 / golden ratio
 KMULT = 0x85EBCA77   # odd multiplier decorrelating the counter stream
 
+_INV_2_32 = float(2.0**-32)
+
 
 def fmix32_scalar(h: int) -> int:
     """MurmurHash3 finalizer on a Python int (masked to 32 bits)."""
@@ -35,6 +37,11 @@ def draw_u32_scalar(datum_id: int, level: int, counter: int) -> int:
     """The k-th raw 32-bit draw of the level-``level`` generator."""
     seed = fmix32_scalar((datum_id + GOLDEN * (level + 1)) & 0xFFFFFFFF)
     return fmix32_scalar(seed ^ ((counter * KMULT) & 0xFFFFFFFF))
+
+
+def draw_u01_scalar(datum_id: int, level: int, counter: int) -> float:
+    """Uniform draw on [0, 1) -- scalar oracle path."""
+    return draw_u32_scalar(datum_id, level, counter) * _INV_2_32
 
 
 def fmix32_np(h: np.ndarray) -> np.ndarray:
@@ -57,3 +64,17 @@ def draw_u32_np(datum_ids: np.ndarray, level, counters) -> np.ndarray:
         seed = fmix32_np(ids + np.uint32(GOLDEN) * (lvl + np.uint32(1)))
         out = fmix32_np(seed ^ (ctr * np.uint32(KMULT)))
     return out
+
+
+def draw_u01_np(datum_ids: np.ndarray, level, counters) -> np.ndarray:
+    """Vectorized uniform draws on [0, 1) (float64)."""
+    return draw_u32_np(datum_ids, level, counters).astype(np.float64) * _INV_2_32
+
+
+def hash_str_to_u32(s: str) -> int:
+    """Stable string -> uint32 for node / datum ids given as strings
+    (FNV-1a, then ``fmix32``)."""
+    h = 0x811C9DC5
+    for b in s.encode("utf-8"):
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    return fmix32_scalar(h)

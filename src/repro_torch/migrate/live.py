@@ -224,6 +224,15 @@ class LiveMigration(DrainDriver):
         reverse drain completes the caller may revert the membership
         change itself."""
         self._check_live()
+        if getattr(self, "membership_event", None) is not None and not getattr(
+            self, "_coordinator_rollback", False
+        ):
+            # a coordinator's migration carries side state (owner table,
+            # membership) that a bare reversal would leave behind
+            raise RuntimeError(
+                "this migration belongs to an ElasticCoordinator; use "
+                "coordinator.rollback_live(migration)"
+            )
         plan, landed = self.state.plan, self.state.landed
         reverse_plan = MigrationPlan(
             v_from=plan.v_to,

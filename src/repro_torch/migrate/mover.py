@@ -125,6 +125,9 @@ class MigrationState:
     def pending_ids(self) -> np.ndarray:
         return self.plan.ids[~self.landed]
 
+    def landed_ids(self) -> np.ndarray:
+        return self.plan.ids[self.landed]
+
     def is_pending(self, datum_ids) -> np.ndarray:
         """Vectorized membership of ids in the still-pending move set (a
         sorted pending array cached per round)."""
@@ -262,6 +265,15 @@ class ThrottledMover(DrainDriver):
     @property
     def done(self) -> bool:
         return self.state.done
+
+    @property
+    def next_round_at(self) -> float | None:
+        """Clock time the next paced round becomes due (None: no clock or
+        already drained) -- event-driven callers (the durability
+        simulator) jump their clock straight to it."""
+        if self.clock is None or self.done:
+            return None
+        return self._t0 + (self._pumped + 1) * self.round_seconds
 
     def _pending_desc(self) -> str:
         return f"{self.state.n_pending} rows pending"

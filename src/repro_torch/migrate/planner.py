@@ -121,6 +121,13 @@ class MigrationPlan:
         """Moved fraction of the scanned REPLICA mass (R * n_scanned)."""
         return self.n_moves / max(1, self.n_scanned * self.n_replicas)
 
+    def moves_dict(self) -> dict[int, tuple[int, int]]:
+        """datum id -> (src, dst), built from the arrays in one pass.  For
+        replica plans an id with several moved slots keeps its LAST row
+        (add and remove events move at most one slot per id); slot-accurate
+        consumers read the arrays."""
+        return dict(zip(self.ids.tolist(), zip(self.src.tolist(), self.dst.tolist())))
+
 
 class MigrationPlanner:
     """Version-diff planner bound to one ``PlacementEngine``.
@@ -241,6 +248,7 @@ class MigrationPlanner:
         *,
         chunk: int = DEFAULT_CHUNK,
         max_new_seg: int | None = None,
+        known_src=None,
         mesh=None,
     ) -> MigrationPlan:
         """Assemble the full ``MigrationPlan`` for a tracked id set.
@@ -250,11 +258,17 @@ class MigrationPlanner:
         prefilter: only ids with AN <= max_new_seg (or AN unknown, the
         sound fallback) pay the full two-version diff.  The numpy backend
         diffs on the host; the device backend launches the diff kernel per
-        (pow2-padded) chunk and copies the result back once per chunk."""
+        (pow2-padded) chunk and copies the result back once per chunk.
+        ``known_src`` (aligned with ``datum_ids``) gives the v owners a
+        caller already keeps (``ElasticCoordinator``'s owner table), so the
+        numpy backend places each id once; the device diff places both
+        versions in one launch anyway and ignores it."""
         _no_mesh(mesh)
         t0 = time.perf_counter()
         ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
         host = self.engine.backend == "numpy"
+        if known_src is not None:
+            known_src = np.asarray(known_src, dtype=np.int64)
         out_ids, out_src, out_dst, out_idx = [], [], [], []
         for start in range(0, len(ids), chunk):
             c = ids[start : start + chunk]
@@ -266,7 +280,8 @@ class MigrationPlanner:
             if c.size == 0:
                 continue
             if host:
-                src = self.engine.place_nodes_at(c, v_from)
+                src = (known_src[base] if known_src is not None
+                       else self.engine.place_nodes_at(c, v_from))
                 dst = self.engine.place_nodes_at(c, v_to)
                 moved = src != dst
             else:
@@ -301,6 +316,7 @@ class MigrationPlanner:
         *,
         chunk: int = DEFAULT_CHUNK,
         max_new_seg: int | None = None,
+        known_before=None,
         mesh=None,
     ) -> MigrationPlan:
         """Assemble the per-slot REPLICA ``MigrationPlan`` for an id set.
@@ -309,7 +325,9 @@ class MigrationPlanner:
         sets are aligned per slot, so a row exists exactly for the replicas
         whose owner changed -- ``|after \\ before|`` rows per id, the
         section-5 minimal replica mass.  ``max_new_seg`` turns on the
-        R-aware ADDITION-NUMBER prefilter."""
+        R-aware ADDITION-NUMBER prefilter.  ``known_before`` ((len(ids), R)
+        v replica sets a caller already keeps) saves the numpy backend one
+        of its two sweeps; the device diff ignores it."""
         _no_mesh(mesh)
         t0 = time.perf_counter()
         ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
@@ -322,6 +340,8 @@ class MigrationPlanner:
         # hierarchical engines always diff through the two-level kernel path
         # (node-plane alignment); the host replica sweep returns pairs
         host = self.engine.backend == "numpy" and not hier
+        if known_before is not None:
+            known_before = np.asarray(known_before, dtype=np.int64)
         out: dict[str, list[np.ndarray]] = {
             k: [] for k in ("ids", "src", "dst", "idx", "slot", "src_slot")
         }
@@ -335,7 +355,8 @@ class MigrationPlanner:
             if c.size == 0:
                 continue
             if host:
-                before = self.engine.place_replica_nodes_at(c, v_from, n_replicas)
+                before = (known_before[base] if known_before is not None
+                          else self.engine.place_replica_nodes_at(c, v_from, n_replicas))
                 dst = self.engine.place_replica_nodes_at(c, v_to, n_replicas)
                 moved, src, src_slot = align_replica_sets(before, dst)
             else:

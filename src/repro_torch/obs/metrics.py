@@ -69,6 +69,10 @@ class MetricsRegistry:
     def names(self) -> tuple[str, ...]:
         return tuple(self._layout)
 
+    @property
+    def size(self) -> int:
+        return self._size
+
     # -- the device slab ------------------------------------------------------
 
     def slab(self) -> torch.Tensor:
@@ -81,6 +85,11 @@ class MetricsRegistry:
             if old is not None and old.shape[0]:
                 self._slab[: old.shape[0]] = old
         return self._slab
+
+    def set_slab(self, slab: torch.Tensor) -> None:
+        """Store an updated slab (the helpers below update in place and
+        need no call; a caller that built a new slab tensor stores it)."""
+        self._slab = slab
 
     # -- accumulation helpers (static offsets, no host sync) ------------------
 
@@ -107,6 +116,20 @@ class MetricsRegistry:
         if n > size:
             raise ValueError(f"histogram {name!r} holds {size} bins, got {n}")
         slab[off : off + n] = (slab[off : off + n] + as_u32(values)) & M32
+        return slab
+
+    def bucket_add(self, slab: torch.Tensor, name: str, idx, weight=1) -> torch.Tensor:
+        """Scatter-add ``weight`` into histogram ``name`` at the (clipped)
+        bucket ``idx`` (mod 2**32, in place); returns ``slab``."""
+        if not self.enabled:
+            return slab
+        off, size = self._layout[name]
+        i = torch.as_tensor(idx, device=slab.device).to(torch.int64).reshape(-1)
+        i = i.clamp(0, size - 1) + off
+        w = torch.as_tensor(weight, device=slab.device)
+        w = as_u32(w.reshape(-1)).expand(i.shape)
+        slab.index_add_(0, i, w)
+        slab[off : off + size] &= M32
         return slab
 
     # -- host plane ------------------------------------------------------------

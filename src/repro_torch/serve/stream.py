@@ -266,6 +266,12 @@ class RequestStreamDriver:
         counter behind the reference's attribute name."""
         return self.ledger.counter("serve.step_traces")
 
+    @property
+    def superstep_traces(self) -> int:
+        """``superstep`` bindings, one per distinct (routing configuration,
+        k) -- the reference's per-(statics, k) trace count."""
+        return self.ledger.counter("serve.superstep_traces")
+
     # -- state ----------------------------------------------------------------
 
     def reset(self) -> None:
@@ -329,11 +335,16 @@ class RequestStreamDriver:
         return ids, chosen
 
     def _route(self):
-        """(body, tables) for the cluster's current version.  A new version
-        is checked on the host once: a node id outside the ``n_bins`` load
-        planes raises here (the reference drops its counts silently; on the
-        card an out-of-range scatter would be a device-side fault)."""
+        """(body, tables) for the cluster's current version."""
         tables, statics = route_statics(self.engine, self.algorithm)
+        self._check_version()
+        return self._body(statics), tables
+
+    def _check_version(self) -> None:
+        """A new version is checked on the host once: a node id outside the
+        ``n_bins`` load planes raises here (the reference drops its counts
+        silently; on the card an out-of-range scatter would be a
+        device-side fault)."""
         if self.engine.cluster.version != self._checked_version:
             art = (self.engine.hier_artifact() if self.engine.hierarchical
                    else self.engine.artifact(self.algorithm))
@@ -344,7 +355,6 @@ class RequestStreamDriver:
                     "bins; build the driver with a larger n_bins"
                 )
             self._checked_version = art.version
-        return self._body(statics), tables
 
     def step(self) -> torch.Tensor:
         """Serve one generated batch -> (batch,) int32 chosen nodes on the
@@ -357,8 +367,57 @@ class RequestStreamDriver:
         k = int(k)
         if k < 1:
             raise ValueError(f"superstep needs k >= 1, got {k}")
-        route = self._kernel_route(*self._route())
+        body, tables = self._route()
+        key = ("superstep", body, k)
+        if key not in self._bodies:
+            self._bodies[key] = body
+            self.ledger.incr("serve.superstep_traces")
+        route = self._kernel_route(body, tables)
         return torch.stack([self._serve_batch(route)[1] for _ in range(k)])
+
+    def route_batch(self, datum_ids) -> torch.Tensor:
+        """Serve one EXTERNAL id batch through the select + count pass ->
+        (len(ids),) int32 chosen nodes on the device.
+
+        Ids are pow2-bucketed (``migrate.planner.pad_pow2``) and pad lanes
+        never touch a counter.  The selection words come from the stream
+        position, as a generated batch's do.  The batch routes without the
+        kernel's stats vector (pad lanes would count phantom work), so only
+        the routed and served metrics accumulate.  One binding per
+        (routing configuration, bucket) counts in ``step_traces``, as the
+        reference traces once per padded shape."""
+        from ..kernels.ops import as_ids
+        from ..migrate.planner import pad_pow2
+
+        ids = as_ids(datum_ids, self.device)
+        n = int(ids.shape[0])
+        padded, n_valid = pad_pow2(ids)
+        tables, statics = route_statics(self.engine, self.algorithm)
+        self._check_version()
+        key = ("route_batch", statics, int(padded.shape[0]))
+        owners_fn = self._bodies.get(key)
+        if owners_fn is None:
+            self.ledger.incr("serve.step_traces")
+            owners_fn = self._bodies[key] = replica_owners_body(statics, self.n_replicas)
+        lanes = torch.arange(padded.shape[0], dtype=torch.int64, device=self.device)
+        sel = TrafficModel.lane_words(self._key, self._step, lanes, 1)[:, 0]
+        chosen = select_replica(
+            owners_fn(padded, *tables), sel, self.counts,
+            policy=self.policy, n_replicas=self.n_replicas,
+        )
+        hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
+        hist.scatter_add_(0, chosen.long(), (lanes < n_valid).to(torch.int32))
+        if self._instrumented:
+            reg = self.metrics
+            slab = reg.slab()
+            reg.add(slab, self._routed_name, n_valid)
+            reg.add_hist(slab, "serve.served", hist)
+        self.counts = self.counts + hist
+        self.queue = torch.clamp(self.queue + hist - self._service, min=0)
+        self.qhist[self._step % self.max_hist] = self.queue
+        self._step += 1
+        self.steps_done += 1
+        return chosen[:n]
 
     # -- serving through a live migration window --------------------------------
 

@@ -172,6 +172,12 @@ class TrafficModel:
 
     # -- host-facing helpers ----------------------------------------------------
 
+    def rank_to_id_np(self, ranks) -> np.ndarray:
+        """NumPy twin of ``ids_from_ranks`` (bit-identical)."""
+        r = np.asarray(ranks, dtype=np.uint32)
+        with np.errstate(over="ignore"):
+            return fmix32_np(r + np.uint32(self.id_salt))
+
     def sample_ranks(
         self, seed: int, n: int, batch: int = 1 << 14, *, device=None
     ) -> np.ndarray:

@@ -192,3 +192,65 @@ def test_unported_paths_raise():
 
     with pytest.raises(ValueError):
         PlacementEngine(c, device="cpu", backend="pallas")
+
+
+# ---------------------------------------------------------------------------
+# the small surface: invalidate, place_nodes_batch, the core re-exports,
+# the rng helpers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("algorithm", ["asura", "ch", "rs"])
+def test_invalidate_rebuilds_like_the_reference(algorithm):
+    ref_c = _reference_cluster()
+    c = convert.cluster_from_reference_json(ref_c.to_json(), device="cpu")
+    eng = PlacementEngine(c, device="cpu", algorithm=algorithm)
+    ref_eng = JEngine(ref_c, backend="numpy", algorithm=algorithm)
+    ids = _ids(2000, seed=4)
+    for e in (eng, ref_eng):
+        e.place_nodes(ids)
+        e.invalidate()
+        assert e.uploads == 1
+    assert np.array_equal(eng.place_nodes(ids), ref_eng.place_nodes(ids))
+    assert eng.uploads == ref_eng.uploads == 2
+    v = c.version
+    c.add_node(99, 1.0)
+    eng.invalidate()
+    with pytest.raises(KeyError):
+        eng.artifact_for(v)
+
+
+def test_place_nodes_batch_and_core_exports_match_reference():
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    from repro_torch.core.asura import place_nodes_batch
+
+    ref_c = _reference_cluster()
+    ids = _ids(3000, seed=5)
+    got = place_nodes_batch(ids, ref_c.seg_lengths(), ref_c.seg_to_node())
+    want = jcore.place_nodes_batch(ids, ref_c.seg_lengths(), ref_c.seg_to_node())
+    assert np.array_equal(got, want)
+    # every host oracle the reference's core exports, the port's exports too
+    assert set(jcore.__all__) <= set(tcore.__all__)
+    lengths, nodes = ref_c.seg_lengths(), ref_c.seg_to_node()
+    for name in ("place_batch", "resolve_tail_np", "tail_cumsum_halves"):
+        assert getattr(tcore, name) is not None
+    assert np.array_equal(tcore.place_batch(ids, lengths), jcore.place_batch(ids, lengths))
+    assert np.array_equal(tcore.place_replicas_batch(ids, lengths, nodes, 3),
+                          jcore.place_replicas_batch(ids, lengths, nodes, 3))
+    for a, b in zip(tcore.tail_cumsum_halves(np.arange(7, dtype=np.uint32) * 2**30),
+                    jcore.tail_cumsum_halves(np.arange(7, dtype=np.uint32) * 2**30)):
+        assert np.array_equal(a, b)
+
+
+def test_rng_helpers_match_reference():
+    from repro.core import rng as jrng
+    from repro_torch.core import rng as trng
+
+    ids = _ids(1000, seed=6)
+    for lvl, ctr in ((0, 0), (5, 17)):
+        assert np.array_equal(trng.draw_u01_np(ids, lvl, ctr), jrng.draw_u01_np(ids, lvl, ctr))
+        for i in ids[:20].tolist():
+            assert trng.draw_u01_scalar(i, lvl, ctr) == jrng.draw_u01_scalar(i, lvl, ctr)
+    for s in ("", "node-7", "rack/α/12", "x" * 300):
+        assert trng.hash_str_to_u32(s) == jrng.hash_str_to_u32(s)

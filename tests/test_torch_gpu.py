@@ -629,3 +629,94 @@ def test_hier_kernel_matches_twin_at_full_width(cuda_device, n_nodes, R, max_dra
               s_pad=art.s_pad, s_log2=1, max_draws=max_draws, n_replicas=R)
     assert torch.equal(hier_place_replicas_cuda(ids, *art.tables_dev, **kw),
                        hier_place_replicas_ref(ids, *art.tables_dev, **kw))
+
+
+# ---------------------------------------------------------------------------
+# the consumers of placement on the card, against the same calls on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_pipeline_on_card_matches_cpu(cuda_device):
+    from repro_torch.data import DataPipeline, ShardedDataset
+
+    caps = LADDERS["64 nodes"]
+    ds = ShardedDataset(n_shards=1 << 16, tokens_per_shard=256, vocab=997)
+    clusters = {d: make_cluster(caps, device=d) for d in (cuda_device, "cpu")}
+    before = LAUNCHES["place_fused"]
+    pipes = {d: [DataPipeline(ds, c, h, batch_per_host=4, seq_len=64) for h in range(8)]
+             for d, c in clusters.items()}
+    assert LAUNCHES["place_fused"] == before + 8
+    for a, b in zip(*pipes.values()):
+        assert np.array_equal(a.owned_shards, b.owned_shards)
+    for c in clusters.values():
+        c.add_node(64, 1.5)
+        c.remove_node(3)
+    for a, b in zip(*pipes.values()):
+        for x, y in zip(a.refresh_membership(), b.refresh_membership()):
+            assert np.array_equal(x, y)
+        for x, y in zip(a.batches(epoch=2), b.batches(epoch=2)):
+            assert np.array_equal(x, y)
+            break
+
+
+@pytest.mark.parametrize("algorithm,R", [("asura", 1), ("asura", 3), ("ch", 1), ("rs", 1),
+                                         ("wrh", 1)])
+def test_coordinator_on_card_matches_cpu(cuda_device, algorithm, R):
+    from repro_torch.runtime import ElasticCoordinator
+
+    ids = np.random.default_rng(R).integers(0, 2**32, 50_000, dtype=np.uint32)
+    coords = [ElasticCoordinator(make_cluster(LADDERS["64 nodes"], device=d), ids,
+                                 algorithm=algorithm, n_replicas=R)
+              for d in (cuda_device, "cpu")]
+    for event in (lambda c: c.add_node(100, 1.3), lambda c: c.remove_node(7)):
+        a, b = (event(c) for c in coords)
+        assert a.moves == b.moves and a.n_moves > 0
+        assert np.array_equal(coords[0].owners(), coords[1].owners())
+    if algorithm != "asura":
+        return
+    live = [c.add_node_live(101, 0.8, ingress=500) for c in coords]
+    assert live[0].round() == live[1].round()
+    reverse = [c.rollback_live(m) for c, m in zip(coords, live)]
+    assert reverse[0].run() == reverse[1].run()
+    assert np.array_equal(coords[0].owners(), coords[1].owners())
+
+
+def test_checkpoint_store_on_card_matches_cpu(cuda_device):
+    from repro_torch.checkpoint import AsuraCheckpointStore, CheckpointManager
+
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.standard_normal((700, 1024)).astype(np.float32))
+    states = {cuda_device: {"w": w.to(cuda_device), "bf": w[:5].to(cuda_device, torch.bfloat16)},
+              "cpu": {"w": w.clone(), "bf": w[:5].to(torch.bfloat16)}}
+    caps = {i: float(c) for i, c in enumerate(LADDERS["64 nodes"])}
+    stores = {d: AsuraCheckpointStore(caps, n_replicas=3, device=d) for d in states}
+    mgrs = {d: CheckpointManager(s) for d, s in stores.items()}
+    for d, m in mgrs.items():
+        m.save_async(1, states[d])
+        states[d]["w"].add_(1.0)  # in place, right after the call
+        m.wait()
+    moved = {d: s.add_node(64, 2.0) for d, s in stores.items()}
+    assert moved[cuda_device] == moved["cpu"] > 0
+    live = {d: s.begin_add_node(65, 1.0, ingress=16) for d, s in stores.items()}
+    for m in live.values():
+        m.run()
+    for nid, node in stores["cpu"].nodes.items():
+        assert stores[cuda_device].nodes[nid].blobs == node.blobs
+    out = mgrs[cuda_device].restore(1, states[cuda_device])
+    assert out["w"].device.type == "cuda" and out["bf"].dtype == torch.bfloat16
+    assert torch.equal(out["w"].cpu(), w) and torch.equal(out["bf"].cpu(), states["cpu"]["bf"])
+
+
+def test_durability_on_card_matches_cpu(cuda_device):
+    from repro_torch.runtime.durability import compare_policies, movement_on_node_add
+
+    topo = {d: {d * 4 + i: 1.0 for i in range(4)} for d in range(6)}
+    kw = dict(n_objects=20_000, n_replicas=3, years=10.0, mttf_node_years=3.0,
+              mttf_domain_years=15.0, seed=7)
+    before = dict(LAUNCHES)
+    card = compare_policies(topo, device=cuda_device, **kw)
+    assert LAUNCHES["place_replicas"] > before["place_replicas"]
+    assert LAUNCHES["hier_replicas"] > before["hier_replicas"]
+    assert card == compare_policies(topo, device="cpu", **kw)
+    assert movement_on_node_add(topo, n_objects=20_000, device=cuda_device) == \
+        movement_on_node_add(topo, n_objects=20_000, device="cpu")

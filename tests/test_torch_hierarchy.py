@@ -448,3 +448,89 @@ def test_remaining_refusals_match_reference():
         MigrationPlanner(te).plan_replicas(sessions, v0, th.version, 3, max_new_seg=5)
     with pytest.raises(ValueError, match="HierarchicalCluster"):
         MigrationPlanner(te).plan(sessions, v0, th.version)
+
+
+# ---------------------------------------------------------------------------
+# two-level churn properties (hypothesis), as the reference's property test
+# ---------------------------------------------------------------------------
+
+
+def test_two_level_churn_properties():
+    """Property test over add-node / remove-node / remove-domain churn on
+    the port (B8's twin), each membership state mirrored on a reference
+    hierarchy: placements equal the reference's oracle, replica domains
+    stay pairwise distinct, the two-level diff equals the brute-force set
+    diff, and movement is failure-domain-local -- a node add pulls data
+    only INTO the grown domain (its intra-domain moves land exactly on
+    the new node), a node remove sources every move from the shrunk
+    domain, and a domain remove moves per row exactly the copies the
+    domain held."""
+    from hypothesis import given, settings, strategies as st
+
+    ops = st.lists(
+        st.tuples(
+            st.sampled_from(["add", "remove_node", "remove_domain"]),
+            st.floats(0.5, 2.0),
+        ),
+        min_size=1,
+        max_size=3,
+    )
+
+    @settings(max_examples=8, deadline=None)
+    @given(ops=ops, seed=st.integers(0, 2**16))
+    def run(ops, seed):
+        rng = np.random.default_rng(seed)
+        cap = lambda d, i: 1.0  # noqa: E731
+        jh = _build(JHier(), domains=5, nodes_per=3, cap=cap)
+        h = _build(HierarchicalCluster(device="cpu"), domains=5, nodes_per=3, cap=cap)
+        eng = h.engine
+        ids = rng.integers(0, 2**32, 300, dtype=np.uint32)
+        R = 3
+        next_node = 10_000
+        for op, c in ops:
+            before = eng.place_replica_pairs(ids, R)
+            v_from = h.version
+            domains = sorted(h.domains)
+            if op == "remove_domain" and len(domains) > R + 1:
+                d = domains[int(c * 7) % len(domains)]
+                for x in (h, jh):
+                    x.remove_domain(d)
+                kind = "remove_domain"
+            elif op == "remove_node" and any(len(h.domains[x].nodes) > 1 for x in domains):
+                d = next(x for x in domains[int(c * 5) % len(domains):] + domains
+                         if len(h.domains[x].nodes) > 1)
+                victim = sorted(h.domains[d].nodes)[0]
+                for x in (h, jh):
+                    x.remove_node(d, victim)
+                kind = "remove_node"
+            else:
+                d = domains[int(c * 7) % len(domains)]
+                for x in (h, jh):
+                    x.add_node(d, next_node, float(c))
+                kind = "add"
+            after = eng.place_replica_pairs(ids, R)
+            assert np.array_equal(after, jh.place_replicas(ids, R))
+            for row in after:
+                assert len(set(row[:, 0].tolist())) == R
+            moved, src, dst, src_slot, src_dom, dst_dom = (
+                x.numpy() for x in eng.diff_replica_domains_device(
+                    torch.from_numpy(ids), v_from, h.version, R)
+            )
+            b_node, a_node = before[:, :, 1], after[:, :, 1]
+            minimal = ~(a_node[:, :, None] == b_node[:, None, :]).any(axis=2)
+            assert int(moved.sum()) == int(minimal.sum())
+            assert np.array_equal(dst_dom[moved], after[:, :, 0][moved])
+            assert np.array_equal(dst[moved], a_node[moved])
+            if kind == "add":
+                assert np.all(dst_dom[moved] == d)
+                intra = moved & (src_dom == d)
+                assert np.all(dst[intra] == next_node)
+                next_node += 1
+            elif kind == "remove_node":
+                assert np.all(src_dom[moved] == d)
+            else:
+                assert np.all(src_dom[moved] == d)
+                held = (before[:, :, 0] == d).sum(axis=1)
+                assert np.array_equal(moved.sum(axis=1), held)
+
+    run()

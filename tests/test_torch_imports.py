@@ -49,6 +49,35 @@ def test_import_loads_neither_jax_nor_the_reference():
     assert proc.stdout.strip() == "[]"
 
 
+def test_consumer_imports_load_neither_jax_nor_the_reference():
+    proc = _run(
+        "import sys, repro_torch.runtime, repro_torch.data, repro_torch.checkpoint, "
+        "repro_torch.runtime.durability, repro_torch.runtime.elastic, "
+        "repro_torch.checkpoint.sharded, repro_torch.data.pipeline\n"
+        "assert repro_torch.runtime.__all__ and repro_torch.data.__all__ "
+        "and repro_torch.checkpoint.__all__\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_consumer_packages_export_the_reference_names():
+    import repro.checkpoint
+    import repro.data
+    import repro.runtime
+    import repro_torch.checkpoint
+    import repro_torch.data
+    import repro_torch.runtime
+
+    for ref, port in ((repro.runtime, repro_torch.runtime), (repro.data, repro_torch.data),
+                      (repro.checkpoint, repro_torch.checkpoint)):
+        assert port.__all__ == ref.__all__
+        assert all(hasattr(port, name) for name in port.__all__)
+
+
 def test_no_port_file_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10

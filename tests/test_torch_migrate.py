@@ -578,3 +578,90 @@ def test_window_guards():
         mig.route_device(sessions)
     with pytest.raises(KeyError, match="not cached"):
         mig.route_replicas(sessions)
+
+
+# ---------------------------------------------------------------------------
+# the surface the consumers call: moves_dict, known_src / known_before,
+# next_round_at, landed_ids
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("R", [1, 3])
+def test_known_owners_and_moves_dict_match_reference(backend, R):
+    """A caller's own v owners give the same plan (the numpy backend skips
+    one sweep; the device diff ignores them), and ``moves_dict`` is the
+    reference's."""
+    jc, je, tc, te = _pair(_caps(12, seed=10), backend)
+    ids = _ids(6000, seed=11)
+    known = (te.place_replica_nodes(ids, R) if R > 1 else te.place_nodes(ids))
+    v0 = tc.version
+    _apply("add", jc, tc)
+    if R > 1:
+        want = JaxPlanner(je).plan_replicas(ids, v0, jc.version, R, known_before=known)
+        got = MigrationPlanner(te).plan_replicas(ids, v0, tc.version, R, known_before=known)
+        plain = MigrationPlanner(te).plan_replicas(ids, v0, tc.version, R)
+    else:
+        want = JaxPlanner(je).plan(ids, v0, jc.version, known_src=known)
+        got = MigrationPlanner(te).plan(ids, v0, tc.version, known_src=known)
+        plain = MigrationPlanner(te).plan(ids, v0, tc.version)
+    _same_plan(got, want)
+    _same_plan(got, plain)
+    assert got.n_moves > 0
+    assert got.moves_dict() == want.moves_dict()
+    assert len(got.moves_dict()) == len(np.unique(got.ids))
+
+
+def test_next_round_at_and_landed_ids_match_reference():
+    jplan, tplan = _plans(3)
+    t = {"now": 10.0}
+    clock = lambda: t["now"]  # noqa: E731
+    jm = JaxMover(JaxState(jplan), ingress=40, clock=clock, round_seconds=3.0)
+    tm = ThrottledMover(MigrationState(tplan, device="cpu"), ingress=40, clock=clock,
+                        round_seconds=3.0)
+    while not tm.done:
+        assert tm.next_round_at == jm.next_round_at
+        t["now"] = tm.next_round_at
+        assert tm.pump() == jm.pump()
+        assert np.array_equal(tm.state.landed_ids(), jm.state.landed_ids())
+    assert jm.done and tm.next_round_at is None is jm.next_round_at
+    assert np.array_equal(np.sort(tm.state.landed_ids()), np.sort(tplan.ids))
+    assert ThrottledMover(MigrationState(tplan, device="cpu")).next_round_at is None
+
+
+# ids whose trace on the 4096-node table of seed 0 (top level 12) descends
+# at every level up to 2**32 at R = 1: no ADDITION NUMBER in the u32 range
+NO_AN_IDS = (760428, 1710092, 4293190)
+
+
+def test_addition_number_past_the_u32_range_is_unknown():
+    """Where the range extension runs out of u32 bits the reference raises
+    (a negative shift); the port answers -1, "unknown", which every
+    prefilter keeps as a candidate.  Everywhere else both agree, and the
+    batch's closed-form extension equals the scalar trace."""
+    caps = np.random.default_rng(0).uniform(0.5, 2.0, 4096)
+    jc = make_cluster(caps)
+    lengths, nodes = jc.seg_lengths(), jc.seg_to_node()
+    for i in NO_AN_IDS:
+        with pytest.raises(ValueError):
+            jasura.addition_number(i, lengths, nodes, 1)
+        assert tasura.addition_number(i, lengths, nodes, 1) == -1
+    ids = np.concatenate([_ids(4000, seed=12), np.asarray(NO_AN_IDS + (624403,), np.uint32)])
+    for R in (1, 3):
+        batch = tasura.addition_numbers_batch(ids, lengths, nodes, R)
+        scalar = [tasura.addition_number(int(i), lengths, nodes, R) for i in ids]
+        assert batch.tolist() == scalar
+        ok = ~np.isin(ids, NO_AN_IDS) if R == 1 else np.ones(ids.size, bool)
+        assert np.array_equal(batch[ok], jasura.addition_numbers_batch(ids[ok], lengths,
+                                                                       nodes, R))
+    assert (batch < 0).sum() == 0  # R = 3 finds unused numbers in range
+    # the coordinator's prefilter keeps the unknown ids: its plan is exact
+    from repro_torch.runtime import ElasticCoordinator
+
+    tc = cluster_from_reference_json(jc.to_json(), device="cpu")
+    coord = ElasticCoordinator(tc, ids)
+    before = coord.owners()
+    plan = coord.add_node(5000, 1.0)
+    after = tc.place_nodes(ids)
+    moved = np.nonzero(before != after)[0]
+    assert plan.moves == {int(ids[i]): (int(before[i]), 5000) for i in moved}

@@ -262,3 +262,78 @@ def test_trace_ledger_matches_reference():
     assert strip(tl.events()) == strip(jl.events())
     assert tl.prometheus_text().replace("repro_torch_", "") == \
         jl.prometheus_text().replace("repro_", "")
+
+
+# ---------------------------------------------------------------------------
+# the small surface: rank_to_id_np, slab size / set_slab / bucket_add,
+# route_batch, superstep_traces
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 9])
+def test_rank_to_id_np_matches_reference(seed):
+    ranks = np.random.default_rng(seed).integers(0, 2**32, 5000, dtype=np.uint32)
+    got = TrafficModel(1000, seed=seed).rank_to_id_np(ranks)
+    assert got.dtype == np.uint32
+    assert np.array_equal(got, JTraffic(1000, seed=seed).rank_to_id_np(ranks))
+    dev = TrafficModel.ids_from_ranks(torch.from_numpy(ranks.astype(np.int64)),
+                                      TrafficModel(1000, seed=seed).id_salt)
+    assert np.array_equal(dev.numpy(), got.astype(np.int64))
+
+
+def test_metrics_size_set_slab_and_bucket_add_match_reference():
+    jm, tm = JMetrics(), MetricsRegistry(device="cpu")
+    for reg in (jm, tm):
+        reg.counter("c")
+        reg.histogram("h", 5)
+        assert reg.size == 6
+    idx = [0, 4, 9, -3, 2, 2]  # clipped into [0, 4]
+    js = jm.bucket_add(jm.slab(), "h", jnp.asarray(idx), jnp.uint32(2**32 - 1))
+    js = jm.bucket_add(js, "h", jnp.asarray([1, 1]), jnp.asarray([5, 7]))
+    jm.set_slab(js)
+    ts = tm.bucket_add(tm.slab(), "h", torch.tensor(idx), 2**32 - 1)
+    ts = tm.bucket_add(ts, "h", torch.tensor([1, 1]), torch.tensor([5, 7]))
+    tm.set_slab(ts)
+    a, b = jm.snapshot(), tm.snapshot()
+    for name in a:
+        assert np.array_equal(np.asarray(a[name]), np.asarray(b[name])), name
+    assert b["h"].tolist() == [2**32 - 2, 12, 2**32 - 2, 0, 2**32 - 2]  # mod 2**32
+    assert b["c"] == 0
+    fresh = torch.zeros(tm.size, dtype=torch.int64)
+    tm.set_slab(fresh)
+    assert tm.slab() is fresh
+
+
+@pytest.mark.parametrize("instrumented", [True, False])
+def test_route_batch_matches_reference(instrumented):
+    jd, td, jm, tm = _pair(policy="pow2", law="zipf", **CFG)
+    if not instrumented:
+        ref_c = j_make_cluster(CAPS)
+        ref_c.remove_node(4)
+        jd = JDriver(JEngine(ref_c, backend="ref"), **CFG)
+        td = RequestStreamDriver(PlacementEngine(
+            convert.cluster_from_reference_json(ref_c.to_json()), device="cpu"), **CFG)
+    rng = np.random.default_rng(3)
+    td.step()
+    jd.step()
+    for n in (1000, 700, 1):
+        ids = rng.integers(0, 2**32, n, dtype=np.uint32)
+        got, want = td.route_batch(ids), np.asarray(jd.route_batch(ids))
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        assert np.array_equal(got.numpy(), want)
+    assert td.load_counts().sum() == CFG["batch"] + 1701  # pad lanes never count
+    assert np.array_equal(td.counts.numpy(), np.asarray(jd.counts))
+    assert np.array_equal(td.qhist.numpy(), np.asarray(jd.qhist))
+    if instrumented:
+        _assert_same_state(jd, td, jm, tm)
+    # 1000 and 700 share the 1024 bucket; 1 is its own
+    assert td.step_traces == 1 + 2
+    td.route_batch(torch.arange(600, dtype=torch.int64))
+    assert td.step_traces == 3
+
+
+def test_superstep_traces_count_distinct_k():
+    jd, td, _, _ = _pair(policy="pow2", law="zipf", **CFG)
+    for k in (2, 2, 3):
+        assert np.array_equal(td.superstep(k).numpy(), np.asarray(jd.superstep(k)))
+    assert td.superstep_traces == jd.superstep_traces == 2
