@@ -144,8 +144,25 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            state, QUICK durability) on the card and on the CPU: owned
            shards, batches, MovePlans, drain rounds, blobs per node,
            reports and movement must agree bit for bit;
+  12. the multi-card sweep (``repro_torch.launch.placement_mesh``):
+      12a. ``ShardedSweep`` over a world-size-1 NCCL group at full width:
+           ``place_nodes`` and ``histogram`` under all four algorithms
+           (2**24 ids, wrh 2**20), the replica histogram at R = 3,
+           ``diff_nodes_device`` / ``diff_replicas_device`` and
+           ``movement_matrix`` at R = 1 and 3 on phase 8's add over its
+           2**24 tracked ids, ``plan`` / ``plan_replicas`` /
+           ``plan_stream(mesh=)``, and mesh serving at the phase-5
+           configuration (ASURA instrumented, 16 steps; CH, 4 steps; the
+           64 x 64 racks through B8, 16 steps; each then ``superstep(4)``);
+           every result equal to the same engine's single-card call, each
+           pair timed in turns by CUDA events (the difference is the
+           collectives' cost at world size 1);
+      12b. ``python -m repro_torch.launch.placement_mesh --selftest`` on 4
+           processes sharing the card over gloo (2**20 + 13 ids, serving
+           batch 4096): every rank's sharded results equal its
+           single-card path; rank 0 reports ``mesh.host_staged``;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
-     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d), time at
+     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -179,6 +196,7 @@ compared with zero tolerance: the whole stack is exact integer math.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -279,6 +297,14 @@ DURABILITY = {
     "full": dict(n_domains=12, nodes_per_domain=8, n_objects=200_000, years=20.0, **_MTTF),
     "racks": dict(n_objects=1 << 20, years=RACK_YEARS, **_MTTF),
 }
+
+
+# phase 12, the multi-card sweep
+MESH_RANKS = 4  # 12b: processes sharing the one card over gloo
+MESH_BATCH = 4096  # 12b: serving batch (cut from 65,536)
+MESH_TIMED = 5  # 12a: CUDA-event calls per turn (single, mesh, mesh, single)
+MESH_TIMEOUT = 600  # 12b: seconds before the ranks are stopped
+PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
 
 
 def scale_out(np, cluster) -> None:
@@ -793,6 +819,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 11: the consumers of placement ---------------------------------
     consumer_launches = phase11(torch, np, dev, caps[LADDER_NODES], seed)
 
+    # -- phase 12: the multi-card sweep ---------------------------------------
+    mesh_launches = phase12(torch, np, dev, caps[LADDER_NODES], seed, bulk)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -803,7 +832,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
 
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
-                  *hier["launches"], consumer_launches)
+                  *hier["launches"], consumer_launches, mesh_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2165,6 +2194,229 @@ def phase11(torch, np, dev, caps, seed) -> dict:
     print(f"  equal on the card and the CPU in {len(card)} results (owned shards, batches, "
           f"MovePlans, drain rounds, stored blobs per node, DurabilityReports, movement; "
           f"{time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def mesh_path(torch, np, dev, caps, seed, bulk) -> None:
+    """Phase 12a: ``ShardedSweep`` over the initialized world-size-1 NCCL
+    group at full width.  Each mesh call is driven once (its launches
+    count), held to the same engine's single-card call (uncounted), then
+    both are timed in turns (single, mesh, mesh, single; uncounted): the
+    difference is the collectives' cost at world size 1."""
+    from repro_torch.core import HierarchicalCluster, PlacementEngine, make_cluster
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.placement_mesh import ShardedSweep, make_data_mesh
+    from repro_torch.migrate import MigrationPlanner
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serve import RequestStreamDriver
+
+    mesh = make_data_mesh(1, dev.type)
+    n = len(caps)
+
+    def same(a, b) -> bool:
+        if isinstance(a, (tuple, list)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return mismatches(torch, a, b)[0] == 0
+        if dataclasses.is_dataclass(a):
+            return all(same(getattr(a, f), getattr(b, f)) for f in PLAN_FIELDS)
+        return np.array_equal(a, b)
+
+    def pair(what: str, on_mesh, single, reps: int = MESH_TIMED):
+        got = on_mesh()
+        with uncounted(LAUNCHES):
+            require(same(got, single()), f"phase 12a: {what} differs from the single-card path")
+            t_mesh, t_single = [], []
+            for fn, acc in ((single, t_single), (on_mesh, t_mesh), (on_mesh, t_mesh),
+                            (single, t_single)):
+                ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                      for _ in range(reps)]
+                for s, e in ev:  # the calls above were the warm-up
+                    s.record()
+                    fn()
+                    e.record()
+                torch.cuda.synchronize()
+                acc += [s.elapsed_time(e) for s, e in ev]
+        ms_m, ms_s = statistics.median(t_mesh), statistics.median(t_single)
+        print(f"  {what:46s} mesh {ms_m:10.4f} ms, single card {ms_s:10.4f} ms, "
+              f"difference {ms_m - ms_s:+.4f} ms; 0 mismatches")
+        return got
+
+    # the single-card counterparts: the sweep's scatter-adds without the pad,
+    # the shard and the all-reduce
+    def bincount(nodes, n_bins):
+        nodes = nodes.reshape(-1)
+        hist = torch.zeros(n_bins, dtype=torch.int32, device=nodes.device)
+        hist.scatter_add_(0, nodes.clamp(min=0).long(), (nodes >= 0).to(torch.int32))
+        return hist.cpu().numpy().astype(np.int64)
+
+    def matrix(diff, n_bins):
+        moved, src, dst = diff[0], diff[1], diff[2]
+        cell = src.clamp(min=0).long() * n_bins + dst.clamp(min=0).long()
+        mat = torch.zeros(n_bins * n_bins, dtype=torch.int32, device=cell.device)
+        mat.scatter_add_(0, cell.reshape(-1), moved.reshape(-1).to(torch.int32))
+        mat = mat.cpu().numpy().astype(np.int64).reshape(n_bins, n_bins)
+        return int(mat.sum()), mat
+
+    # owners and histograms, all four algorithms (wrh on 2**20 ids)
+    for alg in ("asura", "ch", "rs", "wrh"):
+        engine = PlacementEngine(make_cluster(caps), algorithm=alg)
+        sweep = engine.sharded()
+        ids = bulk[:WRH_IDS] if alg == "wrh" else bulk
+        # (``engine.place_nodes`` would take card ids through the host first)
+        pair(f"{alg} place_nodes ({ids.shape[0]} ids)", lambda: sweep.place_nodes(ids),
+             lambda: engine.place_nodes_device(ids).cpu().numpy().astype(np.int64))
+        pair(f"{alg} histogram", lambda: sweep.histogram(ids, n),
+             lambda: bincount(engine.place_nodes_device(ids), n))
+    cluster = make_cluster(caps)
+    engine = PlacementEngine(cluster)
+    sweep = ShardedSweep(engine, mesh)
+    pair("asura replica histogram R=3", lambda: sweep.histogram(bulk, n, n_replicas=3),
+         lambda: bincount(engine.place_replica_nodes_device(bulk, 3), n))
+
+    # phase 8's add over its tracked ids: diffs, matrices, plans, streams
+    engine.artifact()
+    v0 = cluster.version
+    cluster.add_node(n, 1.0)
+    v1 = cluster.version
+    tracked = np.random.default_rng(seed + 8).integers(0, 2**32, BULK_IDS, dtype=np.uint32)
+    on_card = torch.from_numpy(tracked).to(dev)
+    pair("diff_nodes_device", lambda: sweep.diff_nodes_device(on_card, v0, v1),
+         lambda: engine.diff_nodes_device(on_card, v0, v1))
+    pair("diff_replicas_device R=3", lambda: sweep.diff_replicas_device(on_card, v0, v1, 3),
+         lambda: engine.diff_replicas_device(on_card, v0, v1, 3))
+    n_moved, _ = pair("movement_matrix R=1", lambda: sweep.movement_matrix(on_card, v0, v1, n + 1),
+                      lambda: matrix(engine.diff_nodes_device(on_card, v0, v1), n + 1))
+    r_moved, _ = pair("movement_matrix R=3",
+                      lambda: sweep.movement_matrix(on_card, v0, v1, n + 1, n_replicas=3),
+                      lambda: matrix(engine.diff_replicas_device(on_card, v0, v1, 3), n + 1))
+    planner = MigrationPlanner(engine)
+    plan = pair("plan (host-facing, gathered)", lambda: planner.plan(tracked, v0, v1, mesh=sweep),
+                lambda: planner.plan(tracked, v0, v1), reps=1)
+    rplan = pair("plan_replicas R=3 (host-facing, gathered)",
+                 lambda: planner.plan_replicas(tracked, v0, v1, 3, mesh=sweep),
+                 lambda: planner.plan_replicas(tracked, v0, v1, 3), reps=1)
+    require(plan.n_moves == n_moved and rplan.n_moves == r_moved,
+            "phase 12a: the movement matrices disagree with the plans")
+    chunks = list(planner.chunked(on_card, BULK_IDS // PLAN_CHUNKS))
+    pair(f"plan_stream ({PLAN_CHUNKS} chunks)",
+         lambda: [p[1:] for p in planner.plan_stream(chunks, v0, v1, mesh=sweep)],
+         lambda: [p[1:] for p in planner.plan_stream(chunks, v0, v1)], reps=2)
+    print(f"  {n_moved} moved ids, {r_moved} moved replicas of {BULK_IDS} tracked; "
+          f"the {n + 1}^2 int32 matrix all-reduced")
+
+    # serving: phase 5's configuration, instrumented, then superstep(4);
+    # the CH fan-out and the two-level kernel B8 on the 64 x 64 racks
+    cfg = dict(batch=SERVE_BATCH, n_keys=SERVE_KEYS, law="zipf", alpha=1.1,
+               n_replicas=3, policy="pow2", seed=seed)
+    topo = hier_topologies(np, caps, seed)["64x64"]
+    hier = HierarchicalCluster(device=dev)
+    for d, members in topo.items():
+        for node, cap in members.items():
+            hier.add_node(d, node, cap)
+    for what, eng, steps, instrumented in (
+        ("asura", engine, SERVE_STEPS, True),
+        ("ch", PlacementEngine(make_cluster(caps), algorithm="ch"), 4, True),
+        ("two-level 64x64", hier.engine, SERVE_STEPS, False),
+    ):
+        regs = [MetricsRegistry() if instrumented else None for _ in range(2)]
+        reduces = eng.ledger.counter("mesh.all_reduces")
+        shard = RequestStreamDriver(eng, mesh=mesh, metrics=regs[0], **cfg)
+        with uncounted(LAUNCHES):
+            solo = RequestStreamDriver(eng, metrics=regs[1], **cfg)
+        t_mesh, t_single = [], []
+        for _ in range(steps):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            got = shard.step()
+            e.record()
+            with uncounted(LAUNCHES):
+                s2, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s2.record()
+                want = solo.step()
+                e2.record()
+                torch.cuda.synchronize()
+                require(same(got, want), f"phase 12a: {what} mesh step differs")
+            t_mesh.append(s.elapsed_time(e))
+            t_single.append(s2.elapsed_time(e2))
+        got = shard.superstep(4)
+        with uncounted(LAUNCHES):
+            want = torch.stack([solo.step() for _ in range(4)])
+        require(same(got, want), f"phase 12a: {what} mesh superstep(4) differs")
+        for name in ("counts", "queue", "qhist"):
+            require(same(getattr(shard, name), getattr(solo, name)),
+                    f"phase 12a: {what} mesh {name} differs")
+        if instrumented:
+            snap, want_snap = (r.snapshot() for r in regs)
+            require(snap.keys() == want_snap.keys() and all(
+                np.array_equal(np.asarray(v), np.asarray(want_snap[k])) for k, v in snap.items()),
+                f"phase 12a: {what} mesh metrics slab differs")
+        print(f"  serve {what:15s} {steps} steps + superstep(4), batch {SERVE_BATCH}: mesh step "
+              f"median {statistics.median(t_mesh):.4f} ms, single card "
+              f"{statistics.median(t_single):.4f} ms (CUDA events); chosen, counts, queue, qhist"
+              f"{', slab' if instrumented else ''} equal; "
+              f"{eng.ledger.counter('mesh.all_reduces') - reduces} all-reduces (one per batch), "
+              f"mesh.host_staged {eng.ledger.counter('mesh.host_staged')}")
+
+
+def phase12(torch, np, dev, caps, seed, bulk) -> dict:
+    """The multi-card sweep on the card: 12a at NCCL world size 1 and full
+    width (the main path, launches counted), 12b the selftest on
+    MESH_RANKS processes sharing the card over gloo, at a cut size."""
+    import os
+    import re
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    print(f"phase 12a ({card_line(dev)}): ShardedSweep on NCCL at world size 1, "
+          f"{len(caps)} nodes, {BULK_IDS} ids")
+    t0 = time.perf_counter()
+    reset_launches()
+    torch.cuda.set_device(dev)  # the rank's card, before the mesh binds one
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                rank=0, world_size=1)
+        try:
+            mesh_path(torch, np, dev, caps, seed, bulk)
+        finally:
+            dist.destroy_process_group()
+    launches = dict(LAUNCHES)
+    print(f"  phase 12a main path: launches {launches}, {time.perf_counter() - t0:.1f} s")
+    for name in ("place_fused", "place_replicas", "diff_nodes", "diff_replicas", "ch_place",
+                 "rs_place", "wrh_place", "baseline_replicas", "hier_replicas"):
+        require(launches[name] > 0, f"the mesh path did not launch {name}")
+
+    print(f"phase 12b: the selftest on {MESH_RANKS} ranks sharing the card over gloo, "
+          f"{CHECK_IDS} ids, serving batch {MESH_BATCH}")
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.placement_mesh", "--selftest",
+         "--devices", str(MESH_RANKS), "--device", "cuda", "--ids", str(CHECK_IDS),
+         "--batch", str(MESH_BATCH)],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT)
+    finally:
+        if proc.poll() is None:  # stop the ranks too
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    for line in out.splitlines():
+        print(f"  {line}")
+    require(proc.returncode == 0, f"phase 12b: the {MESH_RANKS}-rank selftest failed:\n"
+            f"{err[-3000:]}")
+    staged = re.search(r"backend gloo on cuda:0, mesh\.host_staged (\d+)", out)
+    require(staged is not None and f"selftest OK on {MESH_RANKS} ranks" in out,
+            "phase 12b: the selftest did not report")
+    print(f"  {MESH_RANKS} ranks on one card: 0 mismatches, mesh.host_staged "
+          f"{staged.group(1)} (rank 0), {time.perf_counter() - t0:.1f} s")
     return launches
 
 

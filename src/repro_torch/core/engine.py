@@ -59,6 +59,10 @@ two-level route: every two-level call goes through B8's wrapper, which
 launches the kernel for tables on the card and runs its plain-torch twin
 for tables on the CPU.
 
+``sharded()`` returns the engine's multi-card sweep
+(``launch.placement_mesh.ShardedSweep``) over a ``torch.distributed``
+group.
+
 The engine is duck-typed on the cluster (``version``, ``params``,
 ``seg_lengths()``, ``seg_to_node()``; the baselines also read ``nodes``).
 """
@@ -243,6 +247,7 @@ class PlacementEngine:
         self._rs_shadow: RandomSlicingTable | None = None
         # instance-scoped so the exact upload tripwire never aliases
         self.ledger = TraceLedger()
+        self._default_sweep = None
 
     def _resolve_algorithm(self, algorithm: str | None) -> str:
         """``algorithm``, or the engine's own when None (checked)."""
@@ -851,6 +856,23 @@ class PlacementEngine:
             dst.cpu().numpy().astype(np.int64),
             src_slot.cpu().numpy(),
         )
+
+    def sharded(self, mesh=None):
+        """A ``ShardedSweep`` running this engine's bulk sweeps over a
+        ``torch.distributed`` mesh (DESIGN.md section 11): the id stream
+        split over the ranks, every rank's own tables, histograms /
+        movement matrices / moved counts merged by one all-reduce -- equal
+        to the single-card ``*_device`` paths bit for bit.
+
+        ``mesh=None`` spans the whole process group; that sweep is cached,
+        and an explicit mesh gets a fresh sweep."""
+        from ..launch.placement_mesh import ShardedSweep
+
+        if mesh is not None:
+            return ShardedSweep(self, mesh)
+        if self._default_sweep is None:
+            self._default_sweep = ShardedSweep(self)
+        return self._default_sweep
 
     def addition_numbers_device(
         self, datum_ids, version: int | None = None, n_replicas: int = 1

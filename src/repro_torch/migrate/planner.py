@@ -34,8 +34,13 @@ aligns the node planes), streams diff chunk by chunk (``fuse`` is
 ignored, as in the reference), and the ADDITION-NUMBER prefilter -- flat
 table semantics -- raises.
 
-``mesh=`` (the reference's multi-chip sweep) is not ported yet and raises
-naming ROADMAP A7.
+``mesh=`` (a ``DeviceMesh`` or a ``launch.placement_mesh.ShardedSweep``)
+runs each chunk's diff over the ranks of a ``torch.distributed`` group
+(DESIGN.md section 11): every rank calls with the same ids, each diffs its
+shard of the chunk, and the assembled plan -- gathered onto every rank --
+equals the single-card plan.  Mesh streams yield each rank's shard, diff
+chunk by chunk (``fuse`` is ignored) and a hierarchical engine refuses
+them, as in the reference.
 """
 
 from __future__ import annotations
@@ -66,18 +71,12 @@ def pad_pow2(chunk, multiple: int = 1):
     return torch.cat([chunk, pad]), n
 
 
-def _mask_tail(moved: torch.Tensor, n_valid: int) -> torch.Tensor:
-    """``moved`` with rows >= ``n_valid`` forced False, where it lies."""
-    idx = torch.arange(moved.shape[0], device=moved.device)
+def _mask_tail(moved: torch.Tensor, n_valid: int, first: int = 0) -> torch.Tensor:
+    """``moved`` (rows ``first``, ``first + 1``, ... of a padded chunk)
+    with the rows from ``n_valid`` on forced False, where it lies."""
+    idx = torch.arange(first, first + moved.shape[0], device=moved.device)
     idx = idx.reshape((-1,) + (1,) * (moved.dim() - 1))
     return moved & (idx < n_valid)
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-card sweeps (mesh=) are not ported yet (ROADMAP A7)"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,10 +168,51 @@ class MigrationPlanner:
         each (chunk, R), no host sync."""
         return self.engine.diff_replicas_device(datum_ids, v_from, v_to, n_replicas)
 
-    def _diff(self, ids, v_from: int, v_to: int, n_replicas: int | None):
+    def _sweep(self, mesh):
+        """``mesh=`` (a ``DeviceMesh``, a ``ShardedSweep`` or None) as a
+        sweep bound to this planner's engine -- the multi-card diff path."""
+        if mesh is None:
+            return None
+        from ..launch.placement_mesh import ShardedSweep
+
+        if isinstance(mesh, ShardedSweep):
+            return mesh
+        return ShardedSweep(self.engine, mesh)
+
+    def _diff(self, ids, v_from: int, v_to: int, n_replicas: int | None, sweep=None):
+        """One (padded) chunk's diff: on one card, or this rank's shard of
+        it over ``sweep``."""
+        if sweep is not None and n_replicas:
+            return sweep.diff_replicas_device(ids, v_from, v_to, n_replicas)
+        if sweep is not None:
+            return sweep.diff_nodes_device(ids, v_from, v_to)
         if n_replicas:
             return self.diff_replicas_device(ids, v_from, v_to, n_replicas)
         return self.diff_device(ids, v_from, v_to)
+
+    def _mesh_stream(self, id_chunks, v_from: int, v_to: int, n_replicas, sweep):
+        """The streaming driver over a mesh: chunk by chunk, each padded
+        into its pow2 bucket (a multiple of the world size); yields this
+        rank's shard ``(ids, *diff)`` with the pad lanes' ``moved`` False."""
+        for chunk in id_chunks:
+            padded, n_valid = pad_pow2(chunk, sweep.n_devices)
+            lo, hi = sweep.bounds(padded.shape[0])
+            outs = list(self._diff(padded, v_from, v_to, n_replicas, sweep))
+            if padded is not chunk:
+                outs[0] = _mask_tail(outs[0], n_valid, lo)
+            yield (padded[lo:hi], *outs)
+
+    def _host_diff(self, c: np.ndarray, v_from: int, v_to: int, n_replicas, sweep):
+        """One host chunk's device diff, pow2-padded (a multiple of the
+        world size on a mesh), copied back whole -> NumPy arrays of
+        ``len(c)`` rows; a mesh gathers every rank's shard in one
+        collective."""
+        n_c = len(c)
+        cp, _ = pad_pow2(c, 1 if sweep is None else sweep.n_devices)
+        outs = self._diff(cp, v_from, v_to, n_replicas, sweep)
+        if sweep is not None:
+            outs = sweep.gather(*outs)
+        return [o.cpu().numpy()[:n_c] for o in outs]
 
     def _stream(self, id_chunks, v_from: int, v_to: int, fuse: int, n_replicas):
         """The shared streaming driver: group consecutive equal-length
@@ -218,9 +258,17 @@ class MigrationPlanner:
         bucket-length with the pad lanes' ``moved`` forced False.
         ``fuse`` > 1 diffs up to that many consecutive equal-length chunks
         in one launch over their concatenation -- the same yielded tuples,
-        ``fuse``-fold fewer launches."""
-        _no_mesh(mesh)
-        yield from self._stream(id_chunks, v_from, v_to, fuse, None)
+        ``fuse``-fold fewer launches.
+
+        ``mesh=`` diffs each chunk over the ranks: each rank yields its
+        shard of every padded chunk (lanes ``sweep.bounds``), and the
+        ranks' tuples concatenated in rank order are the single-card
+        tuple."""
+        sweep = self._sweep(mesh)
+        if sweep is not None:
+            yield from self._mesh_stream(id_chunks, v_from, v_to, None, sweep)
+        else:
+            yield from self._stream(id_chunks, v_from, v_to, fuse, None)
 
     def plan_replicas_stream(
         self, id_chunks, v_from: int, v_to: int, n_replicas: int, *,
@@ -229,8 +277,11 @@ class MigrationPlanner:
         """Replica streaming sweep: yield ``(ids, moved, src, dst,
         src_slot)`` device tuples per chunk -- the R-way twin of
         ``plan_stream``."""
-        _no_mesh(mesh)
-        yield from self._stream(id_chunks, v_from, v_to, fuse, int(n_replicas))
+        sweep = self._sweep(mesh)
+        if sweep is not None:
+            yield from self._mesh_stream(id_chunks, v_from, v_to, int(n_replicas), sweep)
+        else:
+            yield from self._stream(id_chunks, v_from, v_to, fuse, int(n_replicas))
 
     @staticmethod
     def chunked(ids, chunk: int = DEFAULT_CHUNK):
@@ -262,11 +313,13 @@ class MigrationPlanner:
         ``known_src`` (aligned with ``datum_ids``) gives the v owners a
         caller already keeps (``ElasticCoordinator``'s owner table), so the
         numpy backend places each id once; the device diff places both
-        versions in one launch anyway and ignores it."""
-        _no_mesh(mesh)
+        versions in one launch anyway and ignores it.  ``mesh=`` diffs
+        every chunk over the ranks (the device path whatever the backend);
+        the plan, on every rank, equals the single-card plan."""
         t0 = time.perf_counter()
         ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
-        host = self.engine.backend == "numpy"
+        sweep = self._sweep(mesh)
+        host = self.engine.backend == "numpy" and sweep is None
         if known_src is not None:
             known_src = np.asarray(known_src, dtype=np.int64)
         out_ids, out_src, out_dst, out_idx = [], [], [], []
@@ -285,12 +338,8 @@ class MigrationPlanner:
                 dst = self.engine.place_nodes_at(c, v_to)
                 moved = src != dst
             else:
-                n_c = len(c)
-                cp, _ = pad_pow2(c)
-                moved_d, src_d, dst_d = self.diff_device(cp, v_from, v_to)
-                moved = moved_d.cpu().numpy()[:n_c]
-                src = src_d.cpu().numpy()[:n_c].astype(np.int64)
-                dst = dst_d.cpu().numpy()[:n_c].astype(np.int64)
+                moved, src, dst = self._host_diff(c, v_from, v_to, None, sweep)
+                src, dst = src.astype(np.int64), dst.astype(np.int64)
             out_ids.append(c[moved])
             out_src.append(src[moved])
             out_dst.append(dst[moved])
@@ -327,10 +376,11 @@ class MigrationPlanner:
         section-5 minimal replica mass.  ``max_new_seg`` turns on the
         R-aware ADDITION-NUMBER prefilter.  ``known_before`` ((len(ids), R)
         v replica sets a caller already keeps) saves the numpy backend one
-        of its two sweeps; the device diff ignores it."""
-        _no_mesh(mesh)
+        of its two sweeps; the device diff ignores it.  ``mesh=`` as in
+        ``plan``."""
         t0 = time.perf_counter()
         ids = np.atleast_1d(np.asarray(datum_ids, dtype=np.uint32))
+        sweep = self._sweep(mesh)
         hier = self.engine.hierarchical
         if hier and max_new_seg is not None:
             raise ValueError(
@@ -339,7 +389,7 @@ class MigrationPlanner:
             )
         # hierarchical engines always diff through the two-level kernel path
         # (node-plane alignment); the host replica sweep returns pairs
-        host = self.engine.backend == "numpy" and not hier
+        host = self.engine.backend == "numpy" and sweep is None and not hier
         if known_before is not None:
             known_before = np.asarray(known_before, dtype=np.int64)
         out: dict[str, list[np.ndarray]] = {
@@ -360,15 +410,10 @@ class MigrationPlanner:
                 dst = self.engine.place_replica_nodes_at(c, v_to, n_replicas)
                 moved, src, src_slot = align_replica_sets(before, dst)
             else:
-                n_c = len(c)
-                cp, _ = pad_pow2(c)
-                moved_d, src_d, dst_d, slot_d = self.diff_replicas_device(
-                    cp, v_from, v_to, n_replicas
+                moved, src, dst, src_slot = self._host_diff(
+                    c, v_from, v_to, n_replicas, sweep
                 )
-                moved = moved_d.cpu().numpy()[:n_c]
-                src = src_d.cpu().numpy()[:n_c].astype(np.int64)
-                dst = dst_d.cpu().numpy()[:n_c].astype(np.int64)
-                src_slot = slot_d.cpu().numpy()[:n_c]
+                src, dst = src.astype(np.int64), dst.astype(np.int64)
             b_idx, r_idx = np.nonzero(moved)  # id-major, slot-minor
             out["ids"].append(c[b_idx])
             out["src"].append(src[b_idx, r_idx])

@@ -33,6 +33,18 @@ kernel, pending slots from their v-side sources), so every request lands
 on a node that holds its datum mid-drain.  ``superstep_migrating(k)`` is
 k of those batches against the same pending view.  Windows are ASURA's
 (they ride on its dual-version tables), as in the reference.
+
+``mesh=`` (a ``DeviceMesh`` or a ``launch.placement_mesh.ShardedSweep``)
+shards the stream over the ranks of a ``torch.distributed`` group
+(DESIGN.md section 12): every rank builds the same driver, rank r draws
+lanes ``r * local + arange(local)`` (the same words as the single-card
+stream), routes them through its own kernel and selects against the
+start-of-batch counters, which are equal on every rank; the per-node
+histogram -- and, when instrumented, the metrics slab's delta -- merge
+with ONE all-reduce per batch, and ``step()`` gathers the whole chosen
+vector.  The sharded stream equals the single-card stream bit for bit.
+Host-fed batches (``route_batch``) and migration windows stay single-card,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ from ..kernels.asura_place import place_replicas_cuda
 from ..kernels.baselines import baseline_replicas_cuda
 from ..kernels.hierarchy import hier_place_replicas_cuda
 from ..kernels.ref import DEPTH_BINS
-from ..kernels.u32 import to_u32
+from ..kernels.u32 import M32, to_u32
 from ..obs.trace import TraceLedger
 from .traffic import TrafficModel, prng_key
 
@@ -196,6 +208,7 @@ class RequestStreamDriver:
         service_rate: int | None = None,
         max_hist: int = DEFAULT_HIST,
         n_bins: int | None = None,
+        mesh=None,
         algorithm: str | None = None,
         metrics=None,
     ):
@@ -205,6 +218,16 @@ class RequestStreamDriver:
         self.algorithm = engine._resolve_algorithm(algorithm)
         self.device = engine.device
         self.batch = int(batch)
+        self._sweep = None
+        if mesh is not None:
+            from ..launch.placement_mesh import ShardedSweep
+
+            self._sweep = mesh if isinstance(mesh, ShardedSweep) else ShardedSweep(engine, mesh)
+            if self.batch % self._sweep.n_devices:
+                raise ValueError(
+                    f"batch ({self.batch}) must divide the mesh "
+                    f"({self._sweep.n_devices} devices)"
+                )
         self.n_replicas = int(n_replicas)
         self.policy = policy
         self.max_hist = int(max_hist)
@@ -232,8 +255,10 @@ class RequestStreamDriver:
         dev = self.device
         self._service = torch.full((self.n_bins,), self.service_rate,
                                    dtype=torch.int32, device=dev)
-        self._lanes = torch.arange(self.batch, dtype=torch.int64, device=dev)
-        self._ones = torch.ones(self.batch, dtype=torch.int32, device=dev)
+        # this rank's GLOBAL lanes (all of them on one card)
+        lo, hi = (0, self.batch) if self._sweep is None else self._sweep.bounds(self.batch)
+        self._lanes = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+        self._ones = torch.ones(hi - lo, dtype=torch.int32, device=dev)
         self._thresholds = self.traffic.thresholds_on(dev)
         self.ledger = TraceLedger()  # instance-scoped tripwire counts
         self.metrics = metrics
@@ -304,7 +329,8 @@ class RequestStreamDriver:
     def _serve_batch(self, route):
         """generate -> route -> select -> count for stream position
         ``self._step``; returns the batch's ids (u32 values in int64) and
-        the chosen nodes.
+        the chosen nodes -- this rank's lanes on a mesh, whose histogram
+        (and slab delta) one all-reduce merges.
         ``route(ids)`` gives the (batch, R) holders and the kernel's stats
         vector (None when it has none)."""
         ids, sel = TrafficModel.draw(
@@ -317,16 +343,26 @@ class RequestStreamDriver:
         )
         hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
         hist.scatter_add_(0, chosen.long(), self._ones)
+        delta = None
         if self._instrumented:
             reg = self.metrics
             slab = reg.slab()
-            reg.add(slab, self._routed_name, self.batch)
-            reg.add_hist(slab, "serve.served", hist)
+            # on a mesh the adds go to a delta that rides the batch's one
+            # all-reduce beside the histogram
+            delta = slab if self._sweep is None else torch.zeros_like(slab)
+            reg.add(delta, self._routed_name, self._lanes.shape[0])
+            reg.add_hist(delta, "serve.served", hist)
             if stats is not None and self.algorithm == "asura":
-                reg.add_hist(slab, "asura.ladder_depth", stats[:DEPTH_BINS])
-                reg.add(slab, "asura.nonconverged", stats[DEPTH_BINS])
+                reg.add_hist(delta, "asura.ladder_depth", stats[:DEPTH_BINS])
+                reg.add(delta, "asura.nonconverged", stats[DEPTH_BINS])
             elif stats is not None:
-                reg.add(slab, "baseline.reprobes", stats[0])
+                reg.add(delta, "baseline.reprobes", stats[0])
+        if self._sweep is not None and delta is not None:
+            merged = self._sweep.all_reduce(torch.cat([hist.to(torch.int64), delta]))
+            hist = merged[: self.n_bins].to(torch.int32)
+            slab.add_(merged[self.n_bins :]).bitwise_and_(M32)
+        elif self._sweep is not None:
+            hist = self._sweep.all_reduce(hist)
         self.counts = self.counts + hist
         self.queue = torch.clamp(self.queue + hist - self._service, min=0)
         self.qhist[self._step % self.max_hist] = self.queue
@@ -356,10 +392,15 @@ class RequestStreamDriver:
                 )
             self._checked_version = art.version
 
+    def _whole(self, chosen: torch.Tensor) -> torch.Tensor:
+        """The whole batch's chosen nodes: on a mesh, every rank's lanes
+        gathered along the last axis."""
+        return chosen if self._sweep is None else self._sweep.gather(chosen, dim=-1)
+
     def step(self) -> torch.Tensor:
         """Serve one generated batch -> (batch,) int32 chosen nodes on the
         device.  No host sync: the state and the result stay on the device."""
-        return self._serve_batch(self._kernel_route(*self._route()))[1]
+        return self._whole(self._serve_batch(self._kernel_route(*self._route()))[1])
 
     def superstep(self, k: int) -> torch.Tensor:
         """Serve K generated batches -> (k, batch) int32 chosen nodes; equal
@@ -373,7 +414,7 @@ class RequestStreamDriver:
             self._bodies[key] = body
             self.ledger.incr("serve.superstep_traces")
         route = self._kernel_route(body, tables)
-        return torch.stack([self._serve_batch(route)[1] for _ in range(k)])
+        return self._whole(torch.stack([self._serve_batch(route)[1] for _ in range(k)]))
 
     def route_batch(self, datum_ids) -> torch.Tensor:
         """Serve one EXTERNAL id batch through the select + count pass ->
@@ -389,6 +430,11 @@ class RequestStreamDriver:
         from ..kernels.ops import as_ids
         from ..migrate.planner import pad_pow2
 
+        if self._sweep is not None:
+            raise ValueError(
+                "route_batch serves host-fed batches single-device; "
+                "mesh-sharded serving goes through step()"
+            )
         ids = as_ids(datum_ids, self.device)
         n = int(ids.shape[0])
         padded, n_valid = pad_pow2(ids)
@@ -425,6 +471,11 @@ class RequestStreamDriver:
         """``ids -> (owners, None)`` through the window's replica read rule,
         after checking (on the host, once per window) that R matches and
         that every node of both versions has a load bin."""
+        if self._sweep is not None:
+            raise ValueError(
+                "migration windows are single-device (the pending views "
+                "refresh per round); build the driver without mesh="
+            )
         if migration.n_replicas != self.n_replicas:
             raise ValueError(
                 f"driver serves R={self.n_replicas} but the migration plan "

@@ -720,3 +720,98 @@ def test_durability_on_card_matches_cpu(cuda_device):
     assert card == compare_policies(topo, device="cpu", **kw)
     assert movement_on_node_add(topo, n_objects=20_000, device=cuda_device) == \
         movement_on_node_add(topo, n_objects=20_000, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the multi-card sweep at world size 1 on the card (NCCL), and the host
+# staging a gloo group gives card tensors
+# ---------------------------------------------------------------------------
+
+import torch.distributed as dist  # noqa: E402
+
+from repro_torch.launch.placement_mesh import ShardedSweep, make_data_mesh  # noqa: E402
+
+MESH_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
+OWNER_KERNEL = {"asura": "place_fused", "ch": "ch_place", "rs": "rs_place", "wrh": "wrh_place"}
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world-size-1 NCCL group and its ``data`` mesh on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    torch.cuda.set_device(0)
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    yield make_data_mesh(1, "cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("alg", ["asura", "ch", "rs", "wrh"])
+def test_mesh_sweep_on_card_matches_engine(nccl_mesh, alg):
+    engine = PlacementEngine(make_cluster(LADDERS["4096 nodes"]), algorithm=alg)
+    sweep = ShardedSweep(engine, nccl_mesh)
+    ids = _ids(20_011 if alg == "wrh" else 100_003, "cuda", seed=5)
+    before = dict(LAUNCHES)
+    owners = sweep.place_nodes(ids)
+    assert LAUNCHES[OWNER_KERNEL[alg]] == before[OWNER_KERNEL[alg]] + 1
+    assert np.array_equal(owners, engine.place_nodes(ids))
+    assert np.array_equal(sweep.histogram(ids, 4096), np.bincount(owners, minlength=4096))
+    assert engine.ledger.counter("mesh.host_staged") == 0
+
+
+def test_mesh_matrix_and_plans_on_card_at_r3(nccl_mesh):
+    cluster = make_cluster(LADDERS["4096 nodes"])
+    engine = PlacementEngine(cluster)
+    engine.artifact()
+    v0 = cluster.version
+    cluster.add_node(4096, 1.0)
+    v1 = cluster.version
+    sweep = ShardedSweep(engine, nccl_mesh)
+    ids = np.random.default_rng(6).integers(0, 2**32, 100_003, dtype=np.uint32)
+    planner = MigrationPlanner(engine)
+    assert np.array_equal(sweep.histogram(ids, 4097, n_replicas=3), np.bincount(
+        engine.place_replica_nodes(ids, 3).ravel(), minlength=4097))
+    for R in (None, 3):
+        plan = planner.plan(ids, v0, v1) if R is None else planner.plan_replicas(ids, v0, v1, R)
+        splan = (planner.plan(ids, v0, v1, mesh=sweep) if R is None
+                 else planner.plan_replicas(ids, v0, v1, R, mesh=nccl_mesh))
+        for f in MESH_FIELDS:
+            assert np.array_equal(getattr(splan, f), getattr(plan, f)), f
+        n_moved, mat = sweep.movement_matrix(ids, v0, v1, 4097, n_replicas=R)
+        want = np.zeros((4097, 4097), dtype=np.int64)
+        np.add.at(want, (plan.src, plan.dst), 1)
+        assert n_moved == plan.n_moves > 0 and np.array_equal(mat, want)
+
+
+def test_mesh_serving_step_on_card_matches_plain_step(nccl_mesh):
+    engine = PlacementEngine(make_cluster(LADDERS["4096 nodes"]))
+    cfg = dict(batch=4096, n_keys=1 << 16, n_replicas=3, policy="pow2", seed=2)
+    regs = (MetricsRegistry(), MetricsRegistry())
+    shard = RequestStreamDriver(engine, mesh=nccl_mesh, metrics=regs[0], **cfg)
+    solo = RequestStreamDriver(engine, metrics=regs[1], **cfg)
+    before = LAUNCHES["place_replicas"]
+    for _ in range(3):
+        assert torch.equal(shard.step(), solo.step())
+    assert LAUNCHES["place_replicas"] == before + 6
+    assert torch.equal(shard.superstep(2), torch.stack([solo.step() for _ in range(2)]))
+    for name in ("counts", "queue", "qhist"):
+        assert torch.equal(getattr(shard, name), getattr(solo, name))
+    snap, want = (r.snapshot() for r in regs)
+    assert snap.keys() == want.keys()
+    assert all(np.array_equal(snap[k], want[k]) for k in snap)
+
+
+def test_gloo_mesh_stages_card_tensors_through_the_host(nccl_mesh):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh.from_group(dist.new_group(backend="gloo"), "cuda",
+                                 mesh_dim_names=("data",))
+    engine = PlacementEngine(make_cluster(CAPS))
+    sweep = ShardedSweep(engine, mesh)
+    assert sweep.backend == "gloo"
+    ids = _ids(10_001, "cuda", seed=7)
+    owners = sweep.place_nodes(ids)
+    assert np.array_equal(owners, engine.place_nodes(ids))
+    assert np.array_equal(sweep.histogram(ids, 10), np.bincount(owners, minlength=10))
+    assert engine.ledger.counter("mesh.host_staged") == 2  # one gather, one all-reduce

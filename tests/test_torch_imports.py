@@ -64,6 +64,18 @@ def test_consumer_imports_load_neither_jax_nor_the_reference():
     assert proc.stdout.strip() == "[]"
 
 
+def test_mesh_import_loads_neither_jax_nor_the_reference():
+    proc = _run(
+        "import sys, repro_torch.launch.placement_mesh as pm\n"
+        "assert pm.DATA_AXIS == 'data' and callable(pm.make_data_mesh)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_consumer_packages_export_the_reference_names():
     import repro.checkpoint
     import repro.data

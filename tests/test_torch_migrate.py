@@ -17,6 +17,7 @@ everywhere: the whole stack is integer math.
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import jax.numpy as jnp
 
@@ -31,6 +32,7 @@ from repro_torch.convert import cluster_from_reference_json
 from repro_torch.core import PlacementEngine
 from repro_torch.core import asura as tasura
 from repro_torch.core.engine import CACHE_VERSIONS
+from repro_torch.launch.placement_mesh import make_data_mesh
 from repro_torch.migrate import (
     LiveMigration,
     MigrationPlan,
@@ -330,7 +332,7 @@ def test_plan_stream_fuse_launches_one_diff_per_block(monkeypatch):
     assert calls == [2048, 2048, 1024, 128]  # 4 + 4 + 2 full chunks, then the tail
 
 
-def test_pad_pow2_and_mesh():
+def test_pad_pow2_and_mesh(tmp_path):
     x = np.arange(5, dtype=np.uint32)
     p, n = pad_pow2(x)
     assert n == 5 and p.tolist() == [0, 1, 2, 3, 4, 0, 0, 0]
@@ -339,8 +341,26 @@ def test_pad_pow2_and_mesh():
     pt, _ = pad_pow2(torch.from_numpy(x))
     assert pt.dtype == torch.uint32 and pt.numpy().tolist() == p.tolist()
     _, _, tc, te = _pair(_caps(4))
-    with pytest.raises(NotImplementedError, match="A7"):
-        MigrationPlanner(te).plan(x, tc.version, tc.version, mesh=object())
+    v0 = tc.version
+    tc.add_node(4, 1.0)
+    planner = MigrationPlanner(te)
+    with pytest.raises(ValueError, match="must be 1-D"):
+        planner.plan(x, v0, tc.version, mesh=object())
+    # a world-size-1 mesh plans as one card does
+    ids = _ids(1000)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_data_mesh(device_type="cpu")
+        for got, want in ((planner.plan(ids, v0, tc.version, mesh=mesh),
+                           planner.plan(ids, v0, tc.version)),
+                          (planner.plan_replicas(ids, v0, tc.version, 3, mesh=mesh),
+                           planner.plan_replicas(ids, v0, tc.version, 3))):
+            assert got.n_moves > 0
+            for f in PLAN_FIELDS:
+                assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
