@@ -9,9 +9,10 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 The main path is ASURA STEP 2 -- placing a batch of u32 datum ids against
 one versioned segment table -- reached two ways: bulk placement through
 ``PlacementEngine`` and the batched serving step ``RequestStreamDriver``;
-then the migration, baseline and failure-domain paths, and the modules
+then the migration, baseline and failure-domain paths, the modules
 through which users meet placement (data pipeline, elastic coordinator,
-checkpoint store, durability simulator).
+checkpoint store, durability simulator), the multi-card sweep, and the
+language-model serving path that routes its requests with ASURA.
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -161,8 +162,29 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            processes sharing the card over gloo (2**20 + 13 ids, serving
            batch 4096): every rank's sharded results equal its
            single-card path; rank 0 reports ``mesh.host_staged``;
+  13. the dense language-model serving path, smollm-135m at full width
+      (30 layers, d_model 576, 9 query / 3 KV heads, vocab 49,152; weights
+      drawn from ``--seed``):
+      13a. ASURA routing of 2**20 session ids over 6 replicas through
+           ``place_nodes_device`` (B1): replica 3 removed, exactly its
+           sessions move; standby 6 added, every moved session goes to it;
+      13b. ``repro_torch.launch.serve`` with the reference's defaults (4
+           replicas, 64 requests, batch 8, decode 8, cache 64): decode ms
+           per step (CUDA events), tokens/s, and ``torch.profiler``'s idle
+           share and launches per decode step;
+      13c. decode at the decode_32k shape cut to batch 64 (48.3 GB of K
+           and V): 8 steps from position 32,767 against a full cache; step
+           ms, tokens/s, peak memory and the bytes bound;
+      13d. prefill at 1 x 32,768 (blockwise attention) and 8 x 4,096
+           (dense): ms, tokens/s, peak memory, the bf16 FLOP bound;
+      13e. the card against the port on the CPU, same weights (a 16-token
+           prefill and 4 decode steps at batch 2), and a 1,024-token
+           blockwise prefill against the dense one on the card: logits
+           within 2e-2 x max |logits|, greedy tokens equal wherever the
+           top-2 margin exceeds that;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
-     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a), time at
+     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
+     13a-13b), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -190,12 +212,15 @@ LABEL, and builds only their libraries.
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
 exits non-zero before printing any result.  Every integer result is
-compared with zero tolerance: the whole stack is exact integer math.
+compared with zero tolerance: the placement stack is exact integer math.
+The language model's float logits (phase 13) are held to the tolerance
+stated there.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -304,6 +329,28 @@ MESH_RANKS = 4  # 12b: processes sharing the one card over gloo
 MESH_BATCH = 4096  # 12b: serving batch (cut from 65,536)
 MESH_TIMED = 5  # 12a: CUDA-event calls per turn (single, mesh, mesh, single)
 MESH_TIMEOUT = 600  # 12b: seconds before the ranks are stopped
+# phase 13, the dense language-model serving path (smollm-135m at full width)
+LM_SESSIONS = 1 << 20  # 13a: session ids routed
+LM_REPLICAS = 6  # 13a: examples/serve_routing.py's replicas; 3 dies, standby 6 joins
+LM_CLI = ["--arch", "smollm-135m", "--replicas", "4", "--replica-id", "0", "--requests", "64",
+          "--batch", "8", "--decode-len", "8", "--cache-len", "64"]  # the reference's defaults
+LM_PROFILED = 8  # 13b: decode steps traced by torch.profiler
+# 13c: the decode_32k shape (32,768 cached positions) at batch 64, cut from
+# 128: 128 x 32,768 x 30 layers x 768 B of K and V is 96.6 GB, over the 80
+# GB card; 64 is 48.3 GB
+DECODE_32K = (64, 32_768)
+DECODE_STEPS = 8
+# 13d: prefill_32k at batch 1, cut from 32 (one KV chunk's fp32 scores are
+# 1.2 GB per sequence; the blockwise path), and a 4,096 prompt at batch 8
+# (the dense path)
+PREFILLS = ((1, 32_768), (8, 4_096))
+LM_CARD_CPU = (2, 16, 4)  # 13e: batch, prompt length, decode steps on the card and the CPU
+LM_BLOCKWISE = (2, 1_024, 512)  # 13e: batch, prompt length, blockwise threshold
+# 13e: max |card bf16 - fp32| <= this x max |CPU bf16 - fp32| of the same
+# logits; sound runs read 0.82-1.17 over 12 weight draws (PERF.md section 6)
+LM_NOISE_FACTOR = 2.0
+LM_DRAWS = 3  # 13e: weight draws held besides the CLI's (seeds 1 .. LM_DRAWS, on the CPU)
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor-core rate
 PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
 
 
@@ -822,6 +869,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 12: the multi-card sweep ---------------------------------------
     mesh_launches = phase12(torch, np, dev, caps[LADDER_NODES], seed, bulk)
 
+    # -- phase 13: the dense language-model serving path ----------------------
+    lm_launches = phase13(torch, np, dev, seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -832,7 +882,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
 
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
-                  *hier["launches"], consumer_launches, mesh_launches)
+                  *hier["launches"], consumer_launches, mesh_launches, lm_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2434,6 +2484,259 @@ def load_tree(tree: Path, name: str):
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def tree_to(tree: dict, dev) -> dict:
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def fp32_compute(torch):
+    """The model computes in fp32 inside the block (the truth of 13e)."""
+    from repro_torch.models import layers as lm_layers
+
+    saved = lm_layers.COMPUTE_DTYPE
+    lm_layers.set_compute_dtype(torch.float32)
+    try:
+        yield
+    finally:
+        lm_layers.set_compute_dtype(saved)
+
+
+def lm_runs(torch, cfg, params, prompt, n_dec: int, dev) -> list:
+    """[(what, card, CPU, fp32)] logits of a prefill of ``prompt`` and
+    ``n_dec`` decode steps fed its first tokens, all on the same weights:
+    the serving steps (bf16) on the card and on the CPU, and the model
+    computed in fp32 on the CPU (``set_compute_dtype``), the truth that
+    both bf16 runs are held to."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cpu = torch.device("cpu")
+    b, p = prompt.shape
+    cpu_params = tree_to(params, cpu)
+
+    def logits(d, tree, pre, step) -> list:
+        tokens = torch.from_numpy(prompt).to(d)
+        out = [pre(tree, {"tokens": tokens})]
+        cache = init_cache(cfg, b, p, device=d)
+        for t in range(n_dec):
+            batch = {"tokens": tokens[:, t:t + 1],
+                     "positions": torch.full((b, 1), t, dtype=torch.int32, device=d)}
+            got, cache = step(tree, cache, batch)
+            out.append(got)
+        return out
+
+    card = logits(dev, params, make_prefill_step(cfg), make_serve_step(cfg))
+    bf16 = logits(cpu, cpu_params, make_prefill_step(cfg), make_serve_step(cfg))
+    with fp32_compute(torch):
+        fp32 = logits(cpu, cpu_params, lambda tree, batch: prefill(cfg, tree, batch),
+                      lambda tree, cache, batch: decode_step(cfg, tree, cache, batch))
+    whats = [f"prefill of {p} tokens"] + [f"decode step {t}" for t in range(n_dec)]
+    return list(zip(whats, card, bf16, fp32))
+
+
+def hold_logits(torch, what: str, got, control, truth) -> float:
+    """bf16 logits ``got`` against the fp32 ``truth`` of the same weights
+    and inputs, ``control`` being another bf16 run of them: max |got -
+    truth| within ``LM_NOISE_FACTOR`` x the control's max |control - truth|
+    (at least 2**-8 x max |truth|, bf16's least spacing there), and the
+    greedy tokens the truth's wherever its top-2 margin exceeds twice that
+    limit -> max |got - truth| over the control's (the reading)."""
+    got, control, truth = (t.float().cpu() for t in (got, control, truth))
+    err = float((got - truth).abs().max())
+    ctl = max(float((control - truth).abs().max()), 2.0**-8 * float(truth.abs().max()))
+    limit = LM_NOISE_FACTOR * ctl
+    top2 = truth.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > 2 * limit
+    same = bool(torch.equal(got.argmax(-1)[sure], truth.argmax(-1)[sure]))
+    print(f"  {what:44s} max |got - fp32| {err:.6f}, control {ctl:.6f}: {err / ctl:.4f} "
+          f"(limit {LM_NOISE_FACTOR}); max |got - control| "
+          f"{float((got - control).abs().max()):.6f} of max |control| "
+          f"{float(control.abs().max()):.6f}; greedy tokens the fp32 run's on "
+          f"{int(sure.sum())}/{sure.numel()} rows with margin > 2 x limit: {same}")
+    require(err <= limit and same, f"phase 13e: {what}: further from fp32 than the control allows")
+    return err / ctl
+
+
+def lm_flops(cfg, batch: int, seq: int) -> float:
+    """Multiply-add FLOPs that a causal prefill of ``seq`` positions needs:
+    every matmul weight once per position (the head once per sequence) and
+    the QK and PV products of the (query, key) pairs the mask keeps: seq
+    (seq + 1) / 2 per head and sequence, fewer under a window."""
+    d, hd = cfg.d_model, cfg.head_dim_
+    per_layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+                 + 3 * d * cfg.d_ff)
+    dense = 2 * batch * seq * cfg.n_layers * per_layer + 2 * batch * d * cfg.vocab
+    w = min(cfg.window, seq) if cfg.attn_kind != "full" and cfg.window else seq
+    pairs = w * (w + 1) // 2 + (seq - w) * w
+    attention = 4 * batch * pairs * cfg.n_heads * hd * cfg.n_layers
+    return float(dense + attention)
+
+
+def hold_routing(torch, what: str, engine, ids, got) -> None:
+    """Node ids ``got`` of ``ids`` from ``engine`` against the fused
+    placement kernel's twin on the engine's current device table, exact."""
+    from repro_torch.kernels import ref
+
+    art, params = engine._device_artifact(), engine.params
+    want = ref.place_fused_ref(ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
+                               art.node_of_dev, top_level=art.top_level, s_log2=params.s_log2,
+                               max_draws=params.max_draws, emit_nodes=True)
+    bad, _ = mismatches(torch, got.to(want.device), want)
+    print(f"  {'place_fused':15s} {what:44s} {bad} mismatches against the twin "
+          f"(top level {art.top_level})")
+    require(bad == 0, f"phase 13: place_fused disagrees with its twin: {what}")
+
+
+def phase13(torch, np, dev, seed, draws: int = LM_DRAWS) -> dict:
+    """The dense language-model serving path on the card: 13a ASURA routing
+    of session ids and 13b the serving CLI at full width (the main path,
+    launches counted; every routing result held to B1's twin), 13c decode
+    at the decode_32k shape, 13d prefill, 13e the card's logits against an
+    fp32 run on the CPU, with the CPU's bf16 run as the control, on the
+    CLI's weights and ``draws`` more."""
+    from repro_torch.core import make_uniform_cluster
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    card = card_line(dev)
+    rng = np.random.default_rng(seed)
+    t_phase = time.perf_counter()
+    reset_launches()
+    print(f"phase 13a ({card}): ASURA routing of {LM_SESSIONS} session ids over "
+          f"{LM_REPLICAS} replicas; replica 3 dies, standby {LM_REPLICAS} joins")
+    routing = make_uniform_cluster(LM_REPLICAS, device=dev)
+    sessions = torch.from_numpy(rng.integers(0, 2**32, LM_SESSIONS, dtype=np.uint32)).to(dev)
+    before = routing.engine.place_nodes_device(sessions)
+    hold_routing(torch, f"{LM_REPLICAS} replicas", routing.engine, sessions, before)
+    routing.remove_node(3)
+    after = routing.engine.place_nodes_device(sessions)
+    hold_routing(torch, "replica 3 removed", routing.engine, sessions, after)
+    routing.add_node(LM_REPLICAS, 1.0)
+    after2 = routing.engine.place_nodes_device(sessions)
+    hold_routing(torch, f"standby {LM_REPLICAS} joined", routing.engine, sessions, after2)
+    moved, moved2 = before != after, after != after2
+    require(torch.equal(moved, before == 3), "phase 13a: the moved sessions are not replica 3's")
+    require(bool((after2[moved2] == LM_REPLICAS).all()),
+            "phase 13a: the standby's join moved sessions elsewhere")
+    share = torch.bincount(before.long(), minlength=LM_REPLICAS).cpu().tolist()
+    print(f"  sessions per replica {share}; {int(moved.sum())} re-routed off replica 3 (all "
+          f"of its {share[3]}); {int(moved2.sum())} moved to the standby, all to it")
+
+    print(f"phase 13b ({card}): python -m repro_torch.launch.serve {' '.join(LM_CLI)} "
+          f"--seed {seed}")
+    rep = serve.run(LM_CLI + ["--seed", str(seed)])
+    launches = dict(LAUNCHES)
+    cfg, params, out = rep["cfg"], rep["params"], rep["decoded"]
+    require(out.tokens.shape == (rep["ids"].size, 8) and out.tokens.min() >= 0
+            and out.tokens.max() < cfg.vocab, "phase 13b: decoded tokens out of shape or range")
+    require(launches.get("place_fused", 0) > 0, "phase 13: routing did not launch place_fused")
+    n_req = rep["owners"].size
+    hold_routing(torch, f"the CLI's owners of {n_req} requests", rep["engine"],
+                 torch.from_numpy(np.arange(n_req, dtype=np.uint32)).to(dev),
+                 torch.from_numpy(np.asarray(rep["owners"], dtype=np.int32)))
+    print(f"  main path launches {launches}; decode step median {rep['step_ms']:.4f} ms "
+          f"({rep['tok_s']:.1f} tok/s at batch 8; CUDA events, {card})")
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 8, 64, device=dev)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1), dtype=np.int32)).to(dev),
+             "positions": torch.zeros((8, 1), dtype=torch.int32, device=dev)}
+    print_profile(profile_steps(torch, lambda: step(params, cache, batch), LM_PROFILED))
+    del cache
+
+    b, s = DECODE_32K
+    print(f"phase 13c ({card}): decode at the decode_32k shape, batch {b} (cut from 128), "
+          f"{s} cached positions, {DECODE_STEPS} steps from position {s - 1}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = init_cache(cfg, b, s, device=dev)
+    blocks = cache["dense_blocks"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blocks["k"].normal_(generator=gen)  # a full cache: every slot holds a key
+    blocks["v"].normal_(generator=gen)
+    blocks["pos"].copy_(torch.arange(s, dtype=torch.int32, device=dev).expand_as(blocks["pos"]))
+    blocks["index"].fill_(s - 1)
+    kv_bytes = sum(blocks[k].numel() * blocks[k].element_size() for k in ("k", "v", "pos"))
+    w_bytes = 2 * cfg.param_count()  # the bf16 working copy, read once per step
+    step = make_serve_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1), dtype=np.int32)).to(dev)
+    marks = []
+    for t in range(DECODE_STEPS + 1):  # the first is a warm-up
+        batch = {"tokens": tokens,
+                 "positions": torch.full((b, 1), s - 1 + t, dtype=torch.int32, device=dev)}
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        begin.record()
+        logits, cache = step(params, cache, batch)
+        end.record()
+        marks.append((begin, end))
+        tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    step_ms = statistics.median(bg.elapsed_time(en) for bg, en in marks[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    require(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            "phase 13c: non-finite logits")
+    last = dict(batch, tokens=tokens)
+    prof = profile_steps(torch, lambda: step(params, cache, last), 2)
+    bound_ms = 1e3 * (kv_bytes + w_bytes) / HBM_BYTES_PER_S
+    print(f"  step {step_ms:.4f} ms median of {DECODE_STEPS} (CUDA events), {b * 1e3 / step_ms:.1f} "
+          f"tok/s; bound {bound_ms:.4f} ms ({kv_bytes / 1e9:.2f} GB of K, V and positions + "
+          f"{w_bytes / 1e9:.2f} GB of bf16 weights at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{bound_ms / step_ms:.3f} of it); peak memory {peak:.2f} GiB; {card}")
+    print_profile(prof)
+    del cache, blocks, logits
+    torch.cuda.empty_cache()
+
+    pre = make_prefill_step(cfg)
+    for b, s in PREFILLS:
+        path = "blockwise" if s > lm_layers.BLOCKWISE_THRESHOLD else "dense"
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        box = []
+        ms = cuda_ms(torch, lambda: box.append(pre(params, {"tokens": tokens})), 1)[0]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        require(box[-1].shape == (b, cfg.vocab) and bool(torch.isfinite(box[-1]).all()),
+                f"phase 13d: prefill {b} x {s}: non-finite logits")
+        flops = lm_flops(cfg, b, s)
+        print(f"phase 13d ({card}): prefill {b} x {s} ({path} attention): {ms:.2f} ms (CUDA "
+              f"events, after one warm-up), {b * s * 1e3 / ms:.1f} tok/s; bound {1e3 * flops / BF16_FLOPS_PER_S:.2f} ms "
+              f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16); "
+              f"peak memory {peak:.2f} GiB")
+        del box
+        torch.cuda.empty_cache()
+
+    b, p, n_dec = LM_CARD_CPU
+    print(f"phase 13e ({card}): the card's logits against an fp32 run on the CPU, the CPU's "
+          f"bf16 run the control; full width, batch {b}, the CLI's weights and {draws} more")
+    prompt = rng.integers(0, cfg.vocab, (b, p), dtype=np.int32)
+    readings = []
+    for draw in range(draws + 1):
+        tree = params if draw == 0 else tree_to(
+            init_params(cfg, torch.Generator().manual_seed(draw), device="cpu"), dev)
+        for what, got, control, truth in lm_runs(torch, cfg, tree, prompt, n_dec, dev):
+            name = f"seed {seed} (card)" if draw == 0 else f"seed {draw} (CPU)"
+            readings.append(hold_logits(torch, f"weights {name}, {what}", got, control, truth))
+    b, p, threshold = LM_BLOCKWISE
+    long_prompt = rng.integers(0, cfg.vocab, (b, p), dtype=np.int32)
+    tokens = torch.from_numpy(long_prompt).to(dev)
+    dense = pre(params, {"tokens": tokens})
+    saved = lm_layers.BLOCKWISE_THRESHOLD
+    lm_layers.set_blockwise_threshold(threshold)
+    try:
+        chunked = pre(params, {"tokens": tokens})
+    finally:
+        lm_layers.set_blockwise_threshold(saved)
+    with fp32_compute(torch):
+        truth = prefill(cfg, tree_to(params, torch.device("cpu")),
+                        {"tokens": torch.from_numpy(long_prompt)})
+    readings.append(hold_logits(torch, f"card blockwise prefill of {p}, dense the control",
+                                chunked, dense, truth))
+    print(f"  largest reading {max(readings):.4f} of {len(readings)} (limit {LM_NOISE_FACTOR}); "
+          f"phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def compare(seed: int, dev, trees: list[Path], only: list[str] | None = None) -> dict:

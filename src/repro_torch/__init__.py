@@ -7,13 +7,18 @@ CUDA kernels + plain-torch twins), ``obs`` (metrics slab, trace ledger),
 ``serve`` (traffic, serving driver, router), the consumers of placement
 -- ``runtime`` (elastic coordinator, failure detection, stragglers,
 durability simulator), ``data`` (sharded pipeline) and ``checkpoint``
-(replicated checkpoint store) -- and ``convert`` (carrying the
-reference's cluster, tables and stores across).  Imports torch and numpy only;
+(replicated checkpoint store) -- the dense language-model serving path
+(``configs``, ``models``, ``train``; its CLI is ``launch.serve``), and
+``convert`` (carrying the reference's cluster, tables, stores and model
+trees across).  Imports torch and numpy only;
 entry points run on the CUDA card unless given ``device="cpu"``.
 """
 
-from . import checkpoint, convert, core, data, kernels, migrate, obs, runtime, serve
+from . import (
+    checkpoint, configs, convert, core, data, kernels, migrate, models, obs, runtime, serve, train,
+)
 
 __all__ = [
-    "checkpoint", "convert", "core", "data", "kernels", "migrate", "obs", "runtime", "serve",
+    "checkpoint", "configs", "convert", "core", "data", "kernels", "migrate", "models", "obs",
+    "runtime", "serve", "train",
 ]

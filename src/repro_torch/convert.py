@@ -40,6 +40,14 @@ A replicated checkpoint store carries over the same way:
     its ``n_replicas``: chunk ids and placement are the same, so the
     port's ``CheckpointManager`` restores what the reference saved.
 
+The language model's weights and caches carry over as trees:
+
+  * ``model_params_from_reference`` takes the reference's ``init_params``
+    pytree as nested dicts of NumPy arrays and returns the port's
+    parameter tree, key for key, stacked layer axis included;
+  * ``model_cache_from_reference`` does the same for an ``init_cache``
+    tree (bf16 K / V, int32 positions and per-layer ring indices).
+
 All take plain JSON / NumPy / Python values, so nothing of the reference
 is imported.
 """
@@ -195,3 +203,31 @@ def checkpoint_store_from_reference(
         for nid, info in store.cluster.nodes.items()
     }
     return store
+
+
+def _tensor_from_array(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":  # a bf16 array reads back as ml_dtypes' bfloat16
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree_from_arrays(tree: dict, device) -> dict:
+    return {
+        key: _tree_from_arrays(leaf, device) if isinstance(leaf, dict)
+        else _tensor_from_array(leaf, device)
+        for key, leaf in tree.items()
+    }
+
+
+def model_params_from_reference(tree: dict, device=None) -> dict:
+    """The port's parameter tree from the reference's (nested dicts of NumPy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``): key for key, same
+    shapes (the stacked leading layer axis included) and dtypes (the fp32
+    master copy), on ``device`` (None: the card)."""
+    return _tree_from_arrays(tree, resolve_device(device))
+
+
+# The reference's KV cache tree (bf16 ``k`` / ``v``, int32 ``pos``, the
+# (L,) int32 ring ``index``) carries across the same way.
+model_cache_from_reference = model_params_from_reference

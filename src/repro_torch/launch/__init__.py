@@ -1,2 +1,2 @@
 """Launch-time drivers of the port: the multi-card placement sweep
-(``placement_mesh``)."""
+(``placement_mesh``) and the language-model serving CLI (``serve``)."""

@@ -1,0 +1,33 @@
+"""Model zoo of the port: configs, layers and the functional model API
+(the dense language-model family; the others come with ROADMAP A9c)."""
+
+from .api import (
+    LanguageModel,
+    cache_specs,
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    param_specs,
+    prefill,
+    reduced_config,
+)
+from .config import SHAPES, MLAConfig, ModelConfig, MoEConfig, ShapeSpec, shape_applicable
+
+__all__ = [
+    "SHAPES",
+    "LanguageModel",
+    "MLAConfig",
+    "ModelConfig",
+    "MoEConfig",
+    "ShapeSpec",
+    "cache_specs",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "param_specs",
+    "prefill",
+    "reduced_config",
+    "shape_applicable",
+]

@@ -1,0 +1,314 @@
+"""Shared neural building blocks of the port (plain PyTorch functions).
+
+The dense-attention half of the reference's ``repro.models.layers``,
+function for function:
+
+  * params are nested dicts of fp32 tensors (the master copy); ``apply``
+    functions cast weights to the input's compute dtype (bf16) at the
+    edges and keep norms and softmax in fp32, as the reference does;
+  * attention runs a full sequence (dense, or kv-chunked above
+    ``BLOCKWISE_THRESHOLD``) or a short decode against a ring-buffer
+    cache, which it updates IN PLACE (the reference returns a new one);
+  * weights are stored (d_in, d_out), as in the reference, so its trees
+    carry across key for key (``repro_torch.convert``).
+
+The sentinels are the reference's: the mask bias is -1e30 (not -inf),
+empty cache slots and the blockwise key padding sit at position 2**30,
+and the online softmax starts its running max at -1e30.  The MoE and MLA
+layers are not here yet (ROADMAP A9c).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+COMPUTE_DTYPE = torch.bfloat16
+MASK = -1e30  # additive bias of a masked (query, key) pair
+EMPTY_POS = 2**30  # position of an empty cache slot or a padded key: "the future"
+
+
+def _init(generator, shape, device, scale=0.02):
+    """``scale * truncated_normal(-2, 2)`` in fp32, drawn with ``generator``
+    on its own device and placed on ``device``.  Without a generator (shape
+    trees on the meta device) an empty tensor.  The values differ from
+    ``jax.random``'s; the tests carry the reference's values across."""
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(scale).to(device)
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def layernorm(x, scale, bias, eps=1e-5):
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)  # jnp.var: the population variance
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
+def norm_init(cfg: ModelConfig, d: int, *, lead: tuple = (), device=None):
+    """Norm parameters (scale ones, bias zeros), ``lead`` dims in front."""
+    if cfg.norm == "layernorm":
+        return {
+            "scale": torch.ones((*lead, d), device=device),
+            "bias": torch.zeros((*lead, d), device=device),
+        }
+    return {"scale": torch.ones((*lead, d), device=device)}
+
+
+def norm_apply(cfg: ModelConfig, p, x):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
+    return rmsnorm(x, p["scale"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  The head
+    splits into halves (not even/odd pairs), as in the reference."""
+    dim = x.shape[-1]
+    freqs = rope_freqs(dim, theta, x.device)  # (dim/2,)
+    angles = positions[..., :, None, None].float() * freqs  # (..., S, 1, dim/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu / geglu / gelu)
+# ---------------------------------------------------------------------------
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default is the tanh form
+
+
+def mlp_init(generator, cfg: ModelConfig, d_model: int, d_ff: int, *, lead: tuple = (),
+             device=None):
+    def w(shape):
+        return _init(generator, (*lead, *shape), device)
+
+    if cfg.act in ("swiglu", "geglu"):
+        return {
+            "w_gate": w((d_model, d_ff)),
+            "w_up": w((d_model, d_ff)),
+            "w_down": w((d_ff, d_model)),
+        }
+    return {"w_up": w((d_model, d_ff)), "w_down": w((d_ff, d_model))}
+
+
+def mlp_apply(cfg: ModelConfig, p, x):
+    dt = x.dtype
+    if cfg.act in ("swiglu", "geglu"):
+        act = F.silu if cfg.act == "swiglu" else _gelu
+        h = act(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    else:
+        h = _gelu(x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Dense attention (GQA; full / sliding-window / local), prefill + decode
+# ---------------------------------------------------------------------------
+
+BLOCKWISE_THRESHOLD = 8_192  # above this, use the kv-chunked online-softmax path
+KV_CHUNK = 1_024
+
+
+def set_blockwise_threshold(n: int) -> None:
+    "Perf knob: sequence length above which attention goes kv-chunked."
+    global BLOCKWISE_THRESHOLD
+    BLOCKWISE_THRESHOLD = n
+
+
+def set_compute_dtype(dtype: torch.dtype) -> None:
+    """Check knob: the dtype of activations, of the weights' casts and of a
+    new KV cache (bf16, as the reference).  An fp32 run of the same weights
+    and inputs is the truth that bf16 runs on different hardware are held
+    to (``chip_smoke.py`` phase 13e)."""
+    global COMPUTE_DTYPE
+    COMPUTE_DTYPE = dtype
+
+
+def attention_init(generator, cfg: ModelConfig, *, lead: tuple = (), device=None):
+    d, hd = cfg.d_model, cfg.head_dim_
+
+    def w(shape):
+        return _init(generator, (*lead, *shape), device)
+
+    return {
+        "w_q": w((d, cfg.n_heads * hd)),
+        "w_k": w((d, cfg.n_kv_heads * hd)),
+        "w_v": w((d, cfg.n_kv_heads * hd)),
+        "w_o": w((cfg.n_heads * hd, d)),
+    }
+
+
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
+    """(..., Sq, Sk) additive mask in fp32: 0 where the query may read the
+    key, -1e30 elsewhere."""
+    ok = torch.ones((*q_pos.shape, k_pos.shape[-1]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = ok & (q_pos[..., :, None] >= k_pos[..., None, :])
+    if window > 0:
+        ok = ok & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+    return torch.where(ok, 0.0, MASK).to(torch.float32)
+
+
+def _sdpa(q, k, v, bias):
+    """q:(B,Sq,H,D) k,v:(B,Sk,Hkv,D) bias:(B,Sq,Sk) -> (B,Sq,H,D).
+
+    Query head ``j * group + i`` reads kv head ``j`` (the reference's
+    ``reshape(b, s, hkv, group, d)``).  One kv head at a time: its keys and
+    values are strided views of ``k`` / ``v``, so a decode cache is read
+    where it lies (one product over batch and heads would copy it first).
+    The products round to q's dtype before the fp32 scale, bias and
+    softmax, as the reference's bf16 einsums do; the probabilities go back
+    to q's dtype for the value product."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    # (b, hkv, group * sq, d): the rows of one kv head's query group
+    qg = q.reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4).reshape(b, hkv, group * sq, d)
+    outs = []
+    for j in range(hkv):
+        scores = torch.matmul(qg[:, j], k[:, :, j].transpose(1, 2)).float()
+        scores = scores.view(b, group, sq, -1).mul_(scale).add_(bias[:, None])
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(torch.matmul(probs.view(b, group * sq, -1), v[:, :, j]))
+    out = torch.stack(outs, dim=1).view(b, hkv, group, sq, d)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
+    """kv-chunked online-softmax attention: O(Sq * chunk) live memory.
+
+    Walks the kv chunks keeping (m, l, acc) -- running max, normalizer and
+    weighted accumulator per query -- the flash-attention recurrence in
+    plain torch, as the reference's ``lax.scan``.  Keys are padded to whole
+    chunks at position 2**30, which the causal mask excludes."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    sk = k.shape[1]
+    chunk = KV_CHUNK
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=EMPTY_POS)
+    qg = q.reshape(b, sq, hkv, group, d)
+    scale = 1.0 / math.sqrt(d)
+    m = torch.full((b, hkv, group, sq), MASK, dtype=torch.float32, device=q.device)
+    norm = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        kb, vb = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
+        pb = k_pos[:, c * chunk:(c + 1) * chunk]
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb).float().mul_(scale)
+        scores.add_(_mask_bias(q_pos, pb, causal=causal, window=window)[:, None, None])
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = scores.sub_(m_new[..., None]).exp_()
+        norm = norm * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), vb).float()
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(norm, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_apply(
+    cfg: ModelConfig,
+    p,
+    x,
+    *,
+    positions,
+    causal: bool = True,
+    window: int = 0,
+    cache: Optional[dict] = None,
+    kv_override: Optional[tuple] = None,
+    n_kv_heads: Optional[int] = None,
+):
+    """GQA attention -> (out, cache).
+
+    ``cache`` (decode): one layer's {"k", "v", "pos", "index"} ring buffer.
+    The step writes one slot per position for every row, ``(index +
+    arange(s)) % size``, records ``positions`` there, advances ``index``
+    -- all IN PLACE on the device, no host sync -- and returns the same
+    dict: the caller's cache is consumed.  A cache shorter than the decode
+    wraps and overwrites its oldest entries.  ``kv_override``: (k, v,
+    k_pos) for cross-attention.  Without a cache the second result is
+    None, as in the reference."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    n_kv = n_kv_heads if n_kv_heads is not None else cfg.n_kv_heads
+    q = (x @ p["w_q"].to(dt)).reshape(b, s, -1, hd)
+    if kv_override is None:
+        k = (x @ p["w_k"].to(dt)).reshape(b, s, n_kv, hd)
+        v = (x @ p["w_v"].to(dt)).reshape(b, s, n_kv, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v, k_positions = kv_override
+    new_cache = None
+    if cache is not None and kv_override is None:
+        idx = cache["index"]
+        size = cache["k"].shape[1]
+        slot = (idx.long() + torch.arange(s, device=x.device)) % size
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
+        idx.add_(s)
+        new_cache = cache
+        bias = _mask_bias(positions, cache["pos"], causal=True, window=window)
+        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), bias)
+    elif kv_override is not None:
+        bias = _mask_bias(positions, k_positions, causal=False, window=0)
+        out = _sdpa(q, k, v, bias)
+    elif s > BLOCKWISE_THRESHOLD:
+        out = _sdpa_blockwise(q, k, v, positions, positions, causal=causal, window=window)
+    else:
+        bias = _mask_bias(positions, positions, causal=causal, window=window)
+        out = _sdpa(q, k, v, bias)
+    return out.reshape(b, s, -1) @ p["w_o"].to(dt), new_cache
+
+
+def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, *,
+                         lead: tuple = (), device=None):
+    """Ring-buffer cache, ``lead`` dims in front (the stacked layer axis);
+    windowed attention only keeps ``window`` slots."""
+    size = min(max_len, window) if window > 0 else max_len
+    hd = cfg.head_dim_
+    kv = (*lead, batch, size, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
+        "v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
+        # empty slots sit in the "future" so the causal mask excludes them
+        "pos": torch.full((*lead, batch, size), EMPTY_POS, dtype=torch.int32, device=device),
+        "index": torch.zeros(lead, dtype=torch.int32, device=device),
+    }

@@ -1,0 +1,230 @@
+"""Model assembly of the port: init, forward, prefill and decode for the
+dense language-model family (the reference's ``repro.models.lm``).
+
+    params       = init_params(cfg, generator)            # fp32 master copy
+    hidden, aux  = forward(cfg, params, batch)
+    logits       = prefill(cfg, params, batch)            # (B, V) fp32
+    cache        = init_cache(cfg, batch, max_len)
+    logits, c    = decode_step(cfg, params, cache, batch) # cache consumed
+
+Parameters and caches are nested dicts with the reference's keys and its
+stacked leading layer axis; a Python loop over views of the stacked
+tensors takes the place of the reference's ``lax.scan`` over layers.
+``LanguageModel`` is a thin ``nn.Module`` over the same tree.
+
+This slice runs ``family == "lm"`` without MoE and without MLA; any other
+family or feature raises ``NotImplementedError`` naming the ROADMAP item
+that brings it.  Every function runs on the device its tensors are on;
+``init_params`` and ``init_cache`` put them on the CUDA card unless given
+a device.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .config import ModelConfig
+from . import layers
+from .hooks import constrain
+from .layers import (
+    _init,
+    attention_apply,
+    attention_cache_init,
+    attention_init,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+)
+
+
+def require_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a family or feature this slice
+    does not run (ROADMAP A9c brings them)."""
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A9c)"
+        )
+    for feature, what in (("moe", "MoE layers"), ("mla", "multi-head latent attention")):
+        if getattr(cfg, feature) is not None:
+            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet (ROADMAP A9c)")
+
+
+# ---------------------------------------------------------------------------
+# Blocks, layer views
+# ---------------------------------------------------------------------------
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree: views, so in-place writes (the decode
+    cache) land in the stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
+    window = cfg.window if cfg.attn_kind == "swa" else 0
+    h = norm_apply(cfg, p["norm1"], x)
+    attn_out, new_cache = attention_apply(
+        cfg, p["attn"], h, positions=positions, causal=True, window=window, cache=cache
+    )
+    x = x + attn_out
+    h = norm_apply(cfg, p["norm2"], x)
+    return x + mlp_apply(cfg, p["mlp"], h), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _param_tree(cfg: ModelConfig, generator, device) -> dict:
+    d = cfg.d_model
+    lead = (cfg.n_layers,)
+    params: dict = {
+        "embed": _init(generator, (cfg.vocab, d), device),
+        "final_norm": norm_init(cfg, d, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _init(generator, (d, cfg.vocab), device)
+    params["dense_blocks"] = {
+        "norm1": norm_init(cfg, d, lead=lead, device=device),
+        "norm2": norm_init(cfg, d, lead=lead, device=device),
+        "attn": attention_init(generator, cfg, lead=lead, device=device),
+        "mlp": mlp_init(generator, cfg, d, cfg.d_ff, lead=lead, device=device),
+    }
+    return params
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> dict:
+    """The fp32 master parameters, drawn with ``generator`` on its device
+    and placed on ``device`` (None: the CUDA card; raises without one).
+    Matrices are ``0.02 * truncated_normal(-2, 2)``, norms start at one
+    (scale) and zero (bias), as in the reference."""
+    require_supported(cfg)
+    return _param_tree(cfg, generator, resolve_device(device))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree's shapes and dtypes, on the meta device."""
+    require_supported(cfg)
+    return _param_tree(cfg, None, torch.device("meta"))
+
+
+class _ParamTree(torch.nn.Module):
+    """A nested dict of tensors held as (frozen) parameters and submodules."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                self.add_module(name, _ParamTree(leaf))
+            else:
+                self.register_parameter(name, torch.nn.Parameter(leaf, requires_grad=False))
+
+    def tree(self) -> dict:
+        out = dict(self.named_parameters(recurse=False))
+        out.update((name, child.tree()) for name, child in self.named_children())
+        return out
+
+
+class LanguageModel(_ParamTree):
+    """A thin ``nn.Module`` over a parameter tree: its leaves are parameters
+    (``.to(device)``, ``state_dict`` keys such as ``dense_blocks.attn.w_q``)
+    and ``prefill`` / ``decode`` call the functions of this module."""
+
+    def __init__(self, cfg: ModelConfig, params: dict):
+        require_supported(cfg)
+        super().__init__(params)
+        self.cfg = cfg
+
+    def prefill(self, batch: dict) -> torch.Tensor:
+        return prefill(self.cfg, self.tree(), batch)
+
+    def decode(self, cache: dict, batch: dict):
+        return decode_step(self.cfg, self.tree(), cache, batch)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill) and decode
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, tokens):
+    # gather then cast, as the reference's take(embed).astype(bf16)
+    return F.embedding(tokens, params["embed"]).to(layers.COMPUTE_DTYPE)
+
+
+def _lm_head(cfg: ModelConfig, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def _logits(cfg: ModelConfig, params, x):
+    """Last-position logits: bf16 product with the head, then fp32."""
+    return (x[:, -1] @ _lm_head(cfg, params).to(layers.COMPUTE_DTYPE)).float()
+
+
+def forward(cfg: ModelConfig, params, batch: dict):
+    """Full-sequence forward -> final hidden states (B, S, D) and the aux
+    loss (zero without MoE).
+
+    batch: {"tokens": (B, S) int} plus, for a VLM, {"patches": (B,
+    vision_prefix, D)} (the stub vision tower's output), prepended to the
+    text and stripped from the result."""
+    require_supported(cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = constrain(_embed(params, tokens))
+    n_prefix = 0
+    if cfg.vision_prefix and "patches" in batch:
+        prefix = batch["patches"].to(layers.COMPUTE_DTYPE)
+        n_prefix = prefix.shape[1]
+        x = torch.cat([prefix, x], dim=1)
+    positions = torch.arange(s + n_prefix, dtype=torch.int32, device=x.device).expand(b, -1)
+    blocks = params["dense_blocks"]
+    for i in range(cfg.n_layers):
+        x = constrain(_lm_block_apply(cfg, _layer(blocks, i), x, positions)[0])
+    x = norm_apply(cfg, params["final_norm"], x)
+    if n_prefix:
+        x = x[:, n_prefix:]
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def prefill(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
+    """Full-prompt forward returning last-position logits (B, V) fp32."""
+    hidden, _ = forward(cfg, params, batch)
+    return _logits(cfg, params, hidden)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
+    """The stacked ring-buffer KV cache {"dense_blocks": {"k", "v": (L, B,
+    size, Hkv, D) bf16, "pos": (L, B, size) int32 (2**30 where empty),
+    "index": (L,) int32}} on ``device`` (None: the CUDA card)."""
+    require_supported(cfg)
+    window = cfg.window if cfg.attn_kind == "swa" else 0
+    return {
+        "dense_blocks": attention_cache_init(
+            cfg, batch, max_len, window, lead=(cfg.n_layers,), device=resolve_device(device)
+        )
+    }
+
+
+def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
+    """One-token step.  batch: {"tokens": (B, 1), "positions": (B, 1)} on
+    the parameters' device -> (logits (B, V) fp32, cache).
+
+    The cache is updated IN PLACE and returned: the caller's cache is
+    consumed (the reference returns a new one and leaves its input).  The
+    slot arithmetic runs on the device, so a step makes no host sync."""
+    require_supported(cfg)
+    tokens, positions = batch["tokens"], batch["positions"]
+    x = constrain(_embed(params, tokens))
+    blocks, caches = params["dense_blocks"], cache["dense_blocks"]
+    for i in range(cfg.n_layers):
+        x, _ = _lm_block_apply(cfg, _layer(blocks, i), x, positions, cache=_layer(caches, i))
+        x = constrain(x)
+    x = norm_apply(cfg, params["final_norm"], x)
+    return _logits(cfg, params, x), cache

@@ -6,8 +6,11 @@ numpy and the port, so it also runs on a card's host that has no jax:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Exact equality throughout: the whole stack is integer math.
+Exact equality throughout the placement stack, which is integer math; the
+language model's float logits are held to an fp32 run (see its section).
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -815,3 +818,138 @@ def test_gloo_mesh_stages_card_tensors_through_the_host(nccl_mesh):
     assert np.array_equal(owners, engine.place_nodes(ids))
     assert np.array_equal(sweep.histogram(ids, 10), np.bincount(owners, minlength=10))
     assert engine.ledger.counter("mesh.host_staged") == 2  # one gather, one all-reduce
+
+
+# ---------------------------------------------------------------------------
+# The dense language-model serving path: the card's bf16 logits against an
+# fp32 run of the same weights and inputs on the CPU, with the CPU's bf16
+# run as the control, as chip_smoke.py's phase 13e holds them: max |card -
+# fp32| within LM_NOISE_FACTOR x the control's max |cpu - fp32| (at least
+# 2**-8 x max |fp32|); greedy tokens the fp32 run's wherever its top-2
+# margin exceeds twice that limit.
+# ---------------------------------------------------------------------------
+
+LM_SERVED = ("smollm-135m", "granite-3-2b", "deepseek-7b", "command-r-35b")
+LM_NOISE_FACTOR = 2.0
+
+
+@contextlib.contextmanager
+def _fp32_compute():
+    from repro_torch.models import layers
+
+    saved = layers.COMPUTE_DTYPE
+    layers.set_compute_dtype(torch.float32)
+    try:
+        yield
+    finally:
+        layers.set_compute_dtype(saved)
+
+
+def _lm_hold(card, cpu, truth):
+    card, cpu, truth = (t.float().cpu() for t in (card, cpu, truth))
+    control = max(float((cpu - truth).abs().max()), 2.0**-8 * float(truth.abs().max()))
+    limit = LM_NOISE_FACTOR * control
+    assert float((card - truth).abs().max()) <= limit
+    top2 = truth.topk(2, dim=-1).values
+    sure = top2[..., 0] - top2[..., 1] > 2 * limit
+    assert torch.equal(card.argmax(-1)[sure], truth.argmax(-1)[sure])
+
+
+def _lm_decode_runs(cfg, cpu_p, card_p, tokens, cache_len, device):
+    """Each step's logits of a decode fed ``tokens`` (B, T), token t at
+    position t, on the card, on the CPU and in fp32 on the CPU -> ({"cuda",
+    "cpu", "fp32": [logits per step]}, {the same: the cache})."""
+    from repro_torch.models import decode_step, init_cache
+
+    b, steps = tokens.shape
+    runs = (("cuda", card_p, device), ("cpu", cpu_p, "cpu"), ("fp32", cpu_p, "cpu"))
+    out, caches = {}, {}
+    for name, params, dev in runs:
+        with _fp32_compute() if name == "fp32" else contextlib.nullcontext():
+            cache = init_cache(cfg, b, cache_len, device=dev)
+            out[name] = []
+            for t in range(steps):
+                batch = {"tokens": tokens[:, t:t + 1].to(dev),
+                         "positions": torch.full((b, 1), t, dtype=torch.int32, device=dev)}
+                logits, cache = decode_step(cfg, params, cache, batch)
+                out[name].append(logits)
+        caches[name] = cache
+    return out, caches
+
+
+def _lm_setup(arch, reduced=True):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, reduced_config
+
+    cfg = get_config(arch)
+    cfg = reduced_config(cfg) if reduced else cfg
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    return cfg, params, to(params, "cuda")
+
+
+def _lm_tokens(cfg, shape, seed=0):
+    return torch.from_numpy(
+        np.random.default_rng(seed).integers(0, cfg.vocab, shape).astype(np.int32))
+
+
+@pytest.mark.parametrize("arch", LM_SERVED + ("internvl2-26b",))
+def test_lm_prefill_on_card_matches_cpu(cuda_device, arch):
+    from repro_torch.models import prefill
+
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    batch = {"tokens": _lm_tokens(cfg, (3, 20))}
+    if cfg.vision_prefix:
+        batch["patches"] = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (3, cfg.vision_prefix, cfg.d_model)).astype(np.float32))
+    card = prefill(cfg, card_p, {k: v.to(cuda_device) for k, v in batch.items()})
+    assert card.device.type == "cuda"
+    with _fp32_compute():
+        truth = prefill(cfg, cpu_p, batch)
+    _lm_hold(card, prefill(cfg, cpu_p, batch), truth)
+
+
+@pytest.mark.parametrize("cache_len", [16, 5])
+@pytest.mark.parametrize("arch", LM_SERVED)
+def test_lm_decode_on_card_matches_cpu(cuda_device, arch, cache_len):
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    out, caches = _lm_decode_runs(cfg, cpu_p, card_p, _lm_tokens(cfg, (3, 9), seed=2),
+                                  cache_len, cuda_device)
+    for card, cpu, truth in zip(out["cuda"], out["cpu"], out["fp32"]):
+        _lm_hold(card, cpu, truth)
+    assert torch.equal(caches["cuda"]["dense_blocks"]["pos"].cpu(),
+                       caches["cpu"]["dense_blocks"]["pos"])
+
+
+def test_lm_decode_step_makes_no_host_sync(cuda_device):
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_serve_step
+
+    cfg, _, card_p = _lm_setup("smollm-135m")
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 4, 8, device=cuda_device)
+    batch = {"tokens": _lm_tokens(cfg, (4, 1)).to(cuda_device),
+             "positions": torch.zeros((4, 1), dtype=torch.int32, device=cuda_device)}
+    step(card_p, cache, batch)  # the working copy and cuBLAS are set up here
+    batch["positions"] = torch.ones((4, 1), dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = step(card_p, cache, batch)
+        tokens = torch.argmax(logits, dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tokens.shape == (4,)
+    assert cache["dense_blocks"]["index"].tolist() == [2] * cfg.n_layers
+
+
+def test_lm_full_width_smollm_decode_on_card_matches_cpu(cuda_device):
+    cfg, cpu_p, card_p = _lm_setup("smollm-135m", reduced=False)
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (30, 576, 49152)
+    out, _ = _lm_decode_runs(cfg, cpu_p, card_p, _lm_tokens(cfg, (2, 3), seed=3), 8,
+                             cuda_device)
+    for card, cpu, truth in zip(out["cuda"], out["cpu"], out["fp32"]):
+        _lm_hold(card, cpu, truth)

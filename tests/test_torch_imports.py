@@ -76,6 +76,20 @@ def test_mesh_import_loads_neither_jax_nor_the_reference():
     assert proc.stdout.strip() == "[]"
 
 
+def test_model_imports_load_neither_jax_nor_the_reference():
+    proc = _run(
+        "import sys, repro_torch.models, repro_torch.configs, repro_torch.train, "
+        "repro_torch.launch.serve\n"
+        "assert repro_torch.models.__all__ and repro_torch.train.__all__\n"
+        "assert len(repro_torch.configs.ARCHS) == 10\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(bad)"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_consumer_packages_export_the_reference_names():
     import repro.checkpoint
     import repro.data
@@ -91,7 +105,8 @@ def test_consumer_packages_export_the_reference_names():
 
 
 def test_no_port_file_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
