@@ -11,8 +11,10 @@ one versioned segment table -- reached two ways: bulk placement through
 ``PlacementEngine`` and the batched serving step ``RequestStreamDriver``;
 then the migration, baseline and failure-domain paths, the modules
 through which users meet placement (data pipeline, elastic coordinator,
-checkpoint store, durability simulator), the multi-card sweep, and the
-language-model serving path that routes its requests with ASURA.
+checkpoint store, durability simulator), the multi-card sweep, the
+language-model serving path that routes its requests with ASURA, and the
+training path that reads ASURA-placed data shards and keeps ASURA-placed
+checkpoints.
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -182,9 +184,29 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            blockwise prefill against the dense one on the card: logits
            within 2e-2 x max |logits|, greedy tokens equal wherever the
            top-2 margin exceeds that;
+  14. the dense language-model training path, smollm-135m at full width:
+      14a. ``repro_torch.launch.train`` at its defaults (batch 8 x 128, 20
+           steps, an async save every 10; the pipeline's ownership sweep
+           on B1, the store's chunks on B2): the loss must improve; two of
+           the six store nodes fail and the last save restores bit for bit
+           (one B2 launch per chunk); the pipeline's shards and every
+           stored chunk's replica set held to B1's and B2's twins;
+           ``torch.profiler``'s idle share and launches per CLI step;
+      14b. one train step on the card against an fp32 run on the CPU of
+           the same weights and batch (2 x 128), the CPU's bf16 run the
+           control: the loss, ``grad_norm`` and the moments ``m`` and ``v``,
+           each within ``LM_NOISE_FACTOR`` x the control's distance, and
+           the card's new parameters against AdamW recomputed in float64
+           from its own ``m`` and ``v`` (``UPDATE_ULPS``), on the CLI's
+           trained weights and 3 more draws;
+      14c. a train_4k step cut to batch 32 (4 microbatches of 8, remat
+           "nothing"): the step-0 loss near ln(vocab), host syncs counted
+           under sync debug "warn", step ms (CUDA events), tokens/s, peak
+           memory, the profiler's idle share and kernels per step, and the
+           bf16 FLOP bound (3x the forward, the head at every position);
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
-     13a-13b), time at
+     13a-13b, 14a), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -209,12 +231,18 @@ vector and at R = 1; B3 and B4 on the add, the removal and the
 ``--only LABEL`` (repeatable) keeps the kernels whose label starts with
 LABEL, and builds only their libraries.
 
+``--train-variants`` runs no phase: it times the full-width training
+step (CUDA events, peak memory) with each remat policy and with the
+layer views taken by ``unbind`` or by per-layer selects, at 8 x 128,
+1 x 4,096 and 8 x 4,096 ("nothing" only), and an async checkpoint save
+of the model and AdamW state (host wall of the call and of the write).
+
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
 exits non-zero before printing any result.  Every integer result is
 compared with zero tolerance: the placement stack is exact integer math.
-The language model's float logits (phase 13) are held to the tolerance
-stated there.
+The language model's float logits (phase 13) and training step (phase
+14b) are held to the tolerance stated there.
 """
 
 from __future__ import annotations
@@ -223,10 +251,12 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -347,9 +377,23 @@ PREFILLS = ((1, 32_768), (8, 4_096))
 LM_CARD_CPU = (2, 16, 4)  # 13e: batch, prompt length, decode steps on the card and the CPU
 LM_BLOCKWISE = (2, 1_024, 512)  # 13e: batch, prompt length, blockwise threshold
 # 13e: max |card bf16 - fp32| <= this x max |CPU bf16 - fp32| of the same
-# logits; sound runs read 0.82-1.17 over 12 weight draws (PERF.md section 6)
+# logits; sound runs read 0.82-1.17 over 12 weight draws (PERF.md section 6).
+# 14b holds one train step's loss, grad_norm and moments m and v the same
+# way; its first runs read 0.0016-1.12 over 16 readings (loss, grad_norm, m,
+# and the parameter update, which saturates and is now held to AdamW instead)
 LM_NOISE_FACTOR = 2.0
 LM_DRAWS = 3  # 13e: weight draws held besides the CLI's (seeds 1 .. LM_DRAWS, on the CPU)
+# phase 14, the dense language-model training path (smollm-135m at full width)
+TRAIN_CLI = ["--arch", "smollm-135m"]  # 14a: the CLI's defaults: batch 8 x 128, 20 steps, save every 10
+TRAIN_FAILED = (1, 3)  # 14a: store nodes down for the restore (2 of 6, R = 3)
+TRAIN_CARD_CPU = (2, 128)  # 14b: batch, sequence of the one step on the card and the CPU
+TRAIN_DRAWS = 3  # 14b: weight draws held besides the CLI's (seeds 1 .. TRAIN_DRAWS, on the CPU)
+UPDATE_ULPS = 4  # 14b: the card's new parameters against AdamW's update in float64
+# 14c: train_4k at full width and sequence with the batch cut from 256 to 32
+# (256 rows would take ~8x the 32-row step, past the script's time limit),
+# in 4 microbatches of 8 under remat "nothing"; a warm-up step, then timed ones
+TRAIN_4K = (32, 4_096, 4)
+TRAIN_TIMED = 2
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor-core rate
 PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
 
@@ -452,14 +496,15 @@ def ladder_ops(consults: int, distinct: int) -> tuple[int, int]:
     return OPS_PER_CONSULT * consults + OPS_PER_SEED * distinct, OPS_PER_LEVEL * consults
 
 
-def profile_steps(torch, step, steps: int) -> dict:
+def profile_steps(torch, step, steps: int, warm: bool = True) -> dict:
     """Device busy time per serving step and the kernels that fill it, from
     a ``torch.profiler`` trace of ``steps`` calls of ``step`` (after one
-    untraced)."""
+    untraced unless ``warm`` is false)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    if warm:
+        step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -872,6 +917,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 13: the dense language-model serving path ----------------------
     lm_launches = phase13(torch, np, dev, seed)
 
+    # -- phase 14: the dense language-model training path ---------------------
+    train_launches = phase14(torch, np, dev, seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -882,7 +930,8 @@ def run(seed: int, dev, profile: bool = False) -> dict:
 
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
-                  *hier["launches"], consumer_launches, mesh_launches, lm_launches)
+                  *hier["launches"], consumer_launches, mesh_launches, lm_launches,
+                  train_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2536,6 +2585,17 @@ def lm_runs(torch, cfg, params, prompt, n_dec: int, dev) -> list:
     return list(zip(whats, card, bf16, fp32))
 
 
+def reading(got: list, control: list, truth: list) -> tuple[float, float]:
+    """(max |got - truth|, max |control - truth|) over lists of tensors of
+    the same shapes, the second at least 2**-8 x max |truth| (bf16's least
+    spacing there)."""
+    def dist(xs, ys) -> float:
+        return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(xs, ys))
+
+    floor = 2.0**-8 * max(float(t.float().abs().max()) for t in truth)
+    return dist(got, truth), max(dist(control, truth), floor)
+
+
 def hold_logits(torch, what: str, got, control, truth) -> float:
     """bf16 logits ``got`` against the fp32 ``truth`` of the same weights
     and inputs, ``control`` being another bf16 run of them: max |got -
@@ -2544,8 +2604,7 @@ def hold_logits(torch, what: str, got, control, truth) -> float:
     greedy tokens the truth's wherever its top-2 margin exceeds twice that
     limit -> max |got - truth| over the control's (the reading)."""
     got, control, truth = (t.float().cpu() for t in (got, control, truth))
-    err = float((got - truth).abs().max())
-    ctl = max(float((control - truth).abs().max()), 2.0**-8 * float(truth.abs().max()))
+    err, ctl = reading([got], [control], [truth])
     limit = LM_NOISE_FACTOR * ctl
     top2 = truth.topk(2, dim=-1).values
     sure = top2[..., 0] - top2[..., 1] > 2 * limit
@@ -2574,15 +2633,28 @@ def lm_flops(cfg, batch: int, seq: int) -> float:
     return float(dense + attention)
 
 
-def hold_routing(torch, what: str, engine, ids, got) -> None:
-    """Node ids ``got`` of ``ids`` from ``engine`` against the fused
-    placement kernel's twin on the engine's current device table, exact."""
+def twin_nodes(engine, ids, n_replicas: int = 0):
+    """Node ids of ``ids`` under ``engine``'s current device table from the
+    plain-torch twin of the fused placement kernel (B1), or with
+    ``n_replicas`` the (n, R) rows of the replica kernel's twin (B2)."""
     from repro_torch.kernels import ref
 
     art, params = engine._device_artifact(), engine.params
-    want = ref.place_fused_ref(ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
+    if n_replicas:
+        return ref.place_replicas_ref(ids, art.len32_dev, art.node_of_dev,
+                                      top_level=art.top_level, s_log2=params.s_log2,
+                                      max_draws=params.max_draws, n_replicas=n_replicas,
+                                      emit_nodes=True)
+    return ref.place_fused_ref(ids, art.len32_dev, art.cum_hi_dev, art.cum_lo_dev,
                                art.node_of_dev, top_level=art.top_level, s_log2=params.s_log2,
                                max_draws=params.max_draws, emit_nodes=True)
+
+
+def hold_routing(torch, what: str, engine, ids, got) -> None:
+    """Node ids ``got`` of ``ids`` from ``engine`` against the fused
+    placement kernel's twin on the engine's current device table, exact."""
+    art = engine._device_artifact()
+    want = twin_nodes(engine, ids)
     bad, _ = mismatches(torch, got.to(want.device), want)
     print(f"  {'place_fused':15s} {what:44s} {bad} mismatches against the twin "
           f"(top level {art.top_level})")
@@ -2736,6 +2808,201 @@ def phase13(torch, np, dev, seed, draws: int = LM_DRAWS) -> dict:
                                 chunked, dense, truth))
     print(f"  largest reading {max(readings):.4f} of {len(readings)} (limit {LM_NOISE_FACTOR}); "
           f"phase 13 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Multiply-add FLOPs of one training step on ``batch`` x ``seq``
+    tokens: 3x the forward (the backward takes twice its products), the
+    forward being ``lm_flops`` with the head at every position; remat's
+    recompute is not counted."""
+    head = 2 * batch * (seq - 1) * cfg.d_model * cfg.vocab  # lm_flops counts one per sequence
+    return 3.0 * (lm_flops(cfg, batch, seq) + head)
+
+
+def train_readings(torch, np, cfg, params, tokens, dev) -> tuple[dict, float]:
+    """One train step from ``params`` (on the CPU) on the card (bf16), on
+    the CPU (bf16) and on the CPU in fp32 -> ({quantity: (card, CPU, fp32)}
+    for the loss, ``grad_norm`` and the moments ``m`` and ``v`` (the clipped
+    gradient x 0.1, its square x 0.05), each a list of CPU tensors; the
+    card's update reading).  Adam's first step is about lr x sign(g), so
+    the bf16 control's step already takes the other sign wherever a
+    gradient is near zero: the new parameters against fp32 would read at
+    most 2 lr and hold nothing.  The card's new parameters are instead
+    held to the update recomputed in float64 (on the card) from its own
+    parameters, ``m`` and ``v`` and the schedule's lr: the reading is max
+    |card - recomputed| over ``UPDATE_ULPS`` x (the new parameter's fp32
+    spacing + 2**-23 x lr x (|Adam step| + |wd x p|)), at most 1 when the
+    card's fp32 arithmetic is AdamW's.  Twice the lr or a reversed decay
+    reads far above it."""
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_flatten
+
+    opt = AdamWConfig(warmup_steps=1)  # the full lr on step 1: the decay term is many ulp of p
+    step = make_train_step(cfg, opt)
+    cpu = torch.device("cpu")
+    out, worst = {}, 0.0
+    for name, d in (("card", dev), ("cpu", cpu), ("fp32", cpu)):
+        p = params if d == cpu else tree_to(params, d)
+        with fp32_compute(torch) if name == "fp32" else contextlib.nullcontext():
+            new, state, m = step(p, init_train_state(cfg, p), {"tokens": tokens.to(d)})
+        out[name] = {"loss": [m["loss"].cpu()], "grad_norm": [m["grad_norm"].cpu()],
+                     **{k: [x.cpu() for x in tree_flatten(state[k])[0]] for k in ("m", "v")}}
+        if name == "card":  # in float64 on the card: on the CPU it took ~8 s per draw
+            lr = float(np.float32(opt.lr))  # the schedule's lr at count 1 (warm-up of 1 step)
+            bc1, bc2 = (1.0 - float(np.float32(b)) for b in (opt.b1, opt.b2))  # count 1, fp32 b
+            for p0, p1, mo, vo in zip(*(tree_flatten(t)[0] for t in (p, new, state["m"],
+                                                                       state["v"]))):
+                p0, mo, vo = (t.double() for t in (p0, mo, vo))
+                adam, decay = (mo / bc1) / (torch.sqrt(vo / bc2) + opt.eps), opt.weight_decay * p0
+                want = p0 - lr * (adam + decay)
+                w32 = want.float().abs()
+                spacing = torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32
+                tol = UPDATE_ULPS * (spacing.double() + 2.0**-23 * lr * (adam.abs() + decay.abs()))
+                worst = max(worst, float(((p1.double() - want).abs() / tol).max()))
+        del new, state
+    return {k: (out["card"][k], out["cpu"][k], out["fp32"][k]) for k in out["card"]}, worst
+
+
+def phase14(torch, np, dev, seed, draws: int = TRAIN_DRAWS) -> dict:
+    """The dense language-model training path on the card: 14a the training
+    CLI at its defaults at full width (the main path, launches counted:
+    B1's ownership sweep, B2's chunk placement on save and restore), the
+    restore after two store nodes fail held bit for bit to the state saved,
+    the owners and replica rows held to B1's and B2's twins; 14b one step
+    on the card against an fp32 run on the CPU, the CPU's bf16 run the
+    control, on the CLI's trained weights and ``draws`` more; 14c a
+    train_4k step (cut to batch 32) timed against its FLOP bound."""
+    from repro_torch.checkpoint.sharded import CHUNK_BYTES, _flatten, _leaf_nbytes, chunk_id
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models import SHAPES, init_params, make_inputs
+    from repro_torch.models.lm import set_remat_policy
+    from repro_torch.train import init_train_state, make_train_step
+
+    card = card_line(dev)
+    rng = np.random.default_rng(seed)
+    t_phase = time.perf_counter()
+    print(f"phase 14a ({card}): python -m repro_torch.launch.train {' '.join(TRAIN_CLI)} "
+          f"--seed {seed}; then store nodes {list(TRAIN_FAILED)} fail and the last save is "
+          f"restored")
+    reset_launches()
+    rep = train.run(TRAIN_CLI + ["--seed", str(seed)])
+    mgr, (step, saved) = rep["manager"], rep["last_save"]
+    store = mgr.store
+    for nid in TRAIN_FAILED:
+        store.fail_node(nid)
+    restored, t_restore = wall(lambda: mgr.restore(step, saved))
+    launches = dict(LAUNCHES)
+    cfg, pipe = rep["cfg"], rep["pipeline"]
+    require(rep["rc"] == 0, "phase 14a: the training CLI's loss did not improve")
+    for name in ("place_fused", "place_replicas"):
+        require(launches.get(name, 0) > 0, f"phase 14a: the training path did not launch {name}")
+    leaves, got = _flatten(saved)[0], _flatten(restored)[0]
+    require(all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                for a, b in zip(got, leaves)), "phase 14a: the restore differs from the save")
+    n_bytes = sum(_leaf_nbytes(x) for x in leaves)
+    print(f"  main path launches {launches}; restore of step {step} ({n_bytes / 2**30:.4f} GiB, "
+          f"{len(leaves)} leaves) with {len(TRAIN_FAILED)} of {len(store.nodes)} nodes down "
+          f"bit-exact in {t_restore:.4f} s (host wall); save_async held the loop "
+          f"{', '.join(f'{t:.4f}' for t in rep['save_s'])} s (host wall, the copy to the host)")
+    shard_ids = torch.arange(pipe.dataset.n_shards, dtype=torch.int64, device=dev).to(torch.int32)
+    want = twin_nodes(pipe.engine, shard_ids)
+    mine = (want == pipe.host_id).cpu().numpy()
+    require(np.array_equal(pipe.owned_shards, np.arange(pipe.dataset.n_shards)[mine]),
+            "phase 14a: the pipeline's shards are not B1's twin's")
+    keys = np.array([chunk_id(step, li, ci) for li, leaf in enumerate(leaves)
+                     for ci in range(max(1, -(-_leaf_nbytes(leaf) // CHUNK_BYTES)))],
+                    dtype=np.uint32)
+    rows = twin_nodes(store.engine, torch.from_numpy(keys.view(np.int32)).to(dev), 3).cpu()
+    held = {nid: set(node.blobs) for nid, node in store.nodes.items()}
+    bad = sum({nid for nid, ks in held.items() if k in ks} != {int(x) for x in row if x >= 0}
+              for k, row in zip(keys.tolist(), rows.tolist()))
+    print(f"  place_fused     the pipeline's {pipe.owned_shards.size} of {pipe.dataset.n_shards} "
+          f"shards are the twin's; place_replicas {bad} of {keys.size} chunks off the twin's "
+          f"replica rows")
+    require(bad == 0, "phase 14a: stored chunks are not where B2's twin places them")
+    del restored, got
+    tokens = torch.from_numpy(next(pipe.batches())).to(dev)
+    step_fn = make_train_step(cfg)
+    print_profile(profile_steps(
+        torch, lambda: step_fn(rep["params"], rep["opt_state"], {"tokens": tokens}), 2))
+
+    b, s = TRAIN_CARD_CPU
+    print(f"phase 14b ({card}): one train step on the card against an fp32 run on the CPU, the "
+          f"CPU's bf16 run the control (loss, grad_norm, m, v), and the card's new parameters "
+          f"against AdamW in float64; full width, batch {b} x {s}, the CLI's trained weights "
+          f"and {draws} more")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+    readings = []
+    for draw in range(draws + 1):
+        t0 = time.perf_counter()
+        tree = tree_to(rep["params"], torch.device("cpu")) if draw == 0 else init_params(
+            cfg, torch.Generator().manual_seed(draw), device="cpu")
+        runs, upd = train_readings(torch, np, cfg, tree, tokens, dev)
+        name = "the CLI's (card)" if draw == 0 else f"seed {draw} (CPU)"
+        print(f"  weights {name:17s} update     max |card - float64 AdamW of the card's p, m, v| "
+              f"over {UPDATE_ULPS} ulp: {upd:.4f} (limit 1)")
+        require(upd <= 1.0, "phase 14b: the card's parameter update is not AdamW's arithmetic")
+        for what, (got_, control, truth) in runs.items():
+            err, ctl = reading(got_, control, truth)
+            readings.append(err / ctl)
+            print(f"  weights {name:17s} {what:10s} max |card - fp32| {err:.6e}, control "
+                  f"{ctl:.6e}: {err / ctl:.4f} (limit {LM_NOISE_FACTOR}); |fp32| max "
+                  f"{max(float(t.abs().max()) for t in truth):.6e}")
+            require(err <= LM_NOISE_FACTOR * ctl,
+                    f"phase 14b: {what}: further from fp32 than the control allows")
+        print(f"  ({time.perf_counter() - t0:.1f} s for the three runs)")
+        del runs, tree
+    print(f"  largest reading {max(readings):.4f} of {len(readings)} (limit {LM_NOISE_FACTOR})")
+    del rep, saved, leaves, mgr, store
+    torch.cuda.empty_cache()
+
+    b, s, n_micro = TRAIN_4K
+    print(f"phase 14c ({card}): a train_4k step at full width, batch {b} x {s} (cut from 256) in "
+          f"{n_micro} microbatches, remat \"nothing\"; a warm-up, then {TRAIN_TIMED} timed")
+    set_remat_policy("nothing")
+    spec = dataclasses.replace(SHAPES["train_4k"], global_batch=b, seq_len=s)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = make_inputs(cfg, spec, gen, device=dev)["batch"]
+    params = init_params(cfg, gen, device=dev)
+    opt = init_train_state(cfg, params)
+    step_fn = make_train_step(cfg, n_microbatches=n_micro)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with warnings.catch_warnings(record=True) as caught:  # host syncs of one step
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            (params, opt, m0), t_warm = wall(lambda: step_fn(params, opt, batch))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    loss0 = float(m0["loss"])
+    require(math.isfinite(loss0) and abs(loss0 - math.log(cfg.vocab)) < 1.0,
+            f"phase 14c: step-0 loss {loss0} is not near ln(vocab) {math.log(cfg.vocab):.4f}")
+    marks = []
+    for _ in range(TRAIN_TIMED):
+        begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        begin.record()
+        params, opt, m = step_fn(params, opt, batch)
+        end.record()
+        marks.append((begin, end))
+    torch.cuda.synchronize()
+    step_ms = statistics.median(bg.elapsed_time(en) for bg, en in marks)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    require(math.isfinite(float(m["loss"])), "phase 14c: non-finite loss")
+    flops = train_flops(cfg, b, s)
+    bound_ms = 1e3 * flops / BF16_FLOPS_PER_S
+    print(f"  step-0 loss {loss0:.4f} (ln {cfg.vocab} = {math.log(cfg.vocab):.4f}); warm-up "
+          f"{t_warm:.2f} s host wall with {len(syncs)} host syncs under sync debug \"warn\"")
+    print(f"  step {step_ms:.2f} ms median of {TRAIN_TIMED} (CUDA events), "
+          f"{b * s * 1e3 / step_ms:.1f} tokens/s; bound {bound_ms:.2f} ms ({flops / 1e12:.2f} "
+          f"TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16, remat not counted; "
+          f"{bound_ms / step_ms:.4f} of it); peak memory {peak:.2f} GiB; {card}")
+    print_profile(profile_steps(torch, lambda: step_fn(params, opt, batch), 1, warm=False))
+    print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
+    del params, opt, batch
+    torch.cuda.empty_cache()
     return launches
 
 

@@ -231,3 +231,16 @@ def model_params_from_reference(tree: dict, device=None) -> dict:
 # The reference's KV cache tree (bf16 ``k`` / ``v``, int32 ``pos``, the
 # (L,) int32 ring ``index``) carries across the same way.
 model_cache_from_reference = model_params_from_reference
+
+
+def opt_state_from_reference(tree: dict, device=None) -> dict:
+    """The port's AdamW state from the reference's (``{"m", "v", "count"}``
+    as NumPy arrays, e.g. ``jax.tree.map(np.asarray, opt_state)``): fp32
+    moments key for key, ``count`` an int32 scalar tensor, on ``device``
+    (None: the card)."""
+    dev = resolve_device(device)
+    return {
+        "m": _tree_from_arrays(tree["m"], dev),
+        "v": _tree_from_arrays(tree["v"], dev),
+        "count": _tensor_from_array(np.asarray(tree["count"], dtype=np.int32), dev),
+    }

@@ -14,7 +14,8 @@ cache.  The weights are synthetic, drawn from ``--seed``.
         --decode-len 8 --cache-len 64 [--device cpu] [--seed 0]
 
 It prints the reference's two lines (the routed share; requests x tokens
-in seconds and tok/s), then the decode time per step (median; CUDA events
+in seconds and tok/s, counting the lanes decoded: the routed requests
+padded to whole batches, as the reference does), then the decode time per step (median; CUDA events
 on the card, the host clock on the CPU) and the tokens/s of one step.
 Without ``--device`` it runs on the card and raises without one.
 """
@@ -116,8 +117,9 @@ def _parser() -> argparse.ArgumentParser:
 def run(argv=None) -> dict:
     """The CLI: parse ``argv``, route, decode, print; -> what it measured
     (config, parameters, device, the routing engine, every request's
-    owner, this replica's ids, ``Decoded``, wall seconds, median step ms
-    and tokens/s)."""
+    owner, this replica's ids, ``Decoded``, the lanes decoded (the ids
+    padded to whole batches, as the reference counts them), wall seconds,
+    median step ms and tokens/s)."""
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -142,7 +144,8 @@ def run(argv=None) -> dict:
     out = decode_requests(cfg, params, mine, batch=args.batch, decode_len=args.decode_len,
                           cache_len=args.cache_len, device=dev)
     wall = time.perf_counter() - t0
-    done = int(mine.size)
+    # the reference counts every lane decoded, the tail batch's pad lanes too
+    done = -(-int(mine.size) // args.batch) * args.batch
     print(
         f"decoded {done} requests x {args.decode_len} tokens in {wall:.2f}s "
         f"({done * args.decode_len / max(wall, 1e-9):.1f} tok/s)"
@@ -153,7 +156,8 @@ def run(argv=None) -> dict:
     print(f"decode step {step_ms:.4f} ms (median of {len(out.step_ms)}, {out.timer}, "
           f"batch {args.batch}): {tok_s:.1f} tok/s on {name}")
     return {"cfg": cfg, "params": params, "device": dev, "engine": engine, "owners": owners,
-            "ids": mine, "decoded": out, "wall_s": wall, "step_ms": step_ms, "tok_s": tok_s}
+            "ids": mine, "decoded": out, "lanes": done, "wall_s": wall, "step_ms": step_ms,
+            "tok_s": tok_s}
 
 
 def main(argv=None) -> int:

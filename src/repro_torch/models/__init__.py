@@ -1,5 +1,6 @@
 """Model zoo of the port: configs, layers and the functional model API
-(the dense language-model family; the others come with ROADMAP A9c)."""
+(the dense language-model family, served and trained; the others come
+with ROADMAP A9c)."""
 
 from .api import (
     LanguageModel,
@@ -8,6 +9,9 @@ from .api import (
     forward,
     init_cache,
     init_params,
+    input_specs,
+    loss_fn,
+    make_inputs,
     param_specs,
     prefill,
     reduced_config,
@@ -26,6 +30,9 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "input_specs",
+    "loss_fn",
+    "make_inputs",
     "param_specs",
     "prefill",
     "reduced_config",

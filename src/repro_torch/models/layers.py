@@ -176,6 +176,15 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
     return torch.where(ok, 0.0, MASK).to(torch.float32)
 
 
+def _scaled(scores, scale: float, bias):
+    """``scores * scale + bias``, in place unless autograd records: then
+    ``scores`` may be a tensor it holds (in fp32 compute the product itself,
+    which a selective checkpoint saves)."""
+    if scores.requires_grad:
+        return scores * scale + bias
+    return scores.mul_(scale).add_(bias)
+
+
 def _sdpa(q, k, v, bias):
     """q:(B,Sq,H,D) k,v:(B,Sk,Hkv,D) bias:(B,Sq,Sk) -> (B,Sq,H,D).
 
@@ -195,7 +204,7 @@ def _sdpa(q, k, v, bias):
     outs = []
     for j in range(hkv):
         scores = torch.matmul(qg[:, j], k[:, :, j].transpose(1, 2)).float()
-        scores = scores.view(b, group, sq, -1).mul_(scale).add_(bias[:, None])
+        scores = _scaled(scores.view(b, group, sq, -1), scale, bias[:, None])
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         outs.append(torch.matmul(probs.view(b, group * sq, -1), v[:, :, j]))
     out = torch.stack(outs, dim=1).view(b, hkv, group, sq, d)
@@ -228,11 +237,15 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
     for c in range(n_chunks):
         kb, vb = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
         pb = k_pos[:, c * chunk:(c + 1) * chunk]
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb).float().mul_(scale)
-        scores.add_(_mask_bias(q_pos, pb, causal=causal, window=window)[:, None, None])
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb).float()
+        bias = _mask_bias(q_pos, pb, causal=causal, window=window)[:, None, None]
+        scores = _scaled(scores, scale, bias)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         alpha = torch.exp(m - m_new)
-        p = scores.sub_(m_new[..., None]).exp_()
+        if scores.requires_grad:  # amax saved the scores: leave them as they are
+            p = torch.exp(scores - m_new[..., None])
+        else:
+            p = scores.sub_(m_new[..., None]).exp_()
         norm = norm * alpha + p.sum(dim=-1)
         pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(q.dtype), vb).float()
         acc = acc * alpha[..., None] + pv

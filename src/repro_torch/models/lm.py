@@ -3,6 +3,7 @@ dense language-model family (the reference's ``repro.models.lm``).
 
     params       = init_params(cfg, generator)            # fp32 master copy
     hidden, aux  = forward(cfg, params, batch)
+    loss, aux    = loss_fn(cfg, params, batch)            # train
     logits       = prefill(cfg, params, batch)            # (B, V) fp32
     cache        = init_cache(cfg, batch, max_len)
     logits, c    = decode_step(cfg, params, cache, batch) # cache consumed
@@ -10,6 +11,11 @@ dense language-model family (the reference's ``repro.models.lm``).
 Parameters and caches are nested dicts with the reference's keys and its
 stacked leading layer axis; a Python loop over views of the stacked
 tensors takes the place of the reference's ``lax.scan`` over layers.
+``forward`` takes the layer views from one ``torch.unbind`` per stacked
+leaf, so under autograd each leaf's gradient is assembled once, and while
+autograd records each layer runs under the remat policy
+(``set_remat_policy``: ``torch.utils.checkpoint`` per layer).  Cross-entropy runs in chunks of
+``CE_CHUNK`` positions, so the (B, S, V) logits are never built.
 ``LanguageModel`` is a thin ``nn.Module`` over the same tree.
 
 This slice runs ``family == "lm"`` without MoE and without MLA; any other
@@ -21,8 +27,11 @@ a device.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -38,6 +47,47 @@ from .layers import (
     norm_apply,
     norm_init,
 )
+
+
+CE_CHUNK = 256
+
+# The reference's remat policies (``jax.checkpoint`` policies) mapped onto
+# torch checkpointing: "nothing" saves no residual of a layer (recompute it
+# all in backward), "dots" saves the matmul outputs and recomputes the rest
+# (selective activation checkpointing), "everything" is no checkpoint.
+_REMAT_POLICIES = ("nothing", "dots", "everything")
+_remat_policy_name = "nothing"
+
+
+def set_remat_policy(name: str) -> None:
+    "Perf knob: which residuals the per-layer checkpoint saves."
+    if name not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {name!r}; one of {_REMAT_POLICIES}")
+    if name == "dots" and not hasattr(_ckpt, "create_selective_checkpoint_contexts"):
+        raise NotImplementedError(
+            f"remat policy 'dots' needs torch.utils.checkpoint."
+            f"create_selective_checkpoint_contexts, which torch {torch.__version__} lacks")
+    global _remat_policy_name
+    _remat_policy_name = name
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn):
+    """``fn`` under the current remat policy (call it only while autograd
+    records)."""
+    if _remat_policy_name == "everything":
+        return fn
+    kw = {}
+    if _remat_policy_name == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def require_supported(cfg: ModelConfig) -> None:
@@ -61,6 +111,30 @@ def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree: views, so in-place writes (the decode
     cache) land in the stacked tensors."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _unbind_layers(tree: dict, n: int) -> list:
+    """The ``n`` layer trees of a stacked tree from one ``torch.unbind`` per
+    leaf.  Under autograd each ``v[i]`` would add a gradient the size of the
+    whole leaf; the views of one unbind add theirs into one leaf gradient."""
+    per_key = {k: _unbind_layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+               for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in tree} for i in range(n)]
+
+
+def _records(*trees) -> bool:
+    """Whether autograd records what reads these tensors or trees of
+    tensors (training)."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif t.requires_grad:
+            return True
+    return False
 
 
 def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
@@ -185,12 +259,56 @@ def forward(cfg: ModelConfig, params, batch: dict):
         x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(s + n_prefix, dtype=torch.int32, device=x.device).expand(b, -1)
     blocks = params["dense_blocks"]
-    for i in range(cfg.n_layers):
-        x = constrain(_lm_block_apply(cfg, _layer(blocks, i), x, positions)[0])
+
+    def block(p, h):
+        return _lm_block_apply(cfg, p, h, positions)[0]
+
+    if _records(x, blocks):
+        block = _remat(block)
+    for layer in _unbind_layers(blocks, cfg.n_layers):
+        x = constrain(block(layer, x))
     x = norm_apply(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ce_chunk(h, head, t, m):
+    """(sum of masked NLL, mask sum) of one chunk: the head product in the
+    compute dtype, then fp32 logsumexp."""
+    logits = (h @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    nll = (lse - gold) * m
+    return nll.sum(), m.sum()
+
+
+def chunked_ce(cfg: ModelConfig, params, hidden, targets, mask) -> torch.Tensor:
+    """Mean next-token CE without building the (B, S, V) logits: one step
+    per ``CE_CHUNK`` positions, each under the remat policy while autograd
+    records.  The reference pads the tail chunk with masked positions; a
+    shorter tail adds the same sums."""
+    head = _lm_head(cfg, params).to(layers.COMPUTE_DTYPE)
+    step = _remat(_ce_chunk) if _records(hidden, head) else _ce_chunk
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(0, hidden.shape[1], CE_CHUNK):
+        sl = slice(c, c + CE_CHUNK)
+        nll, n = step(hidden[:, sl], head, targets[:, sl], mask[:, sl])
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict):
+    """-> (ce + 0.01 * aux, {"ce", "aux"}): the next-token cross-entropy
+    (targets are the tokens rolled by one, the last position masked)."""
+    hidden, aux = forward(cfg, params, batch)
+    tokens = batch["tokens"]
+    targets = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    ce = chunked_ce(cfg, params, hidden, targets, mask)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:

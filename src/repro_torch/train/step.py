@@ -1,5 +1,14 @@
-"""Serve and prefill step factories of the port (the serving half of the
-reference's ``repro.train.step``).
+"""Train, serve and prefill step factories of the port (the reference's
+``repro.train.step``).
+
+``make_train_step(cfg)`` -> step(params, opt_state, batch) -> (params,
+opt_state, {"loss", "grad_norm", "lr"}): one AdamW step on the gradient of
+``loss_fn``, functional (new trees out, the inputs untouched).  With
+``n_microbatches`` > 1 the batch splits into slices taken one after the
+other, their gradients accumulated in ``grad_dtype`` and divided by n, the
+loss averaged: the activation peak scales with the slice, the
+accumulation buffer with the model.  Training reads the fp32 master
+parameters directly: the layers' own casts carry the gradient to them.
 
 ``make_serve_step(cfg)`` -> step(params, cache, batch) -> (logits, cache):
 one-token decode against a cache, which the step consumes (it is updated
@@ -18,9 +27,13 @@ multiply by them in fp32.
 
 from __future__ import annotations
 
-from ..models import decode_step, prefill
+import torch
+
+from ..models import decode_step, loss_fn, prefill
 from ..models.config import ModelConfig
 from ..models import layers
+from ..models.lm import require_supported
+from .optimizer import AdamWConfig, adamw_init, adamw_update, tree_flatten
 
 
 def _is_matmul_weight(name: str) -> bool:
@@ -64,3 +77,52 @@ def make_prefill_step(cfg: ModelConfig):
         return prefill(cfg, working(params), batch)
 
     return prefill_step
+
+
+def _split_micro(batch: dict, n: int) -> list:
+    """``n`` batches of ``b // n`` rows each; raises unless n divides b."""
+    for x in batch.values():
+        if x.shape[0] % n:
+            raise ValueError(f"batch {x.shape[0]} not divisible into {n} microbatches")
+    return [{k: x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)] for k, x in batch.items()}
+            for i in range(n)]
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig = AdamWConfig(),
+    *,
+    n_microbatches: int = 1,
+    grad_dtype: torch.dtype = torch.float32,
+):
+    require_supported(cfg)
+
+    def value_and_grad(leaves, rebuild, batch):
+        # detached aliases of the master leaves: the gradient is taken with
+        # respect to them, and the caller's tensors gain no autograd state
+        xs = [p.detach().requires_grad_() for p in leaves]
+        val, _ = loss_fn(cfg, rebuild(xs), batch)
+        return val.detach(), list(torch.autograd.grad(val, xs))
+
+    def train_step(params, opt_state, batch):
+        leaves, rebuild = tree_flatten(params)
+        if n_microbatches == 1:
+            val, grads = value_and_grad(leaves, rebuild, batch)
+        else:
+            grads = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves]
+            vsum = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+            for mb in _split_micro(batch, n_microbatches):
+                v, g = value_and_grad(leaves, rebuild, mb)
+                for a, b in zip(grads, g):
+                    a.add_(b.to(grad_dtype))
+                vsum = vsum + v
+            grads = [g / n_microbatches for g in grads]
+            val = vsum / n_microbatches
+        params, opt_state, opt_metrics = adamw_update(opt_cfg, rebuild(grads), opt_state, params)
+        return params, opt_state, {"loss": val, **opt_metrics}
+
+    return train_step
+
+
+def init_train_state(cfg: ModelConfig, params):
+    return adamw_init(params)

@@ -11,6 +11,7 @@ language model's float logits are held to an fp32 run (see its section).
 """
 
 import contextlib
+import io
 
 import numpy as np
 import pytest
@@ -953,3 +954,133 @@ def test_lm_full_width_smollm_decode_on_card_matches_cpu(cuda_device):
                              cuda_device)
     for card, cpu, truth in zip(out["cuda"], out["cpu"], out["fp32"]):
         _lm_hold(card, cpu, truth)
+
+
+# ---------------------------------------------------------------------------
+# The language model's training path on the card (reduced configs): one
+# step's loss, grad_norm and moments m and v held to an fp32 run on the CPU,
+# the CPU's bf16 run the control, as chip_smoke.py's phase 14b holds them
+# (max |card - fp32| within LM_NOISE_FACTOR x max |cpu - fp32|, at least
+# 2**-8 x max |fp32|); the step free of host syncs; the training CLI.
+# ---------------------------------------------------------------------------
+
+
+def _lm_hold_values(card, cpu, truth):
+    def dist(xs, ys):
+        return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(xs, ys))
+
+    floor = 2.0**-8 * max(float(t.float().abs().max()) for t in truth)
+    assert dist(card, truth) <= LM_NOISE_FACTOR * max(dist(cpu, truth), floor)
+
+
+def _lm_train_runs(cfg, cpu_p, card_p, batch, device):
+    """One train step on the card, on the CPU and in fp32 on the CPU ->
+    {"cuda", "cpu", "fp32": {"loss", "grad_norm", "m", "v": [tensors]}}."""
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.optimizer import tree_flatten
+
+    step = make_train_step(cfg)
+    out = {}
+    for name, params, dev in (("cuda", card_p, device), ("cpu", cpu_p, "cpu"),
+                              ("fp32", cpu_p, "cpu")):
+        with _fp32_compute() if name == "fp32" else contextlib.nullcontext():
+            b = {k: v.to(dev) for k, v in batch.items()}
+            _, state, m = step(params, init_train_state(cfg, params), b)
+        out[name] = {"loss": [m["loss"]], "grad_norm": [m["grad_norm"]],
+                     "m": tree_flatten(state["m"])[0], "v": tree_flatten(state["v"])[0]}
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_SERVED + ("internvl2-26b",))
+def test_lm_train_step_on_card_matches_cpu(cuda_device, arch):
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    batch = {"tokens": _lm_tokens(cfg, (4, 32), seed=4)}
+    if cfg.vision_prefix:
+        batch["patches"] = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (4, cfg.vision_prefix, cfg.d_model)).astype(np.float32))
+    out = _lm_train_runs(cfg, cpu_p, card_p, batch, cuda_device)
+    assert out["cuda"]["loss"][0].device.type == "cuda"
+    for key in ("loss", "grad_norm", "m", "v"):
+        _lm_hold_values(out["cuda"][key], out["cpu"][key], out["fp32"][key])
+
+
+@pytest.mark.parametrize("seq", [64, 1024], ids=["256 tokens", "4096 tokens"])
+@pytest.mark.parametrize("policy", ["nothing", "dots", "everything"])
+def test_lm_train_step_makes_no_host_sync(cuda_device, policy, seq):
+    """A microbatched step (2 x 2 rows) under sync debug "error", after a
+    warm-up; 4096 tokens take the embedding gradient's sorted path."""
+    from repro_torch.models.lm import set_remat_policy
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg, _, card_p = _lm_setup("smollm-135m")
+    step = make_train_step(cfg, n_microbatches=2)
+    batch = {"tokens": _lm_tokens(cfg, (4, seq)).to(cuda_device)}
+    set_remat_policy(policy)
+    try:
+        params, opt, _ = step(card_p, init_train_state(cfg, card_p), batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt, m = step(params, opt, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        set_remat_policy("nothing")
+    assert bool(torch.isfinite(m["loss"])) and int(opt["count"]) == 2
+
+
+def test_lm_remat_policies_agree_on_card(cuda_device):
+    from repro_torch.models import loss_fn
+    from repro_torch.models.lm import set_remat_policy
+    from repro_torch.train.optimizer import tree_flatten
+
+    cfg, _, card_p = _lm_setup("command-r-35b")
+    batch = {"tokens": _lm_tokens(cfg, (4, 64), seed=5).to(cuda_device)}
+    runs = {}
+    try:
+        for policy in ("everything", "nothing", "dots"):
+            set_remat_policy(policy)
+            leaves, rebuild = tree_flatten(card_p)
+            xs = [p.detach().requires_grad_() for p in leaves]
+            val, _ = loss_fn(cfg, rebuild(xs), batch)
+            runs[policy] = [val.detach()] + list(torch.autograd.grad(val, xs))
+    finally:
+        set_remat_policy("nothing")
+    for policy in ("nothing", "dots"):
+        for a, b in zip(runs[policy], runs["everything"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+def test_lm_blockwise_train_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Above the threshold (chunks of 8 over 64 positions) the step runs
+    through the online softmax's backward on the card."""
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "KV_CHUNK", 8)
+    monkeypatch.setattr(layers, "BLOCKWISE_THRESHOLD", 16)
+    cfg, cpu_p, card_p = _lm_setup("granite-3-2b")
+    out = _lm_train_runs(cfg, cpu_p, card_p, {"tokens": _lm_tokens(cfg, (2, 64), seed=6)},
+                         cuda_device)
+    for key in ("loss", "grad_norm", "m", "v"):
+        _lm_hold_values(out["cuda"][key], out["cpu"][key], out["fp32"][key])
+
+
+def test_lm_train_cli_on_card(cuda_device):
+    """The training CLI at the reduced size: the pipeline's sweep launches
+    B1, the store's saves B2; two of six store nodes fail and the last save
+    restores bit for bit."""
+    from repro_torch.checkpoint.sharded import _flatten
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch import train
+
+    reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep = train.run(["--reduced", "--steps", "6", "--batch", "4", "--seq", "64",
+                         "--ckpt-every", "3", "--lr", "1e-3"])
+    assert rep["rc"] == 0 and rep["device"].type == "cuda" and rep["peak_bytes"] > 0
+    assert LAUNCHES["place_fused"] > 0 and LAUNCHES["place_replicas"] > 0
+    step, saved = rep["last_save"]
+    for nid in (1, 3):
+        rep["manager"].store.fail_node(nid)
+    restored = rep["manager"].restore(step, saved)
+    assert all(torch.equal(a, b) for a, b in zip(_flatten(restored)[0], _flatten(saved)[0]))

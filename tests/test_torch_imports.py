@@ -79,8 +79,10 @@ def test_mesh_import_loads_neither_jax_nor_the_reference():
 def test_model_imports_load_neither_jax_nor_the_reference():
     proc = _run(
         "import sys, repro_torch.models, repro_torch.configs, repro_torch.train, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.train.optimizer, repro_torch.launch.train\n"
         "assert repro_torch.models.__all__ and repro_torch.train.__all__\n"
+        "assert callable(repro_torch.launch.train.run) and "
+        "callable(repro_torch.train.optimizer.adamw_update)\n"
         "assert len(repro_torch.configs.ARCHS) == 10\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.'))\n"
@@ -94,12 +96,15 @@ def test_consumer_packages_export_the_reference_names():
     import repro.checkpoint
     import repro.data
     import repro.runtime
+    import repro.train
     import repro_torch.checkpoint
     import repro_torch.data
     import repro_torch.runtime
+    import repro_torch.train
 
     for ref, port in ((repro.runtime, repro_torch.runtime), (repro.data, repro_torch.data),
-                      (repro.checkpoint, repro_torch.checkpoint)):
+                      (repro.checkpoint, repro_torch.checkpoint),
+                      (repro.train, repro_torch.train)):
         assert port.__all__ == ref.__all__
         assert all(hasattr(port, name) for name in port.__all__)
 

@@ -271,7 +271,7 @@ def test_decode_requests_matches_the_reference_loop():
     share = ref[0].split(" (engine")[0]
     assert port[0].split(" (engine")[0] == share and share.startswith("replica 1 serves ")
     assert port[0].endswith("(engine backend=device, table uploads=1)")
-    assert port[1].startswith(f"decoded {share.split()[3].split('/')[0]} requests x 6 tokens")
+    assert port[1].split(" in ")[0] == ref[1].split(" in ")[0]  # lanes padded, as the reference
     assert port[2].startswith("decode step ") and "host clock, batch 4" in port[2]
 
     jc, jp, c, tp = _setup("smollm-135m")
@@ -301,6 +301,19 @@ def test_decode_requests_matches_the_reference_loop():
     assert compared >= mine.size
 
 
+def test_cli_counts_the_decoded_lanes_as_the_reference():
+    """The tail batch's pad lanes count, as the reference's ``done +=
+    ids.size`` after padding: 10 routed requests in batches of 4 are 12."""
+    argv = ["--reduced", "--replicas", "4", "--replica-id", "1", "--requests", "40",
+            "--batch", "4", "--decode-len", "2"]
+    ref = _lines(jserve.main, argv)
+    port = _lines(serve.main, argv + ["--device", "cpu"])
+    assert ref[0].startswith("replica 1 serves 10/40 ")
+    assert port[0].split(" (engine")[0] == ref[0].split(" (engine")[0]
+    assert ref[1].startswith("decoded 12 requests x 2 tokens in ")
+    assert port[1].startswith("decoded 12 requests x 2 tokens in ")
+
+
 def test_cli_without_a_device_raises_on_a_host_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -316,6 +329,7 @@ def test_cli_reports_what_it_measured():
     assert np.array_equal(rep["ids"], np.arange(16)[rep["owners"] == 0])
     assert np.array_equal(rep["owners"], rep["engine"].place_nodes(np.arange(16, dtype=np.uint32)))
     assert rep["step_ms"] > 0 and rep["tok_s"] == pytest.approx(2e3 / rep["step_ms"])
+    assert rep["lanes"] == -(-rep["ids"].size // 2) * 2
     again = _silent_run(["--reduced", "--device", "cpu", "--requests", "16", "--batch", "2",
                          "--decode-len", "3", "--replicas", "2", "--seed", "3"])
     np.testing.assert_array_equal(again["decoded"].tokens, rep["decoded"].tokens)

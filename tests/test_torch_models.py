@@ -27,12 +27,14 @@ from repro_torch.models import (
     cache_specs,
     init_cache,
     init_params,
+    loss_fn,
     param_specs,
     prefill,
     reduced_config,
     shape_applicable,
 )
 from repro_torch.models import layers as tl
+from repro_torch.train import make_train_step
 
 FP32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -100,10 +102,13 @@ def test_registry_matches_reference():
 def test_families_outside_the_slice_raise_naming_their_item(arch):
     cfg = reduced_config(configs.get_config(arch))
     gen = torch.Generator().manual_seed(0)
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     for call in (lambda: init_params(cfg, gen, device="cpu"),
                  lambda: init_cache(cfg, 2, 8, device="cpu"),
                  lambda: param_specs(cfg),
-                 lambda: prefill(cfg, {}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})):
+                 lambda: prefill(cfg, {}, tokens),
+                 lambda: loss_fn(cfg, {}, tokens),
+                 lambda: make_train_step(cfg)):
         with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
             call()
 
