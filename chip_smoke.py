@@ -12,9 +12,10 @@ one versioned segment table -- reached two ways: bulk placement through
 then the migration, baseline and failure-domain paths, the modules
 through which users meet placement (data pipeline, elastic coordinator,
 checkpoint store, durability simulator), the multi-card sweep, the
-language-model serving path that routes its requests with ASURA, and the
+language-model serving path that routes its requests with ASURA, the
 training path that reads ASURA-placed data shards and keeps ASURA-placed
-checkpoints.
+checkpoints, and the MoE models (mixtral-8x22b, deepseek-v2-236b) on
+both.
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -204,9 +205,36 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            under sync debug "warn", step ms (CUDA events), tokens/s, peak
            memory, the profiler's idle share and kernels per step, and the
            bf16 FLOP bound (3x the forward, the head at every position);
+  15. the MoE language models at full width, depth cut (widths, heads,
+      experts, top-k, capacity factor, vocab and window as published):
+      15a. mixtral-8x22b cut to 2 layers: the serving CLI (``--layers 2``,
+           routing on B1 held to its twin, a fresh cache per batch of 8, 8
+           decode steps); decode at batch 8 against a full 4,096-slot
+           window ring whose index starts 3 slots before its end (the steps
+           cross the wrap); prefill 8 x 4,096 (dense) and 1 x 16,384
+           (blockwise, the window masking): step ms, tok/s, peak memory,
+           the profiler's kernels per step and idle share, the share of
+           assignments dropped at capacity per layer;
+      15b. deepseek-v2-236b cut to 1 dense + 1 MoE layer: the same, with
+           decode against a compressed (latent) cache of 4,096 positions
+           (its bytes printed) and prefill 1 x 4,096 (dense, heads in
+           groups) and 1 x 16,384 (blockwise on padded values);
+      15c. the reduced configs of both families on the card against the
+           CPU, 4 weight draws, prefill 8 x 64 (two dispatch groups) and 4
+           decode steps at batch 8: the fp32-compute runs route alike
+           except within ``ROUTE_EPS_FP32`` of the CPU's top-k gap and
+           agree on logits at rtol 1e-4 / atol 1e-5 on the rows no flip
+           reached; the card's bf16 routes are the CPU bf16 run's except
+           within ``ROUTE_EPS_BF16``, and on the rows no flip reached its
+           logits are held to the CPU's fp32 run as 13e holds them; the
+           route-flip shares printed;
+      15d. one training step per family at the reduced size (2 x 128) held
+           as 14b holds it, at ``MOE_TRAIN_FACTOR``, and the training CLI
+           for mixtral at ``--reduced`` (B1 pipeline, B2 store): its loss
+           must fall;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
-     13a-13b, 14a), time at
+     13a-13b, 14a, 15a-15b, 15d), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -231,18 +259,12 @@ vector and at R = 1; B3 and B4 on the add, the removal and the
 ``--only LABEL`` (repeatable) keeps the kernels whose label starts with
 LABEL, and builds only their libraries.
 
-``--train-variants`` runs no phase: it times the full-width training
-step (CUDA events, peak memory) with each remat policy and with the
-layer views taken by ``unbind`` or by per-layer selects, at 8 x 128,
-1 x 4,096 and 8 x 4,096 ("nothing" only), and an async checkpoint save
-of the model and AdamW state (host wall of the call and of the write).
-
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
 exits non-zero before printing any result.  Every integer result is
 compared with zero tolerance: the placement stack is exact integer math.
-The language model's float logits (phase 13) and training step (phase
-14b) are held to the tolerance stated there.
+The language model's float logits (phases 13 and 15) and training step
+(phases 14b and 15d) are held to the tolerances stated there.
 """
 
 from __future__ import annotations
@@ -395,6 +417,30 @@ UPDATE_ULPS = 4  # 14b: the card's new parameters against AdamW's update in floa
 TRAIN_4K = (32, 4_096, 4)
 TRAIN_TIMED = 2
 BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor-core rate
+# phase 15, the MoE language models (mixtral-8x22b, deepseek-v2-236b) at full
+# width with the depth cut to 2 layers (5.41 B and 5.36 B parameters: 30 GiB
+# as fp32 master plus bf16 working copy; 56 and 60 layers would need 0.28 and
+# 0.47 TB in bf16 alone)
+MOE_ARCHS = ("mixtral-8x22b", "deepseek-v2-236b")
+MOE_CLI = ["--layers", "2", "--replicas", "4", "--replica-id", "0", "--requests", "64",
+           "--batch", "8", "--decode-len", "8", "--cache-len", "64"]  # the CLI's defaults
+MOE_WRAP = (8, 4_096, 3)  # batch, cache positions, slots before the ring's end where decode starts
+MOE_PREFILLS = {"mixtral-8x22b": ((8, 4_096), (1, 16_384)),
+                "deepseek-v2-236b": ((1, 4_096), (1, 16_384))}
+MOE_CARD_CPU = (8, 64, 4)  # 15c: batch, prompt length (2 dispatch groups), decode steps
+MOE_DRAWS = 3  # 15c / 15d: weight draws besides seed 0 (seeds 1 .. MOE_DRAWS, on the CPU)
+# 15c: a route may differ between two runs only where the truth's smallest
+# gap among a token's top k + 1 logits is within this x its largest |logit|:
+# 8 bf16 steps (every flip the CPU tests saw between the reference's and the
+# port's bf16 runs lay within it), and for fp32 runs far above fp32 rounding
+ROUTE_EPS_BF16 = 2.0**-5
+ROUTE_EPS_FP32 = 2.0**-14
+# 15d: the MoE families' training readings (loss, grad_norm, m, v) as 14b's,
+# at twice the largest of 32 CPU readings (the reference's bf16 step against
+# the port's, both ways, 4 draws x 2 families: v 2.03; m 1.27, grad_norm 0.68)
+MOE_TRAIN_FACTOR = 4.0
+MOE_TRAIN = (2, 128)
+MOE_TRAIN_CLI = ["--arch", "mixtral-8x22b", "--reduced"]  # 20 steps of 8 x 128, a save at 10
 PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
 
 
@@ -920,6 +966,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 14: the dense language-model training path ---------------------
     train_launches = phase14(torch, np, dev, seed)
 
+    # -- phase 15: the MoE language models ------------------------------------
+    moe_launches = phase15(torch, np, dev, seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -931,7 +980,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
                   *hier["launches"], consumer_launches, mesh_launches, lm_launches,
-                  train_launches)
+                  train_launches, moe_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2596,7 +2645,7 @@ def reading(got: list, control: list, truth: list) -> tuple[float, float]:
     return dist(got, truth), max(dist(control, truth), floor)
 
 
-def hold_logits(torch, what: str, got, control, truth) -> float:
+def hold_logits(torch, what: str, got, control, truth, phase: str = "13e") -> float:
     """bf16 logits ``got`` against the fp32 ``truth`` of the same weights
     and inputs, ``control`` being another bf16 run of them: max |got -
     truth| within ``LM_NOISE_FACTOR`` x the control's max |control - truth|
@@ -2614,7 +2663,7 @@ def hold_logits(torch, what: str, got, control, truth) -> float:
           f"{float((got - control).abs().max()):.6f} of max |control| "
           f"{float(control.abs().max()):.6f}; greedy tokens the fp32 run's on "
           f"{int(sure.sum())}/{sure.numel()} rows with margin > 2 x limit: {same}")
-    require(err <= limit and same, f"phase 13e: {what}: further from fp32 than the control allows")
+    require(err <= limit and same, f"phase {phase}: {what}: further from fp32 than the control allows")
     return err / ctl
 
 
@@ -3003,6 +3052,332 @@ def phase14(torch, np, dev, seed, draws: int = TRAIN_DRAWS) -> dict:
     print(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
     del params, opt, batch
     torch.cuda.empty_cache()
+    return launches
+
+
+def moe_layers(cfg) -> tuple[int, int]:
+    """(dense layers, MoE layers) of a config."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe is not None else 0
+    return cfg.n_layers - n_moe, n_moe
+
+
+def dropped_per_layer(log, n_moe: int) -> list:
+    """The share of assignments dropped at capacity in each MoE layer over
+    the calls of a ``RouteLog`` (one call per layer per forward)."""
+    kept, made = [0] * n_moe, [0] * n_moe
+    for i, (_, _, keep) in enumerate(log.calls):
+        kept[i % n_moe] += int(keep.sum())
+        made[i % n_moe] += keep.numel()
+    return [1.0 - k / m for k, m in zip(kept, made)]
+
+
+def moe_flops(cfg, batch: int, seq: int) -> float:
+    """Multiply-add FLOPs that a causal prefill of ``seq`` positions needs
+    when every routed assignment is kept: each active weight (attention or
+    MLA projections, the dense MLP, the router, top_k experts and the
+    shared ones) once per position, the head once per sequence, and the
+    score and value products of the (query, key) pairs the mask keeps."""
+    d, v = cfg.d_model, cfg.vocab
+    embed = v * d * (1 if cfg.tie_embeddings else 2)
+    dense = 2 * batch * seq * (cfg.active_param_count() - embed) + 2 * batch * d * v
+    w = min(cfg.window, seq) if cfg.attn_kind != "full" and cfg.window else seq
+    pairs = w * (w + 1) // 2 + (seq - w) * w
+    if cfg.mla is not None:
+        dims = cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim + cfg.mla.v_head_dim
+    else:
+        dims = 2 * cfg.head_dim_
+    return float(dense + 2 * batch * pairs * cfg.n_heads * dims * cfg.n_layers)
+
+
+def expert_bytes(cfg) -> int:
+    """bf16 bytes of one expert's matrices."""
+    mult = 3 if cfg.act in ("swiglu", "geglu") else 2
+    return 2 * mult * cfg.d_model * cfg.moe.d_ff_expert
+
+
+def moe_serving(torch, np, dev, arch: str, cfg, params, seed: int, card: str, tag: str) -> None:
+    """15a / 15b beyond the CLI: decode at batch 8 against a full ring
+    whose index starts ``MOE_WRAP[2]`` slots before its end (a warm-up,
+    then ``DECODE_STEPS`` timed, crossing the wrap), profiled, its bytes
+    bound from the experts the steps routed to; then the prefills of
+    ``MOE_PREFILLS``."""
+    from repro_torch.models import init_cache
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models.routes import RouteLog
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    rng = np.random.default_rng(seed)
+    _, n_moe = moe_layers(cfg)
+    b, max_len, before = MOE_WRAP
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = init_cache(cfg, b, max_len, device=dev)
+    size = next(iter(cache.values()))["pos"].shape[-1]  # the window clamps a ring
+    start = size - before
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for stack in cache.values():
+        for leaf in stack.values():
+            if leaf.is_floating_point():
+                leaf.normal_(generator=gen)  # every filled slot holds a key
+        stack["pos"][..., :start] = torch.arange(start, dtype=torch.int32, device=dev)
+        stack["index"].fill_(start)
+    cache_bytes = sum(x.numel() * x.element_size() for st in cache.values() for x in st.values())
+    kind = "compressed latent" if cfg.mla is not None else "window ring"
+    print(f"{tag} ({card}): decode at batch {b} against a full {kind} cache of {size} slots "
+          f"({cache_bytes / 1e9:.4f} GB), index {start}: a warm-up and {DECODE_STEPS} timed "
+          f"steps from position {start}, the ring wrapping at step {before}")
+    step = make_serve_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1), dtype=np.int32)).to(dev)
+    marks = []
+    with RouteLog() as log:
+        for t in range(DECODE_STEPS + 1):
+            batch = {"tokens": tokens,
+                     "positions": torch.full((b, 1), start + t, dtype=torch.int32, device=dev)}
+            begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            logits, cache = step(params, cache, batch)
+            end.record()
+            marks.append((begin, end))
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    step_ms = statistics.median(bg.elapsed_time(en) for bg, en in marks[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    require(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            f"{tag}: non-finite decode logits")
+    first = next(iter(cache.values()))
+    require(int(first["index"][0]) == start + DECODE_STEPS + 1
+            and int(first["pos"][0, 0, 0]) == size, f"{tag}: the ring did not wrap into slot 0")
+    used = [int((torch.bincount(experts[keep.view(experts.shape)].view(-1).cpu(),
+                                minlength=cfg.moe.n_experts) > 0).sum())
+            for _, experts, keep in log.calls[n_moe:]]  # the timed steps' calls
+    per_step = sum(used) / DECODE_STEPS
+    dense_w = 2 * cfg.param_count() - n_moe * cfg.moe.n_experts * expert_bytes(cfg)
+    w_bytes = dense_w + per_step * expert_bytes(cfg)
+    bound_ms = 1e3 * (cache_bytes + w_bytes) / HBM_BYTES_PER_S
+    drops = ", ".join(f"{x:.4f}" for x in dropped_per_layer(log, n_moe))
+    print(f"  step {step_ms:.4f} ms median of {DECODE_STEPS} (CUDA events), "
+          f"{b * 1e3 / step_ms:.1f} tok/s; bound {bound_ms:.4f} ms ({cache_bytes / 1e9:.4f} GB "
+          f"of cache + {w_bytes / 1e9:.2f} GB of bf16 weights, {per_step / n_moe:.2f} experts "
+          f"per MoE layer routed to per step, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+          f"{bound_ms / step_ms:.3f} of it); peak memory {peak:.2f} GiB; dropped at capacity "
+          f"per MoE layer {drops}; {card}")
+    last = dict(batch, tokens=tokens)
+    print_profile(profile_steps(torch, lambda: step(params, cache, last), 2))
+    del cache, step, logits, log, last
+    torch.cuda.empty_cache()
+
+    pre = make_prefill_step(cfg)
+    for b, s in MOE_PREFILLS[arch]:
+        path = "blockwise" if s > lm_layers.BLOCKWISE_THRESHOLD else "dense"
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32)).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        box = []
+        with RouteLog() as log:
+            ms = cuda_ms(torch, lambda: box.append(pre(params, {"tokens": tokens})), 1)[0]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        require(box[-1].shape == (b, cfg.vocab) and bool(torch.isfinite(box[-1]).all()),
+                f"{tag}: prefill {b} x {s}: non-finite logits")
+        flops = moe_flops(cfg, b, s)
+        drops = ", ".join(f"{x:.4f}" for x in dropped_per_layer(log, n_moe))
+        print(f"{tag} ({card}): prefill {b} x {s} ({path} attention): {ms:.2f} ms (CUDA "
+              f"events, after one warm-up), {b * s * 1e3 / ms:.1f} tok/s; bound "
+              f"{1e3 * flops / BF16_FLOPS_PER_S:.2f} ms ({flops / 1e12:.2f} TFLOP at "
+              f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16, every assignment kept); peak memory "
+              f"{peak:.2f} GiB; dropped at capacity per MoE layer {drops}")
+        del box, log
+        torch.cuda.empty_cache()
+
+
+def moe_runs(torch, cfg, params, prompt, n_dec: int, dev) -> dict:
+    """{run: [(logits, route calls)] of a prefill of ``prompt`` and of
+    ``n_dec`` decode steps fed its first tokens against a fresh cache}, on
+    the same weights (``params`` on the CPU): "card" and "cpu" the serving
+    steps in bf16, "card32" and "fp32" the model computed in fp32
+    (``set_compute_dtype``)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.routes import RouteLog
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cpu = torch.device("cpu")
+    b, p = prompt.shape
+
+    def stages(d, tree, pre, step) -> list:
+        tokens = torch.from_numpy(prompt).to(d)
+        with RouteLog() as log:
+            out = [(pre(tree, {"tokens": tokens}), log.calls)]
+        cache = init_cache(cfg, b, p, device=d)
+        for t in range(n_dec):
+            batch = {"tokens": tokens[:, t:t + 1],
+                     "positions": torch.full((b, 1), t, dtype=torch.int32, device=d)}
+            with RouteLog() as log:
+                logits, cache = step(tree, cache, batch)
+            out.append((logits, log.calls))
+        return out
+
+    card_params = tree_to(params, dev)
+    runs = {"card": stages(dev, card_params, make_prefill_step(cfg), make_serve_step(cfg)),
+            "cpu": stages(cpu, params, make_prefill_step(cfg), make_serve_step(cfg))}
+    with fp32_compute(torch):
+        fns = (lambda tree, batch: prefill(cfg, tree, batch),
+               lambda tree, cache, batch: decode_step(cfg, tree, cache, batch))
+        runs["fp32"] = stages(cpu, params, *fns)
+        runs["card32"] = stages(dev, card_params, *fns)
+    return runs
+
+
+def hold_moe_runs(torch, name: str, runs: dict, prompt_len: int, flips: dict) -> list:
+    """15c on one weight draw: per stage (the prefill, then the decode steps,
+    whose rows carry the hits of the steps before) the fp32 runs' routes
+    and logits, the bf16 routes of the card against the CPU's and the
+    card's bf16 logits against fp32 on the rows no flip reached -> the
+    readings; ``flips`` counts (flipped, tokens) per comparison."""
+    from repro_torch.models.routes import route_changes
+
+    readings, hit = [], {}
+    for i, stage in enumerate(zip(*(runs[k] for k in ("card", "cpu", "fp32", "card32")))):
+        (card, card_r), (cpu, cpu_r), (f32, f32_r), (c32, c32_r) = stage
+        what = f"{name}, prefill of {prompt_len}" if i == 0 else f"{name}, decode step {i - 1}"
+        tpr = prompt_len if i == 0 else 1
+        if i == 1:
+            hit = {}  # decode runs against its own cache
+        for key, truth, other, eps in (("fp32 card vs CPU", f32_r, c32_r, ROUTE_EPS_FP32),
+                                       ("bf16 card vs CPU", cpu_r, card_r, ROUTE_EPS_BF16),
+                                       ("bf16 card vs fp32", f32_r, card_r, 1.0),
+                                       ("bf16 CPU vs fp32", f32_r, cpu_r, 1.0)):
+            out = route_changes(truth, other, tokens_per_row=tpr, eps=eps, hit=hit.get(key))
+            hit[key] = ~out["held"]
+            n = flips.setdefault(key, [0, 0])
+            n[0], n[1] = n[0] + out["flips"], n[1] + out["tokens"]
+            require(out["wide"] == 0, f"phase 15c: {what}: {key}: {out['wide']} routes flipped "
+                                      f"beyond the gap limit {eps}")
+        held32, held16 = ~hit["fp32 card vs CPU"], ~hit["bf16 card vs CPU"]
+        got32, want32 = c32.float().cpu()[held32], f32.float().cpu()[held32]
+        err = float((got32 - want32).abs().max()) if held32.any() else 0.0
+        close = bool(torch.allclose(got32, want32, rtol=1e-4, atol=1e-5))
+        print(f"  {what:44s} fp32 card vs CPU on {int(held32.sum())}/{held32.numel()} rows: "
+              f"max |diff| {err:.3e} (rtol 1e-4, atol 1e-5: {close})")
+        require(close, f"phase 15c: {what}: the fp32 runs disagree")
+        if held16.any():
+            readings.append(hold_logits(
+                torch, f"{what} ({int(held16.sum())}/{held16.numel()} rows)", card[held16.to(
+                    card.device)], cpu[held16], f32[held16], phase="15c"))
+        else:
+            print(f"  {what:44s} bf16: every row reached by a route flip, no reading")
+    return readings
+
+
+def phase15(torch, np, dev, seed, draws: int = MOE_DRAWS) -> dict:
+    """The MoE language models on the card: 15a / 15b the serving CLI at
+    full width with the depth cut (the main path, launches counted; its
+    routing held to B1's twin), decode across the ring's wrap and the
+    prefills; 15c the reduced configs' routes and logits on the card
+    against the CPU; 15d one training step per family against the CPU and
+    the training CLI at ``--reduced`` (launches counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve, train
+    from repro_torch.models import init_params, reduced_config
+    from repro_torch.models.routes import RouteLog
+
+    card = card_line(dev)
+    rng = np.random.default_rng(seed)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def count(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for tag, arch in zip(("15a", "15b"), MOE_ARCHS):
+        t0 = time.perf_counter()
+        print(f"phase {tag} ({card}): python -m repro_torch.launch.serve --arch {arch} "
+              f"{' '.join(MOE_CLI)} --seed {seed}")
+        reset_launches()
+        with RouteLog() as log:
+            rep = serve.run(["--arch", arch] + MOE_CLI + ["--seed", str(seed)])
+        got = dict(LAUNCHES)
+        count(got)
+        cfg, params, out = rep["cfg"], rep["params"], rep["decoded"]
+        n_dense, n_moe = moe_layers(cfg)
+        require(out.tokens.shape == (rep["ids"].size, 8) and out.tokens.min() >= 0
+                and out.tokens.max() < cfg.vocab, f"phase {tag}: decoded tokens out of range")
+        require(got.get("place_fused", 0) > 0, f"phase {tag}: routing did not launch place_fused")
+        n_req = rep["owners"].size
+        hold_routing(torch, f"the CLI's owners of {n_req} requests", rep["engine"],
+                     torch.from_numpy(np.arange(n_req, dtype=np.uint32)).to(dev),
+                     torch.from_numpy(np.asarray(rep["owners"], dtype=np.int32)))
+        drops = ", ".join(f"{x:.4f}" for x in dropped_per_layer(log, n_moe))
+        print(f"  {cfg.name} at full width, {cfg.n_layers} layers ({n_dense} dense + {n_moe} "
+              f"MoE; cut from {get_config(arch).n_layers}), {cfg.param_count() / 1e9:.2f} B "
+              f"parameters; main path launches {got}; decode step median {rep['step_ms']:.4f} "
+              f"ms ({rep['tok_s']:.1f} tok/s at batch 8; CUDA events, {card}); dropped at "
+              f"capacity per MoE layer {drops}")
+        del rep, out, log
+        moe_serving(torch, np, dev, arch, cfg, params, seed, card, f"phase {tag}")
+        del params
+        torch.cuda.empty_cache()
+        print(f"  phase {tag} {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b, p, n_dec = MOE_CARD_CPU
+    print(f"phase 15c ({card}): the reduced configs on the card against the CPU, weight "
+          f"seeds 0 .. {draws}, prefill {b} x {p} and {n_dec} decode steps; route gaps "
+          f"{ROUTE_EPS_FP32} (fp32) and {ROUTE_EPS_BF16} (bf16) of the largest |logit|")
+    readings = []
+    for arch in MOE_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        flips: dict = {}
+        for draw in range(draws + 1):
+            params = init_params(cfg, torch.Generator().manual_seed(draw), device="cpu")
+            prompt = rng.integers(0, cfg.vocab, (b, p), dtype=np.int32)
+            runs = moe_runs(torch, cfg, params, prompt, n_dec, dev)
+            readings += hold_moe_runs(torch, f"{cfg.name} seed {draw}", runs, p, flips)
+        print(f"  {cfg.name}: route flips over the tokens compared: " + "; ".join(
+            f"{k} {f}/{n} ({f / max(n, 1):.4f})" for k, (f, n) in flips.items()))
+    compared = len(MOE_ARCHS) * (draws + 1) * (n_dec + 1)
+    require(2 * len(readings) >= compared,
+            f"phase 15c: route flips left {len(readings)} of {compared} comparisons a row")
+    print(f"  largest reading {max(readings):.4f} of {len(readings)} (limit {LM_NOISE_FACTOR}); "
+          f"15c {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b, s = MOE_TRAIN
+    print(f"phase 15d ({card}): one train step per family at the reduced size, batch {b} x "
+          f"{s}, against an fp32 run on the CPU, the CPU's bf16 run the control (limit "
+          f"{MOE_TRAIN_FACTOR}), and the card's new parameters against AdamW in float64")
+    worst = 0.0
+    for arch in MOE_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+        for draw in range(draws + 1):
+            tree = init_params(cfg, torch.Generator().manual_seed(draw), device="cpu")
+            runs, upd = train_readings(torch, np, cfg, tree, tokens, dev)
+            require(upd <= 1.0, f"phase 15d: {cfg.name}: the parameter update is not AdamW's")
+            parts = []
+            for what, (got_, control, truth) in runs.items():
+                err, ctl = reading(got_, control, truth)
+                worst = max(worst, err / ctl)
+                parts.append(f"{what} {err / ctl:.4f}")
+                require(err <= MOE_TRAIN_FACTOR * ctl,
+                        f"phase 15d: {cfg.name} {what}: further from fp32 than the control allows")
+            print(f"  {cfg.name} seed {draw}: " + ", ".join(parts) + f"; update {upd:.4f} of "
+                  f"its limit")
+    print(f"  largest reading {worst:.4f} (limit {MOE_TRAIN_FACTOR})")
+    print(f"phase 15d ({card}): python -m repro_torch.launch.train {' '.join(MOE_TRAIN_CLI)} "
+          f"--seed {seed}")
+    reset_launches()
+    rep = train.run(MOE_TRAIN_CLI + ["--seed", str(seed)])
+    got = dict(LAUNCHES)
+    count(got)
+    require(rep["rc"] == 0, "phase 15d: the training CLI's loss did not improve")
+    for name in ("place_fused", "place_replicas"):
+        require(got.get(name, 0) > 0, f"phase 15d: the training path did not launch {name}")
+    print(f"  main path launches {got}; loss {rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}; "
+          f"step {rep['step_ms']:.4f} ms median ({rep['tok_s']:.1f} tokens/s); peak memory "
+          f"{(rep['peak_bytes'] or 0) / 2**30:.4f} GiB; 15d {time.perf_counter() - t0:.1f} s")
+    del rep
+    torch.cuda.empty_cache()
+    print(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -7,8 +7,9 @@ CUDA kernels + plain-torch twins), ``obs`` (metrics slab, trace ledger),
 ``serve`` (traffic, serving driver, router), the consumers of placement
 -- ``runtime`` (elastic coordinator, failure detection, stragglers,
 durability simulator), ``data`` (sharded pipeline) and ``checkpoint``
-(replicated checkpoint store) -- the dense language-model serving path
-(``configs``, ``models``, ``train``; its CLI is ``launch.serve``), and
+(replicated checkpoint store) -- the language models (``configs``,
+``models``, ``train``: dense, MoE and MLA; served by ``launch.serve``,
+trained by ``launch.train``), and
 ``convert`` (carrying the reference's cluster, tables, stores and model
 trees across).  Imports torch and numpy only;
 entry points run on the CUDA card unless given ``device="cpu"``.

@@ -10,8 +10,13 @@ tokens per request, in batches, each batch against a fresh ring-buffer KV
 cache.  The weights are synthetic, drawn from ``--seed``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
-        [--reduced] --replicas 4 --replica-id 0 --requests 64 --batch 8 \\
-        --decode-len 8 --cache-len 64 [--device cpu] [--seed 0]
+        [--reduced] [--layers N] --replicas 4 --replica-id 0 --requests 64 \\
+        --batch 8 --decode-len 8 --cache-len 64 [--device cpu] [--seed 0]
+
+``--layers`` cuts the depth (widths stay the config's), so that a model
+larger than the card runs at full width: ``--arch mixtral-8x22b --layers
+2``; deepseek-v2-236b keeps its leading dense layer, so ``--layers 2`` is
+one dense and one MoE layer.
 
 It prints the reference's two lines (the routed share; requests x tokens
 in seconds and tok/s, counting the lanes decoded: the routed requests
@@ -102,6 +107,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=ARCHS, default="smollm-135m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the config's)")
     ap.add_argument("--replicas", type=int, default=4)
     ap.add_argument("--replica-id", type=int, default=0)
     ap.add_argument("--requests", type=int, default=64)
@@ -125,6 +132,12 @@ def run(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    if args.layers is not None:
+        first = cfg.n_dense_layers + 1 if cfg.moe is not None else 1
+        if args.layers < first:
+            raise ValueError(f"--layers {args.layers}: {cfg.name} needs at least {first} "
+                             f"(its leading dense layers and one more)")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     # ASURA request routing via the PlacementEngine: the replica-membership
     # table is canonicalized once and reused for every routing call below.

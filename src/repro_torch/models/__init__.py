@@ -1,6 +1,6 @@
 """Model zoo of the port: configs, layers and the functional model API
-(the dense language-model family, served and trained; the others come
-with ROADMAP A9c)."""
+(the language-model family -- dense, MoE and MLA -- served and trained;
+the recurrent, RWKV and encoder-decoder families come with ROADMAP A9c)."""
 
 from .api import (
     LanguageModel,

@@ -1,32 +1,38 @@
 """Shared neural building blocks of the port (plain PyTorch functions).
 
-The dense-attention half of the reference's ``repro.models.layers``,
-function for function:
+The reference's ``repro.models.layers``, function for function:
 
   * params are nested dicts of fp32 tensors (the master copy); ``apply``
     functions cast weights to the input's compute dtype (bf16) at the
     edges and keep norms and softmax in fp32, as the reference does;
-  * attention runs a full sequence (dense, or kv-chunked above
+  * attention (GQA, and DeepSeek-V2's multi-head latent attention with
+    its compressed cache) runs a full sequence (dense, or kv-chunked above
     ``BLOCKWISE_THRESHOLD``) or a short decode against a ring-buffer
     cache, which it updates IN PLACE (the reference returns a new one);
+  * the MoE layer keeps the reference's grouped capacity dispatch (groups
+    of ``MOE_GROUP`` tokens, top-k routing, an expert's slots filled in
+    (token, choice) order, the overflow dropped) in index form: tokens are
+    gathered into their (expert, slot) rows and gathered back, where the
+    reference multiplies by one-hot dispatch tensors; one term is picked
+    either way, so the two agree exactly;
   * weights are stored (d_in, d_out), as in the reference, so its trees
     carry across key for key (``repro_torch.convert``).
 
 The sentinels are the reference's: the mask bias is -1e30 (not -inf),
 empty cache slots and the blockwise key padding sit at position 2**30,
-and the online softmax starts its running max at -1e30.  The MoE and MLA
-layers are not here yet (ROADMAP A9c).
+and the online softmax starts its running max at -1e30.  Top-k routing
+breaks ties to the lower expert index, as ``jax.lax.top_k`` does.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig, MoEConfig
 
 COMPUTE_DTYPE = torch.bfloat16
 MASK = -1e30  # additive bias of a masked (query, key) pair
@@ -323,5 +329,251 @@ def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int
         "v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
         # empty slots sit in the "future" so the causal mask excludes them
         "pos": torch.full((*lead, batch, size), EMPTY_POS, dtype=torch.int32, device=device),
+        "index": torch.zeros(lead, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MoE (grouped capacity dispatch, in index form)
+# ---------------------------------------------------------------------------
+
+MOE_GROUP = 256  # tokens per dispatch group
+
+_moe_observer: Optional[Callable] = None
+
+
+def set_moe_observer(fn: Optional[Callable]) -> None:
+    """Check knob: every ``moe_apply`` call passes ``fn(logits, experts,
+    keep)`` its routing, detached, on its device: the fp32 router logits
+    (G, Sg, E), the chosen experts (G, Sg, K) in choice order and whether
+    each assignment (G, Sg * K), in (token, choice) order, was kept under
+    capacity.  None, the default, calls nothing."""
+    global _moe_observer
+    _moe_observer = fn
+
+
+def moe_init(generator, cfg: ModelConfig, moe: MoEConfig, *, lead: tuple = (), device=None):
+    """The reference's keys: router (D, E) at scale 0.01, w_gate / w_up
+    (E, D, F) and w_down (E, F, D); no w_up under ``act == "gelu"``;
+    ``shared``, one MLP of ``n_shared x d_ff_shared``, when there are
+    shared experts.  ``lead`` dims in front (the stacked layer axis)."""
+    d, e, f = cfg.d_model, moe.n_experts, moe.d_ff_expert
+
+    def w(shape, scale=0.02):
+        return _init(generator, (*lead, *shape), device, scale)
+
+    p = {"router": w((d, e), 0.01), "w_gate": w((e, d, f))}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_up"] = w((e, d, f))
+    p["w_down"] = w((e, f, d))
+    if moe.n_shared:
+        p["shared"] = mlp_init(generator, cfg, d, moe.d_ff_shared * moe.n_shared, lead=lead,
+                               device=device)
+    return p
+
+
+def _top_k(probs, k: int):
+    """The ``k`` largest entries of the last axis and their indices, ties
+    to the lower index (``jax.lax.top_k``'s order; ``torch.topk`` promises
+    none, and a flipped tie changes which assignment capacity drops)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _slots(experts, n_experts: int):
+    """experts (G, N): the expert of each assignment of a group, in
+    (token, choice) order -> (pos, counts): ``pos[g, j]`` the number of
+    earlier assignments of group g to the same expert (the reference's
+    cumsum of the one-hot, minus one), ``counts`` (G, E) the assignments
+    per expert."""
+    g, n = experts.shape
+    counts = torch.zeros((g, n_experts), dtype=torch.int64, device=experts.device).scatter_add(
+        1, experts, torch.ones_like(experts))
+    order = torch.argsort(experts, dim=1, stable=True)  # by expert, (token, choice) order kept
+    first = (torch.cumsum(counts, dim=1) - counts).gather(1, experts.gather(1, order))
+    rank = torch.arange(n, device=experts.device) - first
+    return torch.zeros_like(experts).scatter(1, order, rank), counts
+
+
+def moe_apply(cfg: ModelConfig, p, x, moe: MoEConfig):
+    """Grouped capacity dispatch -> (y, aux_loss), the reference's MoE.
+
+    The ``b * s`` tokens split into ``max(n // MOE_GROUP, 1)`` groups (a
+    count that does not divide raises ``ValueError``, where the reference's
+    reshape raises); each token's router probabilities (the compute-dtype
+    product, then fp32 softmax) pick its top_k experts, whose gates are
+    renormalised by their sum.  An expert takes ``cap = max(sg * k / E *
+    capacity_factor, 4)`` assignments per group, earlier tokens first and a
+    token's first choice before its second; the rest are dropped, and the
+    kept gates are not renormalised.  Each expert runs on its (G x cap)
+    slot rows as one batched product; a token's output is the sum of its
+    kept experts' rows, each times its gate rounded to the compute dtype,
+    summed in fp32 and rounded once.  ``aux`` is the Switch load-balancing
+    loss over the pre-capacity routing."""
+    dt = x.dtype
+    b, s, d = x.shape
+    n_tok = b * s
+    g = max(n_tok // MOE_GROUP, 1)
+    if n_tok % g:
+        raise ValueError(f"moe_apply: {n_tok} tokens do not split into {g} equal groups")
+    sg, e, k = n_tok // g, moe.n_experts, moe.top_k
+    xt = x.reshape(g, sg, d)
+    logits = (xt @ p["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = _top_k(probs, k)  # (G, Sg, K)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    cap = int(max(sg * k / e * moe.capacity_factor, 4))
+    experts = idx.reshape(g, sg * k)
+    pos, counts = _slots(experts, e)
+    keep = pos < cap
+    # the slot table's rows run (expert, group, slot); a dropped assignment
+    # points one past its end, at a row of zeros
+    n_slots = e * g * cap
+    grp = torch.arange(g, device=x.device)[:, None]
+    row = torch.where(keep, (experts * g + grp) * cap + pos, n_slots)
+    tok = grp * sg + torch.arange(sg * k, device=x.device) // k
+    src = torch.full((n_slots + 1,), n_tok, dtype=torch.int64, device=x.device).index_copy(
+        0, row.reshape(-1), tok.reshape(-1))[:n_slots]  # an empty slot reads the zero row
+    xe = F.pad(x.reshape(n_tok, d), (0, 0, 0, 1))[src].view(e, g * cap, d)
+    act = F.silu if cfg.act == "swiglu" else _gelu
+    hid = act(torch.bmm(xe, p["w_gate"].to(dt)))
+    if "w_up" in p:
+        hid = hid * torch.bmm(xe, p["w_up"].to(dt))
+    ye = F.pad(torch.bmm(hid, p["w_down"].to(dt)).view(n_slots, d), (0, 0, 0, 1))
+    w = gate.to(dt).float().view(n_tok, k)  # the reference rounds the gate before the product
+    rows = row.view(n_tok, k)
+    y = w[:, :1] * ye[rows[:, 0]].float()
+    for j in range(1, k):
+        y = y + w[:, j:j + 1] * ye[rows[:, j]].float()
+    y = y.to(dt).view(g, sg, d)
+    density = counts.float() / (sg * k)  # the one-hot's mean over tokens and choices
+    aux = (density * probs.mean(dim=1)).sum(-1).mean() * (e**2 / k)
+    if moe.n_shared:
+        y = y + mlp_apply(cfg, p["shared"], xt)
+    if _moe_observer is not None:
+        _moe_observer(logits.detach(), idx, keep)
+    return y.reshape(b, s, d), aux.float()
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention) with a compressed KV cache
+# ---------------------------------------------------------------------------
+
+SCORE_BYTES = 1 << 30  # fp32 scores ``_sdpa_mixed`` holds at once (one head group's)
+
+
+def mla_init(generator, cfg: ModelConfig, mla: MLAConfig, *, lead: tuple = (), device=None):
+    d, h = cfg.d_model, cfg.n_heads
+    qk = mla.qk_nope_dim + mla.qk_rope_dim
+
+    def w(shape):
+        return _init(generator, (*lead, *shape), device)
+
+    return {
+        "w_dq": w((d, mla.q_lora_rank)),
+        "q_norm": torch.ones((*lead, mla.q_lora_rank), device=device),
+        "w_uq": w((mla.q_lora_rank, h * qk)),
+        "w_dkv": w((d, mla.kv_lora_rank)),
+        "kv_norm": torch.ones((*lead, mla.kv_lora_rank), device=device),
+        "w_kr": w((d, mla.qk_rope_dim)),
+        "w_uk": w((mla.kv_lora_rank, h * mla.qk_nope_dim)),
+        "w_uv": w((mla.kv_lora_rank, h * mla.v_head_dim)),
+        "w_o": w((h * mla.v_head_dim, d)),
+    }
+
+
+def mla_apply(cfg: ModelConfig, p, x, *, positions, cache: Optional[dict] = None):
+    """Multi-head latent attention -> (out, cache), the reference's
+    non-absorbed form: queries through the q low-rank path, keys and
+    values re-expanded from the normed latent ``ckv`` every call, RoPE on
+    the ``qk_rope`` split of the queries and on one key head shared by all
+    heads, keys ``concat(k_nope, krope)`` at head dim ``qk_nope +
+    qk_rope``.  Above ``BLOCKWISE_THRESHOLD`` without a cache the kv-chunked
+    path runs on values padded to the key dim (``v_pad``), sliced back.
+
+    ``cache`` (decode): one layer's compressed ring {"ckv", "krope", "pos",
+    "index"}, written IN PLACE as ``attention_apply``'s (the caller's
+    cache is consumed); without one the second result is None."""
+    mla = cfg.mla
+    dt = x.dtype
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cq = rmsnorm(x @ p["w_dq"].to(dt), p["q_norm"])
+    q = (cq @ p["w_uq"].to(dt)).reshape(b, s, h, -1)
+    q_nope, q_rope = q.split([mla.qk_nope_dim, mla.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = rmsnorm(x @ p["w_dkv"].to(dt), p["kv_norm"])  # (b, s, kv_lora)
+    krope = apply_rope((x @ p["w_kr"].to(dt)).reshape(b, s, 1, mla.qk_rope_dim), positions,
+                       cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        idx = cache["index"]
+        size = cache["ckv"].shape[1]
+        slot = (idx.long() + torch.arange(s, device=x.device)) % size
+        cache["ckv"].index_copy_(1, slot, ckv.to(cache["ckv"].dtype))
+        cache["krope"].index_copy_(1, slot, krope[:, :, 0].to(cache["krope"].dtype))
+        cache["pos"].index_copy_(1, slot, positions.to(torch.int32))
+        idx.add_(s)
+        new_cache = cache
+        ckv_all, krope_all, k_pos = cache["ckv"].to(dt), cache["krope"].to(dt), cache["pos"]
+    else:
+        ckv_all, krope_all, k_pos = ckv, krope[:, :, 0], positions
+    k_nope = (ckv_all @ p["w_uk"].to(dt)).reshape(b, -1, h, mla.qk_nope_dim)
+    v = (ckv_all @ p["w_uv"].to(dt)).reshape(b, -1, h, mla.v_head_dim)
+    k = torch.cat([k_nope, krope_all[:, :, None].expand(*k_nope.shape[:3], mla.qk_rope_dim)],
+                  dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if s > BLOCKWISE_THRESHOLD and cache is None:
+        out = _sdpa_blockwise(q_full, k, v_pad(v, k), positions, k_pos, causal=True, window=0)
+        out = out[..., :mla.v_head_dim]
+    else:
+        out = _sdpa_mixed(q_full, k, v, _mask_bias(positions, k_pos, causal=True, window=0))
+    return out.reshape(b, s, -1) @ p["w_o"].to(dt), new_cache
+
+
+def v_pad(v, k):
+    """Pad v's head dim up to k's so the blockwise path (equal q / k / v
+    dims) can be reused; the caller slices back."""
+    pad = k.shape[-1] - v.shape[-1]
+    if pad <= 0:
+        return v
+    return F.pad(v, (0, pad))
+
+
+def _sdpa_mixed(q, k, v, bias):
+    """MHA attention where v's head dim differs from q and k's: q (B, Sq,
+    H, Dqk), k (B, Sk, H, Dqk), v (B, Sk, H, Dv), bias (B, Sq, Sk) -> (B,
+    Sq, H, Dv).  Heads go in groups whose fp32 scores stay under
+    ``SCORE_BYTES`` (deepseek-v2's 128 heads at 1 x 4,096 positions would
+    hold 8 GiB at once); each head's arithmetic is the reference's: the
+    product rounded to q's dtype, then fp32 scale, bias and softmax, the
+    probabilities back in q's dtype for the value product."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    group = max(1, min(h, SCORE_BYTES // (4 * b * sq * sk)))
+    outs = []
+    for h0 in range(0, h, group):
+        hs = slice(h0, h0 + group)
+        scores = torch.matmul(q[:, :, hs].transpose(1, 2), k[:, :, hs].permute(0, 2, 3, 1)).float()
+        scores = _scaled(scores, scale, bias[:, None])
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(torch.matmul(probs, v[:, :, hs].transpose(1, 2)))
+    return torch.cat(outs, dim=1).transpose(1, 2)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, lead: tuple = (),
+                   device=None):
+    """The compressed ring cache, ``lead`` dims in front: the normed latent
+    ``ckv`` and the shared RoPE key ``krope`` per position (kv_lora +
+    qk_rope values, not 2 x H x head_dim), 2**30 where empty."""
+    mla = cfg.mla
+    return {
+        "ckv": torch.zeros((*lead, batch, max_len, mla.kv_lora_rank), dtype=COMPUTE_DTYPE,
+                           device=device),
+        "krope": torch.zeros((*lead, batch, max_len, mla.qk_rope_dim), dtype=COMPUTE_DTYPE,
+                             device=device),
+        # empty slots sit in the "future" so the causal mask excludes them
+        "pos": torch.full((*lead, batch, max_len), EMPTY_POS, dtype=torch.int32, device=device),
         "index": torch.zeros(lead, dtype=torch.int32, device=device),
     }

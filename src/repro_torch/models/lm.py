@@ -1,5 +1,5 @@
 """Model assembly of the port: init, forward, prefill and decode for the
-dense language-model family (the reference's ``repro.models.lm``).
+language-model family (the reference's ``repro.models.lm``).
 
     params       = init_params(cfg, generator)            # fp32 master copy
     hidden, aux  = forward(cfg, params, batch)
@@ -9,20 +9,25 @@ dense language-model family (the reference's ``repro.models.lm``).
     logits, c    = decode_step(cfg, params, cache, batch) # cache consumed
 
 Parameters and caches are nested dicts with the reference's keys and its
-stacked leading layer axis; a Python loop over views of the stacked
-tensors takes the place of the reference's ``lax.scan`` over layers.
-``forward`` takes the layer views from one ``torch.unbind`` per stacked
-leaf, so under autograd each leaf's gradient is assembled once, and while
-autograd records each layer runs under the remat policy
-(``set_remat_policy``: ``torch.utils.checkpoint`` per layer).  Cross-entropy runs in chunks of
-``CE_CHUNK`` positions, so the (B, S, V) logits are never built.
-``LanguageModel`` is a thin ``nn.Module`` over the same tree.
+stacked leading layer axis: ``"dense_blocks"`` holds the layers with a
+dense MLP (all of them without MoE, else the first ``n_dense_layers``),
+``"blocks"`` the MoE layers after them; each layer attends with GQA or,
+where the config has MLA, with multi-head latent attention and its
+compressed cache.  A Python loop over views of the stacked tensors takes
+the place of the reference's ``lax.scan`` over layers.  ``forward`` takes
+the layer views from one ``torch.unbind`` per stacked leaf, so under
+autograd each leaf's gradient is assembled once, and while autograd
+records each layer runs under the remat policy (``set_remat_policy``:
+``torch.utils.checkpoint`` per layer).  It returns the MoE layers' summed
+load-balancing loss beside the hidden states.  Cross-entropy runs in
+chunks of ``CE_CHUNK`` positions, so the (B, S, V) logits are never
+built.  ``LanguageModel`` is a thin ``nn.Module`` over the same tree.
 
-This slice runs ``family == "lm"`` without MoE and without MLA; any other
-family or feature raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.  Every function runs on the device its tensors are on;
-``init_params`` and ``init_cache`` put them on the CUDA card unless given
-a device.
+This slice runs ``family == "lm"`` (dense, MoE, MLA); the recurrent,
+RWKV and encoder-decoder families raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.  Every function runs on the device its
+tensors are on; ``init_params`` and ``init_cache`` put them on the CUDA
+card unless given a device.
 """
 
 from __future__ import annotations
@@ -42,8 +47,13 @@ from .layers import (
     attention_apply,
     attention_cache_init,
     attention_init,
+    mla_apply,
+    mla_cache_init,
+    mla_init,
     mlp_apply,
     mlp_init,
+    moe_apply,
+    moe_init,
     norm_apply,
     norm_init,
 )
@@ -91,15 +101,21 @@ def _remat(fn):
 
 
 def require_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family or feature this slice
-    does not run (ROADMAP A9c brings them)."""
+    """Raise ``NotImplementedError`` for a family this slice does not run:
+    rglru, rwkv6 and encdec (ROADMAP A9c brings them)."""
     if cfg.family != "lm":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A9c)"
         )
-    for feature, what in (("moe", "MoE layers"), ("mla", "multi-head latent attention")):
-        if getattr(cfg, feature) is not None:
-            raise NotImplementedError(f"{cfg.name}: {what} are not ported yet (ROADMAP A9c)")
+
+
+def _stacks(cfg: ModelConfig) -> list:
+    """[(stack key, layers, MoE?)] in the order the layers run: the dense
+    stack, then the MoE stack; an empty stack is left out."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+    n_dense = cfg.n_layers - n_moe
+    return [(key, n, moe) for key, n, moe in (("dense_blocks", n_dense, False),
+                                               ("blocks", n_moe, True)) if n]
 
 
 # ---------------------------------------------------------------------------
@@ -138,14 +154,24 @@ def _records(*trees) -> bool:
 
 
 def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
+    """One layer -> (x, aux, cache): aux is the MoE layer's load-balancing
+    loss, None for a dense MLP (the reference's zero)."""
     window = cfg.window if cfg.attn_kind == "swa" else 0
     h = norm_apply(cfg, p["norm1"], x)
-    attn_out, new_cache = attention_apply(
-        cfg, p["attn"], h, positions=positions, causal=True, window=window, cache=cache
-    )
+    if cfg.mla is not None:
+        attn_out, new_cache = mla_apply(cfg, p["mla"], h, positions=positions, cache=cache)
+    else:
+        attn_out, new_cache = attention_apply(
+            cfg, p["attn"], h, positions=positions, causal=True, window=window, cache=cache
+        )
     x = x + attn_out
     h = norm_apply(cfg, p["norm2"], x)
-    return x + mlp_apply(cfg, p["mlp"], h), new_cache
+    aux = None
+    if "moe" in p:
+        mlp_out, aux = moe_apply(cfg, p["moe"], h, cfg.moe)
+    else:
+        mlp_out = mlp_apply(cfg, p["mlp"], h)
+    return x + mlp_out, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -155,19 +181,27 @@ def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
 
 def _param_tree(cfg: ModelConfig, generator, device) -> dict:
     d = cfg.d_model
-    lead = (cfg.n_layers,)
     params: dict = {
         "embed": _init(generator, (cfg.vocab, d), device),
         "final_norm": norm_init(cfg, d, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _init(generator, (d, cfg.vocab), device)
-    params["dense_blocks"] = {
-        "norm1": norm_init(cfg, d, lead=lead, device=device),
-        "norm2": norm_init(cfg, d, lead=lead, device=device),
-        "attn": attention_init(generator, cfg, lead=lead, device=device),
-        "mlp": mlp_init(generator, cfg, d, cfg.d_ff, lead=lead, device=device),
-    }
+    for key, n, use_moe in _stacks(cfg):
+        lead = (n,)
+        block = {
+            "norm1": norm_init(cfg, d, lead=lead, device=device),
+            "norm2": norm_init(cfg, d, lead=lead, device=device),
+        }
+        if cfg.mla is not None:
+            block["mla"] = mla_init(generator, cfg, cfg.mla, lead=lead, device=device)
+        else:
+            block["attn"] = attention_init(generator, cfg, lead=lead, device=device)
+        if use_moe:
+            block["moe"] = moe_init(generator, cfg, cfg.moe, lead=lead, device=device)
+        else:
+            block["mlp"] = mlp_init(generator, cfg, d, cfg.d_ff, lead=lead, device=device)
+        params[key] = block
     return params
 
 
@@ -243,7 +277,8 @@ def _logits(cfg: ModelConfig, params, x):
 
 def forward(cfg: ModelConfig, params, batch: dict):
     """Full-sequence forward -> final hidden states (B, S, D) and the aux
-    loss (zero without MoE).
+    loss: the MoE layers' load-balancing losses summed per stack, then over
+    the stacks, in fp32 (zero without MoE).
 
     batch: {"tokens": (B, S) int} plus, for a VLM, {"patches": (B,
     vision_prefix, D)} (the stub vision tower's output), prepended to the
@@ -258,19 +293,24 @@ def forward(cfg: ModelConfig, params, batch: dict):
         n_prefix = prefix.shape[1]
         x = torch.cat([prefix, x], dim=1)
     positions = torch.arange(s + n_prefix, dtype=torch.int32, device=x.device).expand(b, -1)
-    blocks = params["dense_blocks"]
 
     def block(p, h):
-        return _lm_block_apply(cfg, p, h, positions)[0]
+        return _lm_block_apply(cfg, p, h, positions)[:2]
 
-    if _records(x, blocks):
-        block = _remat(block)
-    for layer in _unbind_layers(blocks, cfg.n_layers):
-        x = constrain(block(layer, x))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for key, n, _ in _stacks(cfg):
+        run = _remat(block) if _records(x, params[key]) else block
+        stack_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in _unbind_layers(params[key], n):
+            x, layer_aux = run(layer, x)
+            x = constrain(x)
+            if layer_aux is not None:
+                stack_aux = stack_aux + layer_aux
+        aux = aux + stack_aux
     x = norm_apply(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _ce_chunk(h, head, t, m):
@@ -318,16 +358,22 @@ def prefill(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """The stacked ring-buffer KV cache {"dense_blocks": {"k", "v": (L, B,
-    size, Hkv, D) bf16, "pos": (L, B, size) int32 (2**30 where empty),
-    "index": (L,) int32}} on ``device`` (None: the CUDA card)."""
+    """The stacked ring-buffer caches, one per stack of layers ("dense_blocks",
+    "blocks"), on ``device`` (None: the CUDA card): {"k", "v": (L, B, size,
+    Hkv, D) bf16, "pos": (L, B, size) int32 (2**30 where empty), "index":
+    (L,) int32}, size clamped to the window under SWA; with MLA the
+    compressed {"ckv": (L, B, max_len, kv_lora), "krope": (L, B, max_len,
+    qk_rope), "pos", "index"}."""
     require_supported(cfg)
+    dev = resolve_device(device)
     window = cfg.window if cfg.attn_kind == "swa" else 0
-    return {
-        "dense_blocks": attention_cache_init(
-            cfg, batch, max_len, window, lead=(cfg.n_layers,), device=resolve_device(device)
-        )
-    }
+    cache = {}
+    for key, n, _ in _stacks(cfg):
+        if cfg.mla is not None:
+            cache[key] = mla_cache_init(cfg, batch, max_len, lead=(n,), device=dev)
+        else:
+            cache[key] = attention_cache_init(cfg, batch, max_len, window, lead=(n,), device=dev)
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
@@ -340,9 +386,11 @@ def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
     require_supported(cfg)
     tokens, positions = batch["tokens"], batch["positions"]
     x = constrain(_embed(params, tokens))
-    blocks, caches = params["dense_blocks"], cache["dense_blocks"]
-    for i in range(cfg.n_layers):
-        x, _ = _lm_block_apply(cfg, _layer(blocks, i), x, positions, cache=_layer(caches, i))
-        x = constrain(x)
+    for key, n, _ in _stacks(cfg):
+        blocks, caches = params[key], cache[key]
+        for i in range(n):
+            x, _, _ = _lm_block_apply(cfg, _layer(blocks, i), x, positions,
+                                      cache=_layer(caches, i))
+            x = constrain(x)
     x = norm_apply(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), cache

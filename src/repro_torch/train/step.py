@@ -16,12 +16,12 @@ in place).  ``make_prefill_step(cfg)`` -> step(params, batch) -> the
 last-position logits.
 
 Each step keeps one bf16 working copy of the matmul weights (embedding,
-head, attention and MLP matrices), made the first time it sees a
-parameter tree and reused while the same tree object comes back; a tree
-changed in place needs a new step.  The reference casts every weight to
-bf16 inside each call (``p["w_q"].astype(dt)``); the cast is
-deterministic, so the copy holds the same bits and the layers' own casts
-become no-ops.  Norm scales and biases stay fp32, since the norms
+head, attention, MLP, router and expert matrices), made the first time
+it sees a parameter tree and reused while the same tree object comes
+back; a tree changed in place needs a new step.  The reference casts
+every weight to bf16 inside each call (``p["w_q"].astype(dt)``); the
+cast is deterministic, so the copy holds the same bits and the layers'
+own casts become no-ops.  Norm scales and biases stay fp32, since the norms
 multiply by them in fp32.
 """
 
@@ -37,7 +37,7 @@ from .optimizer import AdamWConfig, adamw_init, adamw_update, tree_flatten
 
 
 def _is_matmul_weight(name: str) -> bool:
-    return name in ("embed", "lm_head") or name.startswith("w_")
+    return name in ("embed", "lm_head", "router") or name.startswith("w_")
 
 
 def bf16_working_copy(params: dict) -> dict:

@@ -965,12 +965,12 @@ def test_lm_full_width_smollm_decode_on_card_matches_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _lm_hold_values(card, cpu, truth):
+def _lm_hold_values(card, cpu, truth, factor=LM_NOISE_FACTOR):
     def dist(xs, ys):
         return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(xs, ys))
 
     floor = 2.0**-8 * max(float(t.float().abs().max()) for t in truth)
-    assert dist(card, truth) <= LM_NOISE_FACTOR * max(dist(cpu, truth), floor)
+    assert dist(card, truth) <= factor * max(dist(cpu, truth), floor)
 
 
 def _lm_train_runs(cfg, cpu_p, card_p, batch, device):
@@ -1084,3 +1084,101 @@ def test_lm_train_cli_on_card(cuda_device):
         rep["manager"].store.fail_node(nid)
     restored = rep["manager"].restore(step, saved)
     assert all(torch.equal(a, b) for a, b in zip(_flatten(restored)[0], _flatten(saved)[0]))
+
+
+# ---------------------------------------------------------------------------
+# The MoE language models on the card (reduced configs of mixtral-8x22b and
+# deepseek-v2-236b).  Routing is discontinuous, so logits are held on the
+# rows no route flip reached (``routes.route_changes``): the fp32-compute
+# runs route alike except where the CPU's top-k gap is within 2**-14 of the
+# largest |logit| and agree at rtol 1e-4 / atol 1e-5; the card's bf16 routes
+# are the CPU bf16 run's except within 2**-5 (8 bf16 steps), and its logits
+# are held to fp32 as above.  One train step is held as the dense one is, at
+# 4.0 x the control (chip_smoke.py MOE_TRAIN_FACTOR).
+# ---------------------------------------------------------------------------
+
+LM_MOE = ("mixtral-8x22b", "deepseek-v2-236b")
+ROUTE_EPS_FP32, ROUTE_EPS_BF16, MOE_TRAIN_FACTOR = 2.0**-14, 2.0**-5, 4.0
+
+
+def _lm_routed_runs(cfg, cpu_p, card_p, tokens, device):
+    """A prefill of ``tokens`` (B, T) and T decode steps fed them, on the
+    card and the CPU in bf16 and in fp32 -> {run: [(logits, route calls)]}."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.routes import RouteLog
+
+    b, steps = tokens.shape
+    out = {}
+    for name, params, dev, fp32 in (("cuda", card_p, device, False), ("cpu", cpu_p, "cpu", False),
+                                    ("cuda32", card_p, device, True), ("fp32", cpu_p, "cpu", True)):
+        with _fp32_compute() if fp32 else contextlib.nullcontext():
+            with RouteLog() as log:
+                stages = [(prefill(cfg, params, {"tokens": tokens.to(dev)}), log.calls)]
+            cache = init_cache(cfg, b, steps, device=dev)
+            for t in range(steps):
+                batch = {"tokens": tokens[:, t:t + 1].to(dev),
+                         "positions": torch.full((b, 1), t, dtype=torch.int32, device=dev)}
+                with RouteLog() as log:
+                    logits, cache = decode_step(cfg, params, cache, batch)
+                stages.append((logits, log.calls))
+        out[name] = stages
+    return out
+
+
+@pytest.mark.parametrize("arch", LM_MOE)
+def test_lm_moe_prefill_and_decode_on_card_match_cpu(cuda_device, arch):
+    from repro_torch.models.routes import route_changes
+
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    tokens = _lm_tokens(cfg, (8, 64), seed=7)  # 512 tokens: two dispatch groups
+    runs = _lm_routed_runs(cfg, cpu_p, card_p, tokens, cuda_device)
+    held_rows = 0
+    hit32 = hit16 = None
+    for i, ((card, card_r), (cpu, cpu_r), (c32, c32_r), (f32, f32_r)) in enumerate(
+            zip(runs["cuda"], runs["cpu"], runs["cuda32"], runs["fp32"])):
+        tpr = tokens.shape[1] if i == 0 else 1
+        if i == 1:
+            hit32 = hit16 = None  # decode runs against its own cache
+        a = route_changes(f32_r, c32_r, tokens_per_row=tpr, eps=ROUTE_EPS_FP32, hit=hit32)
+        b = route_changes(cpu_r, card_r, tokens_per_row=tpr, eps=ROUTE_EPS_BF16, hit=hit16)
+        assert a["wide"] == b["wide"] == 0
+        hit32, hit16 = ~a["held"], ~b["held"]
+        torch.testing.assert_close(c32.cpu()[a["held"]], f32[a["held"]], rtol=1e-4, atol=1e-5)
+        if b["held"].any():
+            _lm_hold(card.cpu()[b["held"]], cpu[b["held"]], f32[b["held"]])
+            held_rows += int(b["held"].sum())
+    assert held_rows * 2 >= 8 * (tokens.shape[1] + 1)
+
+
+@pytest.mark.parametrize("arch", LM_MOE)
+def test_lm_moe_decode_step_makes_no_host_sync(cuda_device, arch):
+    """Routing, capacity and the ring write all stay on the card."""
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_serve_step
+
+    cfg, _, card_p = _lm_setup(arch)
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 8, 4, device=cuda_device)
+    batch = {"tokens": _lm_tokens(cfg, (8, 1)).to(cuda_device),
+             "positions": torch.zeros((8, 1), dtype=torch.int32, device=cuda_device)}
+    step(card_p, cache, batch)
+    batch["positions"] = torch.ones((8, 1), dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = step(card_p, cache, batch)
+        tokens = torch.argmax(logits, dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tokens.shape == (8,)
+    assert cache["blocks"]["index"].tolist() == [2] * cache["blocks"]["index"].numel()
+
+
+@pytest.mark.parametrize("arch", LM_MOE)
+def test_lm_moe_train_step_on_card_matches_cpu(cuda_device, arch):
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    out = _lm_train_runs(cfg, cpu_p, card_p, {"tokens": _lm_tokens(cfg, (2, 128), seed=8)},
+                         cuda_device)
+    for key in ("loss", "grad_norm", "m", "v"):
+        _lm_hold_values(out["cuda"][key], out["cpu"][key], out["fp32"][key],
+                        factor=MOE_TRAIN_FACTOR)

@@ -40,6 +40,17 @@ MARGIN = 4e-2
 DECODED = ("smollm-135m", "granite-3-2b", "deepseek-7b", "command-r-35b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: the
+    reduced models run thousands of small ops, and under a parallel test
+    run the default threads of every worker fight over the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _setup(arch, seed=0):
     """(reference cfg, reference params, port cfg, port params) at the
     reduced size, the port holding the reference's weights."""

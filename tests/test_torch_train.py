@@ -64,7 +64,6 @@ from repro_torch.models import (
     SHAPES,
     ShapeSpec,
     input_specs,
-    loss_fn,
     make_inputs,
     prefill,
     reduced_config,
@@ -79,16 +78,34 @@ from repro_torch.train import (
 )
 from repro_torch.train.optimizer import tree_flatten
 from repro_torch.train.step import _split_micro
+from torch_lm_parity import (
+    PARITY_OPT,
+    RTOL,
+    _close,
+    _hold_leaves,
+    _hold_state,
+    _hold_update,
+    _port_value_and_grad,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("smollm-135m", "granite-3-2b", "deepseek-7b", "command-r-35b", "internvl2-26b")
-RTOL = 1e-4
-PARITY_OPT = dict(lr=1e-2, warmup_steps=1, weight_decay=0.1)
 SMOKE_TRAIN = ShapeSpec("smoke_train", seq_len=32, global_batch=2, kind="train")
 SMOKE_DECODE = ShapeSpec("smoke_decode", seq_len=24, global_batch=2, kind="decode")
 
 _SETUPS: dict = {}
 _JITS: dict = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch intra-op thread for this module, restored after it: the
+    reduced models run thousands of small ops, and under a parallel test
+    run the default threads of every worker fight over the same cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _setup(arch):
@@ -160,69 +177,6 @@ def _batch(cfg, tokens, seed=1):
             (tokens.shape[0], cfg.vision_prefix, cfg.d_model)).astype(np.float32)
         jb["patches"], tb["patches"] = jnp.asarray(patches), torch.from_numpy(patches)
     return jb, tb
-
-
-def _port_value_and_grad(cfg, params, batch):
-    leaves, rebuild = tree_flatten(params)
-    xs = [p.detach().requires_grad_() for p in leaves]
-    val, aux = loss_fn(cfg, rebuild(xs), batch)
-    grads = list(torch.autograd.grad(val, xs))
-    return val.detach(), {k: v.detach() for k, v in aux.items()}, grads
-
-
-def _hold_leaves(got, want):
-    """Each port leaf against the reference's, in ``jax.tree.leaves``
-    order, at atol 1e-5 x max |reference leaf|."""
-    got = got if isinstance(got, list) else tree_flatten(got)[0]
-    want = jax.tree.leaves(want)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        w = np.asarray(w, np.float32)
-        assert tuple(g.shape) == w.shape
-        np.testing.assert_allclose(g.detach().float().numpy(), w, rtol=RTOL,
-                                   atol=1e-5 * float(np.abs(w).max()))
-
-
-def _hold_update(before, after, jbefore, jafter, jprev, jstate):
-    """The port's update ``after - before`` against the reference's
-    ``jafter - jbefore``, one step from the same parameters and AdamW state
-    ``jprev`` (the reference's state after it: ``jstate``), leaf by leaf,
-    at the module docstring's tolerance."""
-    o = jopt.AdamWConfig(**PARITY_OPT)
-    k = int(jstate["count"])
-    bc1, bc2 = 1 - o.b1**k, 1 - o.b2**k
-    lr = o.lr * min(1.0, k / max(o.warmup_steps, 1))
-
-    def leaves(tree):
-        return [np.asarray(x, np.float64) for x in jax.tree.leaves(tree)]
-
-    got = [(a.double() - b.double()).numpy() for a, b in zip(tree_flatten(after)[0],
-                                                             tree_flatten(before)[0])]
-    want = [a - b for a, b in zip(leaves(jafter), leaves(jbefore))]
-    m0, m, v = leaves(jprev["m"]), leaves(jstate["m"]), leaves(jstate["v"])
-    assert len(got) == len(want) == len(m)
-    for i, (g_, w) in enumerate(zip(got, want)):
-        grad = (m[i] - o.b1 * m0[i]) / (1 - o.b1)  # the clipped gradient
-        big_m, root = m[i] / bc1, np.sqrt(v[i] / bc2)
-        d_root = np.divide((1 - o.b2) * grad, bc2 * root, out=np.zeros_like(root),
-                           where=root > 0)
-        d_step = np.abs(((1 - o.b1) / bc1 * (root + o.eps) - big_m * d_root)
-                        / (root + o.eps) ** 2)
-        from_grad = lr * d_step * (RTOL * np.abs(grad) + 1e-5 * np.abs(grad).max())
-        own = RTOL * np.abs(w) + 1e-5 * np.abs(w).max()
-        bad = np.abs(g_ - w) > own + from_grad
-        assert not bad.any(), (i, int(bad.sum()), float(np.abs(g_ - w)[bad].max()))
-
-
-def _hold_state(got, want):
-    _hold_leaves(got["m"], want["m"])
-    _hold_leaves(got["v"], want["v"])
-    assert got["count"].dtype == torch.int32 and got["count"].shape == ()
-    assert int(got["count"]) == int(want["count"])
-
-
-def _close(a, b, rtol=RTOL):
-    np.testing.assert_allclose(float(a), float(b), rtol=rtol)
 
 
 # ---------------------------------------------------------------------------
