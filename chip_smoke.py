@@ -14,8 +14,9 @@ through which users meet placement (data pipeline, elastic coordinator,
 checkpoint store, durability simulator), the multi-card sweep, the
 language-model serving path that routes its requests with ASURA, the
 training path that reads ASURA-placed data shards and keeps ASURA-placed
-checkpoints, and the MoE models (mixtral-8x22b, deepseek-v2-236b) on
-both.
+checkpoints, the MoE models (mixtral-8x22b, deepseek-v2-236b) on both,
+and the recurrent, RWKV and encoder-decoder families (recurrentgemma-9b,
+rwkv6-3b, whisper-large-v3) on both.
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -143,7 +144,7 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            ``movement_on_node_add``): ``benchmarks/durability.py``'s QUICK
            configuration, whose integers must equal ``BENCH_durability.json``
            (read from the file), its FULL one, and the 4096 nodes in 64
-           racks of 64 at 2**20 objects over a quarter year;
+           racks of 64 at 2**20 objects over a tenth of a year;
       11e. the sequence of 11a-11d at 2**18 ids on 64 nodes (a 4 MiB
            state, QUICK durability) on the card and on the CPU: owned
            shards, batches, MovePlans, drain rounds, blobs per node,
@@ -199,7 +200,7 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            each within ``LM_NOISE_FACTOR`` x the control's distance, and
            the card's new parameters against AdamW recomputed in float64
            from its own ``m`` and ``v`` (``UPDATE_ULPS``), on the CLI's
-           trained weights and 3 more draws;
+           trained weights and 1 more draw;
       14c. a train_4k step cut to batch 32 (4 microbatches of 8, remat
            "nothing"): the step-0 loss near ln(vocab), host syncs counted
            under sync debug "warn", step ms (CUDA events), tokens/s, peak
@@ -232,9 +233,36 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            as 14b holds it, at ``MOE_TRAIN_FACTOR``, and the training CLI
            for mixtral at ``--reduced`` (B1 pipeline, B2 store): its loss
            must fall;
+  16. the recurrent, RWKV and encoder-decoder families at full width
+      (recurrentgemma-9b, rwkv6-3b, whisper-large-v3: every width, head,
+      LRU width, window, chunk, frame count and vocab as published):
+      16a. each through the serving CLI at its defaults and full depth
+           (routing on B1 held to its twin, batch 8, 8 decode steps, cache
+           64): step ms, tok/s, the bytes bound (bf16 weights and cache;
+           whisper also the FLOPs of its per-step cross K / V recompute),
+           the profiler's kernels per step and idle share;
+      16b. long_500k for the two subquadratic families: batch 1, a cache
+           made for 524,288 positions (recurrentgemma's 2,048-slot rings
+           filled through position 524,286, the recurrent states random),
+           16 steps from 524,287 (the rings wrap) beside the same steps
+           against a 64-position cache, in turns (64, long, long, 64; 8
+           steps a turn), with both caches' bytes;
+      16c. prefill 8 x 4,096 (whisper's over 8 x 1,500 zero frames, and its
+           encoder alone): ms, peak memory, the FLOP bound;
+      16d. the reduced configs on the card against the CPU, 4 weight draws,
+           prefill 8 x 300 and 20 decode steps (whisper's ``enc_out`` its
+           own encoding of random frames): fp32 logits at rtol 1e-4 / atol
+           1e-5, bf16 held as 13e at ``REC_NOISE_FACTOR``;
+      16e. one training step per family at the reduced size (2 x 128, 4
+           draws) held as 15d at ``REC_TRAIN_FACTOR``; one timed step at
+           full width with the depth cut to fit the card (recurrentgemma
+           one super-block, rwkv6 8 layers, whisper whole), 2 x 4,096,
+           beside its FLOP bound, with peak memory; the training CLI for
+           whisper at ``--reduced`` (frames; B1 pipeline, B2 store): its
+           loss must fall;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
-     13a-13b, 14a, 15a-15b, 15d), time at
+     13a-13b, 14a, 15a-15b, 15d, 16a, 16e), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -263,8 +291,8 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 Without a CUDA card, or without the package beside this script, it
 exits non-zero before printing any result.  Every integer result is
 compared with zero tolerance: the placement stack is exact integer math.
-The language model's float logits (phases 13 and 15) and training step
-(phases 14b and 15d) are held to the tolerances stated there.
+The language model's float logits (phases 13, 15 and 16) and training
+step (phases 14b, 15d and 16e) are held to the tolerances stated there.
 """
 
 from __future__ import annotations
@@ -366,7 +394,9 @@ TRACKED = 1 << 20  # ids the elastic coordinator tracks
 STORE_NODES = 256  # checkpoint store nodes, capacities the first 256 of the 4096 drawn
 STATE_LEAVES, STATE_SIDE = 16, 4096  # f32 leaves of 4096 x 4096: 1 GiB, plus bf16 and ragged
 CUT_IDS, CUT_NODES = 1 << 18, 64  # phase 11e, on the card and on the CPU
-RACK_YEARS = 0.25  # 64 racks x 64: ~1,400 node failures per simulated year, each a host scan
+# 64 racks x 64: ~1,400 node failures per simulated year, each a host scan;
+# a tenth of a year (cut from a quarter to make room for phase 16)
+RACK_YEARS = 0.1
 # benchmarks/durability.py QUICK and FULL, and the 4096 nodes in racks of 64
 _MTTF = dict(mttf_node_years=3.0, mttf_domain_years=15.0, seed=7)
 DURABILITY = {
@@ -409,7 +439,9 @@ LM_DRAWS = 3  # 13e: weight draws held besides the CLI's (seeds 1 .. LM_DRAWS, o
 TRAIN_CLI = ["--arch", "smollm-135m"]  # 14a: the CLI's defaults: batch 8 x 128, 20 steps, save every 10
 TRAIN_FAILED = (1, 3)  # 14a: store nodes down for the restore (2 of 6, R = 3)
 TRAIN_CARD_CPU = (2, 128)  # 14b: batch, sequence of the one step on the card and the CPU
-TRAIN_DRAWS = 3  # 14b: weight draws held besides the CLI's (seeds 1 .. TRAIN_DRAWS, on the CPU)
+# 14b: weight draws held besides the CLI's (seeds 1 .. TRAIN_DRAWS, on the
+# CPU); one (three before phase 16 was added; each took ~13 s of the script)
+TRAIN_DRAWS = 1
 UPDATE_ULPS = 4  # 14b: the card's new parameters against AdamW's update in float64
 # 14c: train_4k at full width and sequence with the batch cut from 256 to 32
 # (256 rows would take ~8x the 32-row step, past the script's time limit),
@@ -441,6 +473,34 @@ ROUTE_EPS_FP32 = 2.0**-14
 MOE_TRAIN_FACTOR = 4.0
 MOE_TRAIN = (2, 128)
 MOE_TRAIN_CLI = ["--arch", "mixtral-8x22b", "--reduced"]  # 20 steps of 8 x 128, a save at 10
+# phase 16, the recurrent, RWKV and encoder-decoder families at full width
+# and depth (9.40 B, 3.10 B and 1.60 B parameters: 56.4, 18.6 and 9.6 GB as
+# fp32 master plus bf16 working copy)
+REC_ARCHS = ("recurrentgemma-9b", "rwkv6-3b", "whisper-large-v3")
+REC_CLI = ["--replicas", "4", "--replica-id", "0", "--requests", "64", "--batch", "8",
+           "--decode-len", "8", "--cache-len", "64"]  # the CLI's defaults
+LONG_500K = (1, 524_288)  # 16b: the long_500k cell's batch and positions
+REC_PREFILL = (8, 4_096)  # 16c
+REC_CARD_CPU = (8, 300, 20)  # 16d: batch, prompt (three RWKV chunks, one padded), decode steps
+REC_DRAWS = 3  # 16d / 16e: weight draws besides seed 0 (seeds 1 .. REC_DRAWS, on the CPU)
+# 16d: max |card bf16 - fp32| <= this x max |CPU bf16 - fp32|; on the CPU the
+# reference's bf16 run held to the port's fp32 with the port's bf16 the
+# control, and the reverse, read at most 1.6582 over 504 readings (4 draws x
+# 3 families x 21 stages x 2; tests/torch_bf16_readings.py, PERF.md section 6)
+REC_NOISE_FACTOR = 3.0
+# 16e: the training readings as 15d's; the CPU readings of the same kind
+# reached 2.3897 (rwkv6's v) over 96
+REC_TRAIN_FACTOR = 5.0
+REC_TRAIN = (2, 128)
+REC_TRAIN_FULL = (2, 4_096)  # 16e: batch x sequence of the timed full-width step
+# 16e: depth kept for the full-width step, so that the fp32 master, gradient,
+# both moments and AdamW's new trees (~28 bytes a parameter) fit the card:
+# one (rec, rec, attn) super-block beside the tied 1.05 B embedding, 8 of
+# rwkv6's 32 layers, whisper whole (~48, ~29 and ~45 GB)
+REC_TRAIN_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-3b": 8}
+REC_TRAIN_CLI = ["--arch", "whisper-large-v3", "--reduced"]  # frames; 20 steps of 8 x 128
+CONV_MACS = 4  # RG-LRU's depthwise conv width
+RWKV_CHUNK_LEN = 128  # RWKV6's WKV chunk
 PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
 
 
@@ -969,6 +1029,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 15: the MoE language models ------------------------------------
     moe_launches = phase15(torch, np, dev, seed)
 
+    # -- phase 16: the recurrent, RWKV and encoder-decoder families -----------
+    rec_launches = phase16(torch, np, dev, seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -980,7 +1043,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
                   *hier["launches"], consumer_launches, mesh_launches, lm_launches,
-                  train_launches, moe_launches)
+                  train_launches, moe_launches, rec_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2645,24 +2708,28 @@ def reading(got: list, control: list, truth: list) -> tuple[float, float]:
     return dist(got, truth), max(dist(control, truth), floor)
 
 
-def hold_logits(torch, what: str, got, control, truth, phase: str = "13e") -> float:
+def hold_logits(torch, what: str, got, control, truth, phase: str = "13e",
+                factor: float = LM_NOISE_FACTOR, quiet: bool = False) -> float:
     """bf16 logits ``got`` against the fp32 ``truth`` of the same weights
     and inputs, ``control`` being another bf16 run of them: max |got -
     truth| within ``LM_NOISE_FACTOR`` x the control's max |control - truth|
     (at least 2**-8 x max |truth|, bf16's least spacing there), and the
     greedy tokens the truth's wherever its top-2 margin exceeds twice that
-    limit -> max |got - truth| over the control's (the reading)."""
+    limit -> max |got - truth| over the control's (the reading).  ``factor``
+    stands for ``LM_NOISE_FACTOR`` where given; ``quiet`` prints a reading
+    only when it fails."""
     got, control, truth = (t.float().cpu() for t in (got, control, truth))
     err, ctl = reading([got], [control], [truth])
-    limit = LM_NOISE_FACTOR * ctl
+    limit = factor * ctl
     top2 = truth.topk(2, dim=-1).values
     sure = top2[..., 0] - top2[..., 1] > 2 * limit
     same = bool(torch.equal(got.argmax(-1)[sure], truth.argmax(-1)[sure]))
-    print(f"  {what:44s} max |got - fp32| {err:.6f}, control {ctl:.6f}: {err / ctl:.4f} "
-          f"(limit {LM_NOISE_FACTOR}); max |got - control| "
-          f"{float((got - control).abs().max()):.6f} of max |control| "
-          f"{float(control.abs().max()):.6f}; greedy tokens the fp32 run's on "
-          f"{int(sure.sum())}/{sure.numel()} rows with margin > 2 x limit: {same}")
+    if not quiet or not (err <= limit and same):
+        print(f"  {what:44s} max |got - fp32| {err:.6f}, control {ctl:.6f}: {err / ctl:.4f} "
+              f"(limit {factor}); max |got - control| "
+              f"{float((got - control).abs().max()):.6f} of max |control| "
+              f"{float(control.abs().max()):.6f}; greedy tokens the fp32 run's on "
+              f"{int(sure.sum())}/{sure.numel()} rows with margin > 2 x limit: {same}")
     require(err <= limit and same, f"phase {phase}: {what}: further from fp32 than the control allows")
     return err / ctl
 
@@ -2869,7 +2936,7 @@ def train_flops(cfg, batch: int, seq: int) -> float:
     return 3.0 * (lm_flops(cfg, batch, seq) + head)
 
 
-def train_readings(torch, np, cfg, params, tokens, dev) -> tuple[dict, float]:
+def train_readings(torch, np, cfg, params, tokens, dev, extra=None) -> tuple[dict, float]:
     """One train step from ``params`` (on the CPU) on the card (bf16), on
     the CPU (bf16) and on the CPU in fp32 -> ({quantity: (card, CPU, fp32)}
     for the loss, ``grad_norm`` and the moments ``m`` and ``v`` (the clipped
@@ -2883,7 +2950,8 @@ def train_readings(torch, np, cfg, params, tokens, dev) -> tuple[dict, float]:
     |card - recomputed| over ``UPDATE_ULPS`` x (the new parameter's fp32
     spacing + 2**-23 x lr x (|Adam step| + |wd x p|)), at most 1 when the
     card's fp32 arithmetic is AdamW's.  Twice the lr or a reversed decay
-    reads far above it."""
+    reads far above it.  ``extra``: the batch's other inputs (CPU tensors,
+    e.g. encdec's frames)."""
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
     from repro_torch.train.optimizer import tree_flatten
 
@@ -2894,7 +2962,8 @@ def train_readings(torch, np, cfg, params, tokens, dev) -> tuple[dict, float]:
     for name, d in (("card", dev), ("cpu", cpu), ("fp32", cpu)):
         p = params if d == cpu else tree_to(params, d)
         with fp32_compute(torch) if name == "fp32" else contextlib.nullcontext():
-            new, state, m = step(p, init_train_state(cfg, p), {"tokens": tokens.to(d)})
+            batch = {"tokens": tokens.to(d), **{k: v.to(d) for k, v in (extra or {}).items()}}
+            new, state, m = step(p, init_train_state(cfg, p), batch)
         out[name] = {"loss": [m["loss"].cpu()], "grad_norm": [m["grad_norm"].cpu()],
                      **{k: [x.cpu() for x in tree_flatten(state[k])[0]] for k in ("m", "v")}}
         if name == "card":  # in float64 on the card: on the CPU it took ~8 s per draw
@@ -3378,6 +3447,427 @@ def phase15(torch, np, dev, seed, draws: int = MOE_DRAWS) -> dict:
     del rep
     torch.cuda.empty_cache()
     print(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def decode_bound(cfg, params, cache, batch: int) -> tuple[float, float, float]:
+    """(bytes, FLOPs, ms) a decode step of ``cfg`` must at least cost: the
+    bf16 working copy of every matrix it reads and the fp32 vectors beside
+    them (the encoder is not read in decode; an untied embedding only
+    gathers rows), every cache byte, and for encdec the FLOPs of the
+    reference's cross K / V recompute from ``enc_out`` in every layer; ms
+    the larger of bytes over the HBM rate and FLOPs over the bf16 rate."""
+    from repro_torch.train.optimizer import tree_flatten
+    from repro_torch.train.step import _is_matmul_weight
+
+    def weight_bytes(tree: dict) -> int:
+        return sum(weight_bytes(v) if isinstance(v, dict)
+                   else v.numel() * (2 if _is_matmul_weight(k) else 4) for k, v in tree.items())
+
+    skip = {"enc_blocks", "enc_final_norm"} | (set() if cfg.tie_embeddings else {"embed"})
+    w_bytes = weight_bytes({k: v for k, v in params.items() if k not in skip})
+    c_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(cache)[0])
+    flops = 0.0
+    if cfg.family == "encdec":
+        flops = 2.0 * batch * cfg.enc_seq * cfg.d_model * 2 * cfg.n_kv_heads * cfg.head_dim_ \
+            * cfg.n_layers
+    ms = 1e3 * max((w_bytes + c_bytes) / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+    return float(w_bytes + c_bytes), flops, ms
+
+
+def rec_flops(cfg, batch: int, seq: int, head_every: bool = False) -> float:
+    """Multiply-add FLOPs of a prefill of ``seq`` positions of a recurrent,
+    RWKV or encoder-decoder model: every matrix once per position (the
+    head once per sequence, or at every position with ``head_every``);
+    local / causal attention over the (query, key) pairs its mask keeps;
+    RG-LRU's conv and gates; RWKV6's chunked WKV as the reference computes
+    it (per token and head the state read and write, 2 hd^2, and the lower
+    triangle of its chunk, C hd); whisper's encoder over ``enc_seq``
+    frames (all pairs), the decoder's cross K / V once per sequence and
+    its cross-attention over every (token, frame) pair."""
+    d, v, hd, h = cfg.d_model, cfg.vocab, cfg.head_dim_, cfg.n_heads
+    tok = batch * seq
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    qo, kv = 2 * d * h * hd, 2 * d * cfg.n_kv_heads * hd  # attention projections per position
+
+    def pairs(window: int) -> int:
+        w = min(window, seq) if window else seq
+        return w * (w + 1) // 2 + (seq - w) * w
+
+    head = (tok if head_every else batch) * d * v
+    if cfg.family == "rglru":
+        w = cfg.lru_width or d
+        n_super, n_tail = divmod(cfg.n_layers, len(cfg.block_pattern))
+        kinds = list(cfg.block_pattern) * n_super + [cfg.block_pattern[0]] * n_tail
+        n_rec, n_att = kinds.count("rec"), kinds.count("attn")
+        per_rec = 3 * d * w + 2 * w * w + CONV_MACS * w + mlp
+        macs = tok * (n_rec * per_rec + n_att * (qo + kv + mlp))
+        macs += 2 * batch * pairs(cfg.window) * h * hd * n_att
+    elif cfg.family == "rwkv6":
+        hd_r = cfg.rwkv_head_dim
+        per = 6 * d * d + 2 * d * cfg.d_ff + 5 * 32 * d * 2 + 64 * d * 2
+        wkv = (d // hd_r) * (2 * hd_r * hd_r + RWKV_CHUNK_LEN * hd_r)
+        macs = tok * cfg.n_layers * (per + wkv)
+    else:
+        macs = encoder_macs(cfg, batch)
+        macs += tok * cfg.n_layers * (qo + kv + qo + mlp)  # self-attention, cross q / o, MLP
+        macs += batch * cfg.enc_seq * cfg.n_layers * kv  # cross K / V, once per sequence
+        macs += 2 * batch * (pairs(0) + seq * cfg.enc_seq) * h * hd * cfg.n_layers
+    return 2.0 * (macs + head)
+
+
+def encoder_macs(cfg, batch: int) -> int:
+    """Multiply-adds of whisper's encoder over ``enc_seq`` frames: every
+    matrix once per frame and every (frame, frame) pair (not causal)."""
+    d, h, hd, se = cfg.d_model, cfg.n_heads, cfg.head_dim_, cfg.enc_seq
+    mlp = (3 if cfg.act in ("swiglu", "geglu") else 2) * d * cfg.d_ff
+    per_frame = 2 * d * h * hd + 2 * d * cfg.n_kv_heads * hd + mlp
+    return cfg.n_enc_layers * (batch * se * per_frame + 2 * batch * se * se * h * hd)
+
+
+def fill_long_cache(torch, cfg, cache, last: int, gen) -> None:
+    """A decode cache as if every position up to ``last`` had been
+    written: each ring holds the positions its slots last took (slot = pos
+    % size), random bf16 keys and values, its index at ``last + 1`` (the
+    next write goes to slot (last + 1) % size and the ring wraps after
+    it); recurrent states random."""
+    for leaf_parent in _cache_dicts(cache):
+        if "pos" in leaf_parent:
+            size = leaf_parent["pos"].shape[-1]
+            slots = torch.arange(size, device=leaf_parent["pos"].device)
+            leaf_parent["pos"].copy_((last - (last - slots) % size).to(torch.int32)
+                                     .expand_as(leaf_parent["pos"]))
+            leaf_parent["index"].fill_(last + 1)
+        for name, leaf in leaf_parent.items():
+            if not isinstance(leaf, dict) and leaf.is_floating_point():
+                leaf.normal_(generator=gen)
+
+
+def _cache_dicts(tree: dict) -> list:
+    """The dicts of a cache tree that hold tensors."""
+    out = [tree] if any(not isinstance(v, dict) for v in tree.values()) else []
+    for v in tree.values():
+        if isinstance(v, dict):
+            out += _cache_dicts(v)
+    return out
+
+
+def rec_runs(torch, cfg, params, prompt, frames, n_dec: int, dev) -> list:
+    """[(what, card bf16, CPU bf16, CPU fp32, card fp32)] logits of a prefill
+    of ``prompt`` (with ``frames`` for encdec) and ``n_dec`` decode steps
+    fed its first tokens against a fresh cache of the prompt's length
+    (encdec: its ``enc_out`` the run's own encoding of the frames), on the
+    same weights (``params`` on the CPU)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import lm
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cpu = torch.device("cpu")
+    b, p = prompt.shape
+
+    def stages(d, tree, pre, step) -> list:
+        batch = {"tokens": torch.from_numpy(prompt).to(d)}
+        if frames is not None:
+            batch["frames"] = frames.to(d)
+        out = [pre(tree, batch)]
+        cache = init_cache(cfg, b, p, device=d)
+        if frames is not None:
+            cache["enc_out"] = lm._encode(cfg, tree, batch["frames"]).to(lm_layers.COMPUTE_DTYPE)
+        for t in range(n_dec):
+            got, cache = step(tree, cache, {"tokens": batch["tokens"][:, t:t + 1],
+                                            "positions": torch.full((b, 1), t, dtype=torch.int32,
+                                                                    device=d)})
+            out.append(got)
+        return out
+
+    card_params = tree_to(params, dev)
+    card = stages(dev, card_params, make_prefill_step(cfg), make_serve_step(cfg))
+    bf16 = stages(cpu, params, make_prefill_step(cfg), make_serve_step(cfg))
+    with fp32_compute(torch):
+        fns = (lambda tree, batch: prefill(cfg, tree, batch),
+               lambda tree, cache, batch: decode_step(cfg, tree, cache, batch))
+        fp32 = stages(cpu, params, *fns)
+        card32 = stages(dev, card_params, *fns)
+    whats = [f"prefill of {p} tokens"] + [f"decode step {t}" for t in range(n_dec)]
+    return list(zip(whats, card, bf16, fp32, card32))
+
+
+def phase16(torch, np, dev, seed, draws: int = REC_DRAWS) -> dict:
+    """The recurrent, RWKV and encoder-decoder families on the card: 16a
+    the serving CLI at full width and depth (the main path, launches
+    counted; routing held to B1's twin), 16b long_500k decode against the
+    constant-size state beside a 64-position cache, 16c prefill 8 x 4,096
+    (and whisper's encoder alone), 16d the reduced configs on the card
+    against the CPU, 16e training: a reduced step per family against the
+    CPU, a full-width step with the depth cut, and the training CLI for
+    whisper (launches counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve, train
+    from repro_torch.models import init_cache, init_params, make_inputs, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.models.config import SHAPES
+    from repro_torch.train import (bf16_working_copy, init_train_state, make_prefill_step,
+                                   make_serve_step, make_train_step)
+    from repro_torch.train.optimizer import tree_flatten
+
+    card = card_line(dev)
+    rng = np.random.default_rng(seed)
+    t_phase = time.perf_counter()
+    launches: dict = {}
+
+    def count(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def timed_steps(step, params, cache, b, first: int) -> tuple[float, object]:
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1), dtype=np.int32)).to(dev)
+        marks = []
+        for t in range(DECODE_STEPS):
+            batch = {"tokens": tokens,
+                     "positions": torch.full((b, 1), first + t, dtype=torch.int32, device=dev)}
+            begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            logits, cache = step(params, cache, batch)
+            end.record()
+            marks.append((begin, end))
+            tokens = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        require(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all()),
+                f"phase 16: {cfg.name}: non-finite decode logits")
+        return statistics.median(bg.elapsed_time(en) for bg, en in marks), logits
+
+    for arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        print(f"phase 16a ({card}): python -m repro_torch.launch.serve --arch {arch} "
+              f"{' '.join(REC_CLI)} --seed {seed}")
+        reset_launches()
+        rep = serve.run(["--arch", arch] + REC_CLI + ["--seed", str(seed)])
+        got = dict(LAUNCHES)
+        count(got)
+        cfg, out = rep["cfg"], rep["decoded"]
+        require(out.tokens.shape == (rep["ids"].size, 8) and out.tokens.min() >= 0
+                and out.tokens.max() < cfg.vocab, f"phase 16a: {arch}: decoded tokens out of range")
+        require(got.get("place_fused", 0) > 0, f"phase 16a: {arch}: routing did not launch "
+                                               f"place_fused")
+        n_req = rep["owners"].size
+        hold_routing(torch, f"the CLI's owners of {n_req} requests", rep["engine"],
+                     torch.from_numpy(np.arange(n_req, dtype=np.uint32)).to(dev),
+                     torch.from_numpy(np.asarray(rep["owners"], dtype=np.int32)))
+        work = bf16_working_copy(rep["params"])  # the serving steps' weights; the master goes
+        n_params = sum(x.numel() for x in tree_flatten(work)[0])
+        del rep["params"]
+        torch.cuda.empty_cache()
+        step = make_serve_step(cfg)
+        cache = init_cache(cfg, 8, 64, device=dev)
+        b_bytes, b_flops, bound_ms = decode_bound(cfg, work, cache, 8)
+        print(f"  {cfg.name} at full width and depth ({cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder" if cfg.family == "encdec" else "")
+              + f", {n_params / 1e9:.3f} B parameters); main path launches {got}; decode step "
+              f"median {rep['step_ms']:.4f} ms ({rep['tok_s']:.1f} tok/s at batch 8; CUDA "
+              f"events); bound {bound_ms:.4f} ms ({b_bytes / 1e9:.3f} GB of bf16 weights and "
+              f"cache at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, {b_flops / 1e12:.3f} TFLOP of cross "
+              f"K / V at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; {bound_ms / rep['step_ms']:.4f} of "
+              f"it); {card}")
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1),
+                                                         dtype=np.int32)).to(dev),
+                 "positions": torch.zeros((8, 1), dtype=torch.int32, device=dev)}
+        print_profile(profile_steps(torch, lambda: step(work, cache, batch), 2))
+        del rep, out, cache
+
+        if cfg.subquadratic:
+            b, s = LONG_500K
+            print(f"phase 16b ({card}): {arch} long_500k: batch {b}, a cache made for {s} "
+                  f"positions filled through position {s - 2}, {2 * DECODE_STEPS} timed steps "
+                  f"from {s - 1}; the same steps against a 64-position cache, in turns")
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            timed_steps(step, work, init_cache(cfg, b, 64, device=dev), b, 0)  # warm-up
+            caches, times = {}, {64: [], s: []}
+            for max_len in (64, s):
+                caches[max_len] = init_cache(cfg, b, max_len, device=dev)
+                fill_long_cache(torch, cfg, caches[max_len], s - 2, gen)
+            for turn, max_len in enumerate((64, s, s, 64)):  # in turns: host jitter is shared
+                first = s - 1 + DECODE_STEPS * (turn // 2 if max_len == 64 else turn - 1)
+                times[max_len].append(timed_steps(step, work, caches[max_len], b, first)[0])
+            for max_len, cache in caches.items():
+                c_bytes = sum(x.numel() * x.element_size() for x in tree_flatten(cache)[0])
+                rings = [d for d in _cache_dicts(cache) if "pos" in d]
+                for ring in rings:
+                    size = ring["pos"].shape[-1]
+                    require(int(ring["index"].reshape(-1)[0]) == s - 1 + 2 * DECODE_STEPS
+                            and int(ring["pos"].reshape(-1, size)[0, (s - 1) % size]) == s - 1
+                            and int(ring["pos"].reshape(-1, size)[0, s % size]) == s,
+                            f"phase 16b: {arch}: the ring did not take positions {s - 1}, {s}")
+                ms = statistics.mean(times[max_len])
+                times[max_len] = (ms, c_bytes)
+                print(f"  cache for {max_len} positions: {c_bytes / 1e6:.4f} MB "
+                      f"({len(rings)} rings of {rings[0]['pos'].shape[-1] if rings else 0} "
+                      f"slots); step {ms:.4f} ms (the mean of two turns' medians of "
+                      f"{DECODE_STEPS}, CUDA events), {b * 1e3 / ms:.1f} tok/s")
+            del caches
+            print(f"  long_500k step / 64-position step: {times[s][0] / times[64][0]:.4f} "
+                  f"(cache bytes {times[s][1] / times[64][1]:.4f}x); {card}")
+
+        b, s = REC_PREFILL
+        pre = make_prefill_step(cfg)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s),
+                                                         dtype=np.int32)).to(dev)}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((b, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16,
+                                          device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        w_gib = torch.cuda.memory_allocated(dev) / 2**30
+        box = []
+        ms = cuda_ms(torch, lambda: box.append(pre(work, batch)), 1)[0]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        require(box[-1].shape == (b, cfg.vocab) and bool(torch.isfinite(box[-1]).all()),
+                f"phase 16c: {arch}: non-finite prefill logits")
+        flops = rec_flops(cfg, b, s)
+        scores = ""
+        if cfg.family == "rglru":
+            scores = (f"; the local layers' dense (b, {cfg.n_heads}, {s}, {s}) fp32 scores are "
+                      f"{4 * b * cfg.n_heads * s * s / 2**30:.2f} GiB each")
+        print(f"phase 16c ({card}): {arch} prefill {b} x {s}"
+              + (f" (encoder over {b} x {cfg.enc_seq} zero frames)" if cfg.family == "encdec"
+                 else "") + f": {ms:.2f} ms (CUDA events, after one warm-up), "
+              f"{b * s * 1e3 / ms:.1f} tok/s; bound {1e3 * flops / BF16_FLOPS_PER_S:.2f} ms "
+              f"({flops / 1e12:.2f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16); peak "
+              f"memory {peak:.2f} GiB ({peak - w_gib:.2f} above the {w_gib:.2f} GiB resident)"
+              + scores)
+        if cfg.family == "encdec":
+            frames = batch["frames"]
+            ms_enc = cuda_ms(torch, lambda: box.append(lm._encode(cfg, work, frames)), 1)[0]
+            enc_flops = 2.0 * encoder_macs(cfg, b)
+            print(f"  the encoder alone over {b} x {cfg.enc_seq} frames: {ms_enc:.2f} ms; bound "
+                  f"{1e3 * enc_flops / BF16_FLOPS_PER_S:.2f} ms ({enc_flops / 1e12:.2f} TFLOP)")
+        del box, pre, work, step, batch
+        torch.cuda.empty_cache()
+        print(f"  phase 16 ({arch}) {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b, p, n_dec = REC_CARD_CPU
+    print(f"phase 16d ({card}): the reduced configs on the card against the CPU, weight seeds "
+          f"0 .. {draws}, prefill {b} x {p} and {n_dec} decode steps; fp32 at rtol 1e-4 / atol "
+          f"1e-5, bf16 held to the CPU's fp32 at {REC_NOISE_FACTOR} x the CPU bf16 control")
+    readings = []
+    for arch in REC_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        worst32 = 0.0
+        for draw in range(draws + 1):
+            params = init_params(cfg, torch.Generator().manual_seed(draw), device="cpu")
+            prompt = rng.integers(0, cfg.vocab, (b, p), dtype=np.int32)
+            frames = None
+            if cfg.family == "encdec":
+                frames = torch.from_numpy(rng.standard_normal(
+                    (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+            for what, got, control, truth, got32 in rec_runs(torch, cfg, params, prompt, frames,
+                                                             n_dec, dev):
+                name = f"{cfg.name} seed {draw}, {what}"
+                close = bool(torch.allclose(got32.cpu(), truth, rtol=1e-4, atol=1e-5))
+                worst32 = max(worst32, float((got32.cpu() - truth).abs().max()))
+                require(close, f"phase 16d: {name}: the fp32 runs disagree")
+                readings.append(hold_logits(torch, name, got, control, truth, phase="16d",
+                                            factor=REC_NOISE_FACTOR, quiet=True))
+        print(f"  {cfg.name}: fp32 card vs CPU max |diff| {worst32:.3e} over {draws + 1} draws x "
+              f"{n_dec + 1} stages (rtol 1e-4, atol 1e-5: held); bf16 readings "
+              f"{min(readings[-(draws + 1) * (n_dec + 1):]):.4f} .. "
+              f"{max(readings[-(draws + 1) * (n_dec + 1):]):.4f}")
+    print(f"  largest reading {max(readings):.4f} of {len(readings)} (limit {REC_NOISE_FACTOR}); "
+          f"16d {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    b, s = REC_TRAIN
+    print(f"phase 16e ({card}): one train step per family at the reduced size, batch {b} x {s}, "
+          f"against an fp32 run on the CPU, the CPU's bf16 run the control (limit "
+          f"{REC_TRAIN_FACTOR}), and the card's new parameters against AdamW in float64")
+    worst = 0.0
+    for arch in REC_ARCHS:
+        cfg = reduced_config(get_config(arch))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s), dtype=np.int32))
+        extra = {}
+        if cfg.family == "encdec":
+            extra["frames"] = torch.from_numpy(rng.standard_normal(
+                (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        for draw in range(draws + 1):
+            tree = init_params(cfg, torch.Generator().manual_seed(draw), device="cpu")
+            runs, upd = train_readings(torch, np, cfg, tree, tokens, dev, extra)
+            require(upd <= 1.0, f"phase 16e: {cfg.name}: the parameter update is not AdamW's")
+            parts = []
+            for what, (got_, control, truth) in runs.items():
+                err, ctl = reading(got_, control, truth)
+                worst = max(worst, err / ctl)
+                parts.append(f"{what} {err / ctl:.4f}")
+                require(err <= REC_TRAIN_FACTOR * ctl,
+                        f"phase 16e: {cfg.name} {what}: further from fp32 than the control allows")
+            print(f"  {cfg.name} seed {draw}: " + ", ".join(parts) + f"; update {upd:.4f} of "
+                  f"its limit")
+    print(f"  largest reading {worst:.4f} (limit {REC_TRAIN_FACTOR}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    b, s = REC_TRAIN_FULL
+    for arch in REC_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        layers_kept = REC_TRAIN_LAYERS.get(arch)
+        if layers_kept is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers_kept)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        spec = dataclasses.replace(SHAPES["train_4k"], global_batch=b, seq_len=s)
+        batch = make_inputs(cfg, spec, gen, device=dev)["batch"]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = init_params(cfg, gen, device=dev)
+        opt = init_train_state(cfg, params)
+        n_params = sum(x.numel() for x in tree_flatten(params)[0])
+        step_fn = make_train_step(cfg)
+        params, opt, m0 = step_fn(params, opt, batch)  # warm-up
+        loss0 = float(m0["loss"])
+        marks = []
+        for _ in range(TRAIN_TIMED):
+            begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            params, opt, m = step_fn(params, opt, batch)
+            end.record()
+            marks.append((begin, end))
+        torch.cuda.synchronize()
+        step_ms = statistics.median(bg.elapsed_time(en) for bg, en in marks)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        require(math.isfinite(loss0) and abs(loss0 - math.log(cfg.vocab)) < 1.0
+                and math.isfinite(float(m["loss"])),
+                f"phase 16e: {arch}: step-0 loss {loss0} is not near ln(vocab)")
+        flops = 3.0 * rec_flops(cfg, b, s, head_every=True)
+        bound_ms = 1e3 * flops / BF16_FLOPS_PER_S
+        cut = ("full depth" if layers_kept is None
+               else f"{layers_kept} of {get_config(arch).n_layers} layers")
+        print(f"phase 16e ({card}): {arch} train step at full width, {cut} "
+              f"({n_params / 1e9:.3f} B parameters), batch {b} x {s}: step-0 loss {loss0:.4f} "
+              f"(ln {cfg.vocab} = {math.log(cfg.vocab):.4f}); {step_ms:.2f} ms median of "
+              f"{TRAIN_TIMED} (CUDA events), {b * s * 1e3 / step_ms:.1f} tokens/s; bound "
+              f"{bound_ms:.2f} ms ({flops / 1e12:.2f} TFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} "
+              f"TFLOP/s bf16, 3x the forward with the head at every position, remat not "
+              f"counted; {bound_ms / step_ms:.4f} of it); peak memory {peak:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del params, opt, batch, step_fn, m, m0
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    print(f"phase 16e ({card}): python -m repro_torch.launch.train {' '.join(REC_TRAIN_CLI)} "
+          f"--seed {seed}")
+    reset_launches()
+    rep = train.run(REC_TRAIN_CLI + ["--seed", str(seed)])
+    got = dict(LAUNCHES)
+    count(got)
+    require(rep["rc"] == 0, "phase 16e: the training CLI's loss did not improve")
+    for name in ("place_fused", "place_replicas"):
+        require(got.get(name, 0) > 0, f"phase 16e: the training path did not launch {name}")
+    print(f"  main path launches {got}; loss {rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}; "
+          f"step {rep['step_ms']:.4f} ms median ({rep['tok_s']:.1f} tokens/s); peak memory "
+          f"{(rep['peak_bytes'] or 0) / 2**30:.4f} GiB; {time.perf_counter() - t0:.1f} s")
+    del rep
+    torch.cuda.empty_cache()
+    print(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

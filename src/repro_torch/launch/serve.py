@@ -16,7 +16,12 @@ cache.  The weights are synthetic, drawn from ``--seed``.
 ``--layers`` cuts the depth (widths stay the config's), so that a model
 larger than the card runs at full width: ``--arch mixtral-8x22b --layers
 2``; deepseek-v2-236b keeps its leading dense layer, so ``--layers 2`` is
-one dense and one MoE layer.
+one dense and one MoE layer; recurrentgemma-9b keeps whole (rec, rec,
+attn) super-blocks plus the tail (``--layers 4``: one super-block and one
+recurrent layer); whisper-large-v3 cuts its decoder (the encoder keeps
+its 32 layers).  Every family runs: dense, MoE / MLA, the RG-LRU hybrid,
+RWKV6 and the encoder-decoder, which decodes against the cache's zero
+encoder output, as the reference does.
 
 It prints the reference's two lines (the routed share; requests x tokens
 in seconds and tok/s, counting the lanes decoded: the routed requests
@@ -103,6 +108,23 @@ def decode_requests(cfg: ModelConfig, params: dict, ids, *, batch: int, decode_l
     return Decoded(tokens_host, step_ms, "cuda events" if on_card else "host clock")
 
 
+def cut_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to ``n`` layers, widths kept (``--layers``): the dense
+    and MoE models keep their leading dense layers and need one more;
+    recurrentgemma keeps whole ``block_pattern`` super-blocks and the
+    tail, ``divmod(n, len(block_pattern))``, and needs one pattern; the
+    encoder-decoder cuts its decoder only; RWKV6 cuts its layers."""
+    if cfg.family == "rglru":
+        first, why = len(cfg.block_pattern), f"one block pattern {cfg.block_pattern}"
+    elif cfg.moe is not None:
+        first, why = cfg.n_dense_layers + 1, "its leading dense layers and one more"
+    else:
+        first, why = 1, "one layer"
+    if n < first:
+        raise ValueError(f"--layers {n}: {cfg.name} needs at least {first} ({why})")
+    return dataclasses.replace(cfg, n_layers=n)
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=ARCHS, default="smollm-135m")
@@ -133,11 +155,7 @@ def run(argv=None) -> dict:
     if args.reduced:
         cfg = reduced_config(cfg)
     if args.layers is not None:
-        first = cfg.n_dense_layers + 1 if cfg.moe is not None else 1
-        if args.layers < first:
-            raise ValueError(f"--layers {args.layers}: {cfg.name} needs at least {first} "
-                             f"(its leading dense layers and one more)")
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_layers(cfg, args.layers)
 
     # ASURA request routing via the PlacementEngine: the replica-membership
     # table is canonicalized once and reused for every routing call below.

@@ -107,6 +107,9 @@ def run(argv=None) -> dict:
             it = pipeline.batches(epoch=step)
             tokens = next(it)
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        if cfg.family == "encdec":  # the stub audio frontend's frames, as the reference
+            batch["frames"] = torch.zeros((args.batch, cfg.enc_seq, cfg.d_model),
+                                          dtype=torch.bfloat16, device=dev)
         if cfg.vision_prefix:
             batch["patches"] = torch.zeros((args.batch, cfg.vision_prefix, cfg.d_model),
                                            dtype=layers.COMPUTE_DTYPE, device=dev)

@@ -1,6 +1,6 @@
-"""Model zoo of the port: configs, layers and the functional model API
-(the language-model family -- dense, MoE and MLA -- served and trained;
-the recurrent, RWKV and encoder-decoder families come with ROADMAP A9c)."""
+"""Model zoo of the port: configs, layers and the functional model API,
+served and trained for every family the reference runs (dense, MoE and
+MLA language models, the RG-LRU hybrid, RWKV6 and the encoder-decoder)."""
 
 from .api import (
     LanguageModel,

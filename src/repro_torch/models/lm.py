@@ -9,30 +9,44 @@ language-model family (the reference's ``repro.models.lm``).
     logits, c    = decode_step(cfg, params, cache, batch) # cache consumed
 
 Parameters and caches are nested dicts with the reference's keys and its
-stacked leading layer axis: ``"dense_blocks"`` holds the layers with a
-dense MLP (all of them without MoE, else the first ``n_dense_layers``),
-``"blocks"`` the MoE layers after them; each layer attends with GQA or,
-where the config has MLA, with multi-head latent attention and its
-compressed cache.  A Python loop over views of the stacked tensors takes
-the place of the reference's ``lax.scan`` over layers.  ``forward`` takes
-the layer views from one ``torch.unbind`` per stacked leaf, so under
-autograd each leaf's gradient is assembled once, and while autograd
-records each layer runs under the remat policy (``set_remat_policy``:
-``torch.utils.checkpoint`` per layer).  It returns the MoE layers' summed
+stacked leading layer axis, one stack per kind of block (``_stacks``):
+
+  * ``family == "lm"``: ``"dense_blocks"`` holds the layers with a dense
+    MLP (all of them without MoE, else the first ``n_dense_layers``),
+    ``"blocks"`` the MoE layers after them; each layer attends with GQA
+    or, where the config has MLA, with multi-head latent attention and
+    its compressed cache;
+  * ``"rglru"`` (recurrentgemma): ``"super_blocks"`` holds one
+    ``block_pattern`` per entry (``{"l0", "l1", "l2"}``: RG-LRU, RG-LRU,
+    local attention over ``cfg.window``), ``"tail_blocks"`` the layers
+    left over, each of ``pattern[0]``; a whole super-block is one remat
+    unit, as in the reference's scan;
+  * ``"rwkv6"``: ``"blocks"`` of time mix and channel mix;
+  * ``"encdec"`` (whisper): ``"enc_blocks"`` and ``"enc_final_norm"``
+    encode the (stub) audio frames without a causal mask, ``"blocks"``
+    decode with self-attention, cross-attention to the encoder output
+    (its K / V recomputed from it by every layer at every call) and an
+    MLP; both add the fp32 sinusoid to their inputs, and both RoPE their
+    self-attention; the cache carries ``"enc_out"``.
+
+A Python loop over views of the stacked tensors takes the place of the
+reference's ``lax.scan`` over layers.  ``forward`` takes the layer views
+from one ``torch.unbind`` per stacked leaf, so under autograd each leaf's
+gradient is assembled once, and while autograd records each layer (or
+super-block) runs under the remat policy (``set_remat_policy``:
+``torch.utils.checkpoint``).  It returns the MoE layers' summed
 load-balancing loss beside the hidden states.  Cross-entropy runs in
 chunks of ``CE_CHUNK`` positions, so the (B, S, V) logits are never
 built.  ``LanguageModel`` is a thin ``nn.Module`` over the same tree.
 
-This slice runs ``family == "lm"`` (dense, MoE, MLA); the recurrent,
-RWKV and encoder-decoder families raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.  Every function runs on the device its
-tensors are on; ``init_params`` and ``init_cache`` put them on the CUDA
-card unless given a device.
+Every function runs on the device its tensors are on; ``init_params``
+and ``init_cache`` put them on the CUDA card unless given a device.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +70,16 @@ from .layers import (
     moe_init,
     norm_apply,
     norm_init,
+)
+from .recurrent import (
+    rglru_apply,
+    rglru_init,
+    rglru_state_init,
+    rwkv6_channelmix_apply,
+    rwkv6_channelmix_init,
+    rwkv6_state_init,
+    rwkv6_timemix_apply,
+    rwkv6_timemix_init,
 )
 
 
@@ -100,22 +124,24 @@ def _remat(fn):
     return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
-def require_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this slice does not run:
-    rglru, rwkv6 and encdec (ROADMAP A9c brings them)."""
-    if cfg.family != "lm":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP A9c)"
-        )
-
-
 def _stacks(cfg: ModelConfig) -> list:
-    """[(stack key, layers, MoE?)] in the order the layers run: the dense
-    stack, then the MoE stack; an empty stack is left out."""
-    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
-    n_dense = cfg.n_layers - n_moe
-    return [(key, n, moe) for key, n, moe in (("dense_blocks", n_dense, False),
-                                               ("blocks", n_moe, True)) if n]
+    """[(stack key, entries, block kind)] in the order the layers run (the
+    decoder's, for encdec; ``_encode`` runs the encoder's).  A family's
+    empty stacks are left out, as the reference leaves them out, except
+    the rglru super-blocks, which the reference always builds."""
+    if cfg.family == "lm":
+        n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+        stacks = [("dense_blocks", cfg.n_layers - n_moe, "dense"), ("blocks", n_moe, "moe")]
+        return [s for s in stacks if s[1]]
+    if cfg.family == "rglru":
+        n_super, n_tail = divmod(cfg.n_layers, len(cfg.block_pattern))
+        tail = [("tail_blocks", n_tail, cfg.block_pattern[0])] if n_tail else []
+        return [("super_blocks", n_super, "super")] + tail
+    if cfg.family == "rwkv6":
+        return [("blocks", cfg.n_layers, "rwkv")]
+    if cfg.family == "encdec":
+        return [("blocks", cfg.n_layers, "dec")]
+    raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +200,135 @@ def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
     return x + mlp_out, aux, new_cache
 
 
+def _mixer_block_apply(cfg: ModelConfig, kind: str, p, x, positions, state=None):
+    """One recurrentgemma layer (``kind`` "rec": RG-LRU, "attn": local
+    attention over ``cfg.window``) -> (x, state)."""
+    h = norm_apply(cfg, p["norm1"], x)
+    if kind == "rec":
+        mix_out, new_state = rglru_apply(cfg, p["rec"], h, state=state)
+    else:
+        mix_out, new_state = attention_apply(
+            cfg, p["attn"], h, positions=positions, causal=True, window=cfg.window, cache=state)
+    x = x + mix_out
+    h = norm_apply(cfg, p["norm2"], x)
+    return x + mlp_apply(cfg, p["mlp"], h), new_state
+
+
+def _rwkv_block_apply(cfg: ModelConfig, p, x, state=None):
+    tstate = None if state is None else state["time"]
+    cstate = None if state is None else state["channel"]
+    h, new_t = rwkv6_timemix_apply(cfg, p["time"], norm_apply(cfg, p["norm1"], x), state=tstate)
+    x = x + h
+    h, new_c = rwkv6_channelmix_apply(cfg, p["channel"], norm_apply(cfg, p["norm2"], x),
+                                      state=cstate)
+    return x + h, {"time": new_t, "channel": new_c}
+
+
+def _sinusoidal(positions, d: int) -> torch.Tensor:
+    """(..., S) positions -> (..., S, d) fp32 ``[sin, cos]`` of position x
+    frequency; the frequencies in float64, then fp32, as the reference's
+    NumPy constants reach JAX, computed on the positions' device (a host
+    copy would make a decode step wait for the host)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float64, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs.float()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _cross_kv(cfg: ModelConfig, p, enc):
+    """Cross-attention K / V of the encoder output, in its dtype."""
+    dt = enc.dtype
+    b, se, _ = enc.shape
+    hd = cfg.head_dim_
+    k = (enc @ p["w_k"].to(dt)).reshape(b, se, cfg.n_kv_heads, hd)
+    v = (enc @ p["w_v"].to(dt)).reshape(b, se, cfg.n_kv_heads, hd)
+    return k, v
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, -1)
+
+
+def _enc_block_apply(cfg: ModelConfig, p, x, positions):
+    h1 = norm_apply(cfg, p["norm1"], x)
+    a_out, _ = attention_apply(cfg, p["attn"], h1, positions=positions, causal=False)
+    x = x + a_out
+    h2 = norm_apply(cfg, p["norm2"], x)
+    return x + mlp_apply(cfg, p["mlp"], h2)
+
+
+def _dec_block_apply(cfg: ModelConfig, p, x, positions, enc, cache=None):
+    """One whisper decoder layer -> (x, cache): causal self-attention (the
+    ring cache in decode), cross-attention to ``enc`` (K / V recomputed
+    from it here, queries not roped), MLP."""
+    h1 = norm_apply(cfg, p["norm1"], x)
+    a_out, new_cache = attention_apply(cfg, p["attn"], h1, positions=positions, causal=True,
+                                       cache=cache)
+    x = x + a_out
+    h2 = norm_apply(cfg, p["norm2"], x)
+    k, v = _cross_kv(cfg, p["cross"], enc)
+    enc_pos = _positions(enc.shape[0], enc.shape[1], enc.device)
+    c_out, _ = attention_apply(cfg, p["cross"], h2, positions=positions,
+                               kv_override=(k, v, enc_pos))
+    x = x + c_out
+    h3 = norm_apply(cfg, p["norm3"], x)
+    return x + mlp_apply(cfg, p["mlp"], h3), new_cache
+
+
+def _block_apply(cfg: ModelConfig, kind: str, p, x, positions, state=None, enc=None):
+    """One entry of a stack -> (x, aux, state): ``aux`` the MoE layer's
+    load-balancing loss, None elsewhere (the reference's zero); ``state``
+    the entry's cache or recurrent state, written in place in decode."""
+    if kind == "super":
+        for i, sub in enumerate(cfg.block_pattern):
+            x, _ = _mixer_block_apply(cfg, sub, p[f"l{i}"], x, positions,
+                                      None if state is None else state[f"l{i}"])
+        return x, None, state
+    if kind in ("rec", "attn"):
+        x, state = _mixer_block_apply(cfg, kind, p, x, positions, state)
+        return x, None, state
+    if kind == "rwkv":
+        x, state = _rwkv_block_apply(cfg, p, x, state)
+        return x, None, state
+    if kind == "dec":
+        x, state = _dec_block_apply(cfg, p, x, positions, enc, state)
+        return x, None, state
+    if kind == "enc":
+        return _enc_block_apply(cfg, p, x, positions), None, None
+    return _lm_block_apply(cfg, p, x, positions, cache=state)
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+
+def _block_init(cfg: ModelConfig, kind: str, generator, lead: tuple, device) -> dict:
+    """The parameters of a stack of ``lead`` entries of one kind of block."""
+    d = cfg.d_model
+    if kind == "super":
+        return {f"l{i}": _block_init(cfg, sub, generator, lead, device)
+                for i, sub in enumerate(cfg.block_pattern)}
+    norms = ("norm1", "norm2", "norm3") if kind == "dec" else ("norm1", "norm2")
+    block = {name: norm_init(cfg, d, lead=lead, device=device) for name in norms}
+    if kind == "rwkv":
+        block["time"] = rwkv6_timemix_init(generator, cfg, lead=lead, device=device)
+        block["channel"] = rwkv6_channelmix_init(generator, cfg, lead=lead, device=device)
+        return block
+    if kind == "rec":
+        block["rec"] = rglru_init(generator, cfg, lead=lead, device=device)
+    elif cfg.mla is not None:
+        block["mla"] = mla_init(generator, cfg, cfg.mla, lead=lead, device=device)
+    else:
+        block["attn"] = attention_init(generator, cfg, lead=lead, device=device)
+    if kind == "dec":
+        block["cross"] = attention_init(generator, cfg, lead=lead, device=device)
+    if kind == "moe":
+        block["moe"] = moe_init(generator, cfg, cfg.moe, lead=lead, device=device)
+    else:
+        block["mlp"] = mlp_init(generator, cfg, d, cfg.d_ff, lead=lead, device=device)
+    return block
 
 
 def _param_tree(cfg: ModelConfig, generator, device) -> dict:
@@ -187,21 +339,11 @@ def _param_tree(cfg: ModelConfig, generator, device) -> dict:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _init(generator, (d, cfg.vocab), device)
-    for key, n, use_moe in _stacks(cfg):
-        lead = (n,)
-        block = {
-            "norm1": norm_init(cfg, d, lead=lead, device=device),
-            "norm2": norm_init(cfg, d, lead=lead, device=device),
-        }
-        if cfg.mla is not None:
-            block["mla"] = mla_init(generator, cfg, cfg.mla, lead=lead, device=device)
-        else:
-            block["attn"] = attention_init(generator, cfg, lead=lead, device=device)
-        if use_moe:
-            block["moe"] = moe_init(generator, cfg, cfg.moe, lead=lead, device=device)
-        else:
-            block["mlp"] = mlp_init(generator, cfg, d, cfg.d_ff, lead=lead, device=device)
-        params[key] = block
+    for key, n, kind in _stacks(cfg):
+        params[key] = _block_init(cfg, kind, generator, (n,), device)
+    if cfg.family == "encdec":
+        params["enc_blocks"] = _block_init(cfg, "enc", generator, (cfg.n_enc_layers,), device)
+        params["enc_final_norm"] = norm_init(cfg, d, device=device)
     return params
 
 
@@ -210,13 +352,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     and placed on ``device`` (None: the CUDA card; raises without one).
     Matrices are ``0.02 * truncated_normal(-2, 2)``, norms start at one
     (scale) and zero (bias), as in the reference."""
-    require_supported(cfg)
     return _param_tree(cfg, generator, resolve_device(device))
 
 
 def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes and dtypes, on the meta device."""
-    require_supported(cfg)
     return _param_tree(cfg, None, torch.device("meta"))
 
 
@@ -243,7 +383,6 @@ class LanguageModel(_ParamTree):
     and ``prefill`` / ``decode`` call the functions of this module."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
-        require_supported(cfg)
         super().__init__(params)
         self.cfg = cfg
 
@@ -275,6 +414,38 @@ def _logits(cfg: ModelConfig, params, x):
     return (x[:, -1] @ _lm_head(cfg, params).to(layers.COMPUTE_DTYPE)).float()
 
 
+def _run_stack(cfg: ModelConfig, kind: str, stacked: dict, n: int, x, positions, enc=None):
+    """The ``n`` entries of one stack over ``x`` -> (x, the entries' summed
+    aux, None without MoE).  While autograd records, each entry (a layer,
+    or a whole rglru super-block) runs under the remat policy; the
+    decoder's encoder output ``enc`` is an argument of the remat unit."""
+    def block(p, h, *memory):
+        h, aux, _ = _block_apply(cfg, kind, p, h, positions, enc=memory[0] if memory else None)
+        return h, aux
+
+    memory = () if enc is None else (enc,)
+    run = _remat(block) if _records(x, stacked, *memory) else block
+    aux = None
+    for layer in _unbind_layers(stacked, n):
+        x, layer_aux = run(layer, x, *memory)
+        x = constrain(x)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
+    return x, aux
+
+
+def _encode(cfg: ModelConfig, params, frames):
+    """The encoder over (B, enc_seq, D) frames: the fp32 sinusoid added in
+    the compute dtype, ``n_enc_layers`` non-causal blocks (RoPE on their
+    attention, as the reference), the final norm."""
+    x = frames.to(layers.COMPUTE_DTYPE)
+    b, s, _ = x.shape
+    positions = _positions(b, s, x.device)
+    x = constrain(x + _sinusoidal(positions, cfg.d_model).to(x.dtype))
+    x, _ = _run_stack(cfg, "enc", params["enc_blocks"], cfg.n_enc_layers, x, positions)
+    return norm_apply(cfg, params["enc_final_norm"], x)
+
+
 def forward(cfg: ModelConfig, params, batch: dict):
     """Full-sequence forward -> final hidden states (B, S, D) and the aux
     loss: the MoE layers' load-balancing losses summed per stack, then over
@@ -282,8 +453,9 @@ def forward(cfg: ModelConfig, params, batch: dict):
 
     batch: {"tokens": (B, S) int} plus, for a VLM, {"patches": (B,
     vision_prefix, D)} (the stub vision tower's output), prepended to the
-    text and stripped from the result."""
-    require_supported(cfg)
+    text and stripped from the result, and for encdec {"frames": (B,
+    enc_seq, D)} (the stub audio frontend's output), which the encoder
+    reads."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = constrain(_embed(params, tokens))
@@ -292,21 +464,16 @@ def forward(cfg: ModelConfig, params, batch: dict):
         prefix = batch["patches"].to(layers.COMPUTE_DTYPE)
         n_prefix = prefix.shape[1]
         x = torch.cat([prefix, x], dim=1)
-    positions = torch.arange(s + n_prefix, dtype=torch.int32, device=x.device).expand(b, -1)
-
-    def block(p, h):
-        return _lm_block_apply(cfg, p, h, positions)[:2]
-
+    positions = _positions(b, s + n_prefix, x.device)
+    enc = None
+    if cfg.family == "encdec":
+        enc = _encode(cfg, params, batch["frames"])
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for key, n, _ in _stacks(cfg):
-        run = _remat(block) if _records(x, params[key]) else block
-        stack_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in _unbind_layers(params[key], n):
-            x, layer_aux = run(layer, x)
-            x = constrain(x)
-            if layer_aux is not None:
-                stack_aux = stack_aux + layer_aux
-        aux = aux + stack_aux
+    for key, n, kind in _stacks(cfg):
+        x, stack_aux = _run_stack(cfg, kind, params[key], n, x, positions, enc)
+        if stack_aux is not None:
+            aux = aux + stack_aux
     x = norm_apply(cfg, params["final_norm"], x)
     if n_prefix:
         x = x[:, n_prefix:]
@@ -357,22 +524,40 @@ def prefill(cfg: ModelConfig, params, batch: dict) -> torch.Tensor:
     return _logits(cfg, params, hidden)
 
 
+def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, lead: tuple,
+                 device) -> dict:
+    """The decode state of a stack of ``lead`` entries of one kind."""
+    if kind == "super":
+        return {f"l{i}": _block_cache(cfg, sub, batch, max_len, lead, device)
+                for i, sub in enumerate(cfg.block_pattern)}
+    if kind == "rec":
+        return rglru_state_init(cfg, batch, lead=lead, device=device)
+    if kind == "rwkv":
+        return rwkv6_state_init(cfg, batch, lead=lead, device=device)
+    if cfg.mla is not None:
+        return mla_cache_init(cfg, batch, max_len, lead=lead, device=device)
+    window = cfg.window if kind == "attn" or cfg.attn_kind == "swa" else 0
+    return attention_cache_init(cfg, batch, max_len, window, lead=lead, device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """The stacked ring-buffer caches, one per stack of layers ("dense_blocks",
-    "blocks"), on ``device`` (None: the CUDA card): {"k", "v": (L, B, size,
-    Hkv, D) bf16, "pos": (L, B, size) int32 (2**30 where empty), "index":
-    (L,) int32}, size clamped to the window under SWA; with MLA the
+    """The stacked decode caches, one per stack (``_stacks``), on
+    ``device`` (None: the CUDA card).  An attention layer keeps a ring
+    {"k", "v": (L, B, size, Hkv, D) bf16, "pos": (L, B, size) int32
+    (2**30 where empty), "index": (L,) int32}, size clamped to the window
+    under SWA and in recurrentgemma's local attention; with MLA the
     compressed {"ckv": (L, B, max_len, kv_lora), "krope": (L, B, max_len,
-    qk_rope), "pos", "index"}."""
-    require_supported(cfg)
+    qk_rope), "pos", "index"}; an RG-LRU layer {"h": (L, B, W), "conv":
+    (L, B, 3, W)} and an RWKV6 layer {"time": {"S": (L, B, H, dk, dv),
+    "prev": (L, B, 1, D)}, "channel": {"prev"}}, fp32 zeros.  encdec adds
+    "enc_out", (B, enc_seq, D) zeros in the compute dtype: the encoder
+    output that decode reads (nothing fills it, as in the reference)."""
     dev = resolve_device(device)
-    window = cfg.window if cfg.attn_kind == "swa" else 0
-    cache = {}
-    for key, n, _ in _stacks(cfg):
-        if cfg.mla is not None:
-            cache[key] = mla_cache_init(cfg, batch, max_len, lead=(n,), device=dev)
-        else:
-            cache[key] = attention_cache_init(cfg, batch, max_len, window, lead=(n,), device=dev)
+    cache = {key: _block_cache(cfg, kind, batch, max_len, (n,), dev)
+             for key, n, kind in _stacks(cfg)}
+    if cfg.family == "encdec":
+        cache["enc_out"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                       dtype=layers.COMPUTE_DTYPE, device=dev)
     return cache
 
 
@@ -381,16 +566,22 @@ def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
     the parameters' device -> (logits (B, V) fp32, cache).
 
     The cache is updated IN PLACE and returned: the caller's cache is
-    consumed (the reference returns a new one and leaves its input).  The
-    slot arithmetic runs on the device, so a step makes no host sync."""
-    require_supported(cfg)
+    consumed (the reference returns a new one and leaves its input).  Ring
+    slots, positions and indices, and the recurrent states, are written
+    into the stacked tensors on the device, so a step makes no host sync.
+    encdec reads ``cache["enc_out"]`` (every layer recomputes its cross
+    K / V from it) and leaves it as it is."""
     tokens, positions = batch["tokens"], batch["positions"]
     x = constrain(_embed(params, tokens))
-    for key, n, _ in _stacks(cfg):
+    enc = None
+    if cfg.family == "encdec":
+        enc = cache["enc_out"].to(layers.COMPUTE_DTYPE)
+        x = x + _sinusoidal(positions, cfg.d_model).to(x.dtype)
+    for key, n, kind in _stacks(cfg):
         blocks, caches = params[key], cache[key]
         for i in range(n):
-            x, _, _ = _lm_block_apply(cfg, _layer(blocks, i), x, positions,
-                                      cache=_layer(caches, i))
+            x, _, _ = _block_apply(cfg, kind, _layer(blocks, i), x, positions,
+                                   state=_layer(caches, i), enc=enc)
             x = constrain(x)
     x = norm_apply(cfg, params["final_norm"], x)
     return _logits(cfg, params, x), cache

@@ -16,13 +16,14 @@ in place).  ``make_prefill_step(cfg)`` -> step(params, batch) -> the
 last-position logits.
 
 Each step keeps one bf16 working copy of the matmul weights (embedding,
-head, attention, MLP, router and expert matrices), made the first time
+head, attention, MLP, router, expert, RG-LRU and RWKV6 matrices; the list
+is ``_MATMUL_LEAVES`` and every ``w_*``), made the first time
 it sees a parameter tree and reused while the same tree object comes
 back; a tree changed in place needs a new step.  The reference casts
 every weight to bf16 inside each call (``p["w_q"].astype(dt)``); the
 cast is deterministic, so the copy holds the same bits and the layers'
 own casts become no-ops.  Norm scales and biases stay fp32, since the norms
-multiply by them in fp32.
+multiply by them in fp32, and so do the recurrent families' vectors.
 """
 
 from __future__ import annotations
@@ -32,12 +33,22 @@ import torch
 from ..models import decode_step, loss_fn, prefill
 from ..models.config import ModelConfig
 from ..models import layers
-from ..models.lm import require_supported
 from .optimizer import AdamWConfig, adamw_init, adamw_update, tree_flatten
 
 
+# Cast: the leaves the reference casts to the compute dtype at every use
+# and multiplies as matrices -- the embedding and head, every ``w_*``
+# (attention, cross-attention, MLP, experts, RG-LRU and RWKV projections),
+# the router and RWKV6's low-rank mix and decay factors.  Kept fp32: norm
+# scales and biases, RG-LRU's ``a_param`` and conv, RWKV6's ``mix_base``,
+# ``mix_k`` / ``mix_r``, ``ln_scale``, and ``decay_base`` and ``bonus_u``,
+# which the reference reads in fp32 (a bf16 copy would round them).
+_MATMUL_LEAVES = ("embed", "lm_head", "router", "mix_lora_a", "mix_lora_b", "decay_lora_a",
+                  "decay_lora_b")
+
+
 def _is_matmul_weight(name: str) -> bool:
-    return name in ("embed", "lm_head", "router") or name.startswith("w_")
+    return name in _MATMUL_LEAVES or name.startswith("w_")
 
 
 def bf16_working_copy(params: dict) -> dict:
@@ -95,8 +106,6 @@ def make_train_step(
     n_microbatches: int = 1,
     grad_dtype: torch.dtype = torch.float32,
 ):
-    require_supported(cfg)
-
     def value_and_grad(leaves, rebuild, batch):
         # detached aliases of the master leaves: the gradient is taken with
         # respect to them, and the caller's tensors gain no autograd state

@@ -1182,3 +1182,103 @@ def test_lm_moe_train_step_on_card_matches_cpu(cuda_device, arch):
     for key in ("loss", "grad_norm", "m", "v"):
         _lm_hold_values(out["cuda"][key], out["cpu"][key], out["fp32"][key],
                         factor=MOE_TRAIN_FACTOR)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent, RWKV and encoder-decoder families on the card (reduced
+# configs of recurrentgemma-9b, rwkv6-3b and whisper-large-v3): a prefill of
+# 300 tokens (three RWKV chunks, one padded) and 20 decode steps (past
+# recurrentgemma's window of 16: its ring wraps), whisper's ``enc_out`` its
+# own encoding of random frames.  fp32-compute runs of the card and the CPU
+# agree at rtol 1e-4 / atol 1e-5; the card's bf16 logits are held to the
+# CPU's fp32 run at REC_NOISE_FACTOR x the CPU bf16 control, one train step
+# at REC_TRAIN_FACTOR (chip_smoke.py phase 16d / 16e, where the factors'
+# grounds are stated).
+# ---------------------------------------------------------------------------
+
+LM_REC = ("recurrentgemma-9b", "rwkv6-3b", "whisper-large-v3")
+REC_NOISE_FACTOR, REC_TRAIN_FACTOR = 3.0, 5.0
+
+
+def _lm_rec_batch(cfg, shape, seed):
+    batch = {"tokens": _lm_tokens(cfg, shape, seed=seed)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (shape[0], cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _lm_rec_runs(cfg, cpu_p, card_p, batch, steps, device):
+    """A prefill of ``batch`` and ``steps`` decode steps fed its first tokens
+    against a fresh cache of the prompt's length (whisper: ``enc_out`` each
+    run's own encoding of the frames), on the card and the CPU in bf16 and
+    in fp32 -> ({run: [logits]}, {run: cache})."""
+    from repro_torch.models import decode_step, init_cache, lm, prefill
+
+    b, p = batch["tokens"].shape
+    out, caches = {}, {}
+    for name, params, dev, fp32 in (("cuda", card_p, device, False), ("cpu", cpu_p, "cpu", False),
+                                    ("cuda32", card_p, device, True), ("fp32", cpu_p, "cpu", True)):
+        with _fp32_compute() if fp32 else contextlib.nullcontext():
+            on = {k: v.to(dev) for k, v in batch.items()}
+            logits = [prefill(cfg, params, on)]
+            cache = init_cache(cfg, b, p, device=dev)
+            if cfg.family == "encdec":
+                cache["enc_out"] = lm._encode(cfg, params, on["frames"]).to(
+                    cache["enc_out"].dtype)
+            for t in range(steps):
+                step = {"tokens": on["tokens"][:, t:t + 1],
+                        "positions": torch.full((b, 1), t, dtype=torch.int32, device=dev)}
+                got, cache = decode_step(cfg, params, cache, step)
+                logits.append(got)
+        out[name], caches[name] = logits, cache
+    return out, caches
+
+
+@pytest.mark.parametrize("arch", LM_REC)
+def test_lm_rec_prefill_and_decode_on_card_match_cpu(cuda_device, arch):
+    from repro_torch.train.optimizer import tree_flatten
+
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    out, caches = _lm_rec_runs(cfg, cpu_p, card_p, _lm_rec_batch(cfg, (8, 300), 9), 20,
+                               cuda_device)
+    for card, cpu, c32, truth in zip(out["cuda"], out["cpu"], out["cuda32"], out["fp32"]):
+        torch.testing.assert_close(c32.cpu(), truth, rtol=1e-4, atol=1e-5)
+        card, cpu, truth = (t.float().cpu() for t in (card, cpu, truth))
+        control = max(float((cpu - truth).abs().max()), 2.0**-8 * float(truth.abs().max()))
+        assert float((card - truth).abs().max()) <= REC_NOISE_FACTOR * control
+    for a, b in zip(tree_flatten(caches["cuda"])[0], tree_flatten(caches["cpu"])[0]):
+        if not a.is_floating_point():  # ring positions and indices
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("arch", LM_REC)
+def test_lm_rec_decode_step_makes_no_host_sync(cuda_device, arch):
+    """The recurrent states and rings are written on the card."""
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_serve_step
+
+    cfg, _, card_p = _lm_setup(arch)
+    step = make_serve_step(cfg)
+    cache = init_cache(cfg, 8, 4, device=cuda_device)
+    batch = {"tokens": _lm_tokens(cfg, (8, 1)).to(cuda_device),
+             "positions": torch.zeros((8, 1), dtype=torch.int32, device=cuda_device)}
+    step(card_p, cache, batch)
+    batch["positions"] = torch.ones((8, 1), dtype=torch.int32, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = step(card_p, cache, batch)
+        tokens = torch.argmax(logits, dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tokens.shape == (8,)
+
+
+@pytest.mark.parametrize("arch", LM_REC)
+def test_lm_rec_train_step_on_card_matches_cpu(cuda_device, arch):
+    cfg, cpu_p, card_p = _lm_setup(arch)
+    out = _lm_train_runs(cfg, cpu_p, card_p, _lm_rec_batch(cfg, (2, 128), 10), cuda_device)
+    for key in ("loss", "grad_norm", "m", "v"):
+        _lm_hold_values(out["cuda"][key], out["cpu"][key], out["fp32"][key],
+                        factor=REC_TRAIN_FACTOR)

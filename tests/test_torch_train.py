@@ -380,7 +380,10 @@ def test_chunked_ce_pads_the_tail_like_the_reference(fp32, monkeypatch):
 @pytest.mark.parametrize("arch,spec", [
     ("smollm-135m", SMOKE_TRAIN), ("smollm-135m", SMOKE_DECODE),
     ("internvl2-26b", SHAPES["prefill_32k"]), ("internvl2-26b", SMOKE_DECODE),
-    ("whisper-large-v3", SHAPES["train_4k"]),  # frames; its decode cache waits for A9c
+    ("whisper-large-v3", SHAPES["train_4k"]),  # frames
+    ("whisper-large-v3", SMOKE_DECODE),  # the decoder's rings and enc_out
+    ("recurrentgemma-9b", SMOKE_DECODE), ("recurrentgemma-9b", SHAPES["long_500k"]),
+    ("rwkv6-3b", SMOKE_DECODE), ("rwkv6-3b", SHAPES["long_500k"]),
 ], ids=lambda x: getattr(x, "name", x))
 def test_input_specs_match_reference(arch, spec):
     cfg = configs.get_config(arch)

@@ -85,11 +85,15 @@ def _hold_leaves(got, want):
                                    atol=1e-5 * float(np.abs(w).max()))
 
 
-def _hold_update(before, after, jbefore, jafter, jprev, jstate):
+def _hold_update(before, after, jbefore, jafter, jprev, jstate, tree_floor=False):
     """The port's update ``after - before`` against the reference's
     ``jafter - jbefore``, one step from the same parameters and AdamW state
     ``jprev`` (the reference's state after it: ``jstate``), leaf by leaf,
-    at the module docstring's tolerance."""
+    at the module docstring's tolerance.  ``tree_floor``: the gradient's
+    absolute tolerance is at least 2**-23 x the largest |gradient| of the
+    whole tree -- one backward pass rounds every leaf at that scale, which
+    a leaf whose gradients are a thousandth of the others' (whisper's
+    cross-attention keys at init) sits under."""
     o = jopt.AdamWConfig(**PARITY_OPT)
     k = int(jstate["count"])
     bc1, bc2 = 1 - o.b1**k, 1 - o.b2**k
@@ -103,14 +107,17 @@ def _hold_update(before, after, jbefore, jafter, jprev, jstate):
     want = [a - b for a, b in zip(leaves(jafter), leaves(jbefore))]
     m0, m, v = leaves(jprev["m"]), leaves(jstate["m"]), leaves(jstate["v"])
     assert len(got) == len(want) == len(m)
+    grads = [(m[i] - o.b1 * m0[i]) / (1 - o.b1) for i in range(len(m))]  # the clipped gradients
+    floor = 2.0**-23 * max(float(np.abs(g).max()) for g in grads) if tree_floor else 0.0
     for i, (g_, w) in enumerate(zip(got, want)):
-        grad = (m[i] - o.b1 * m0[i]) / (1 - o.b1)  # the clipped gradient
+        grad = grads[i]
         big_m, root = m[i] / bc1, np.sqrt(v[i] / bc2)
         d_root = np.divide((1 - o.b2) * grad, bc2 * root, out=np.zeros_like(root),
                            where=root > 0)
         d_step = np.abs(((1 - o.b1) / bc1 * (root + o.eps) - big_m * d_root)
                         / (root + o.eps) ** 2)
-        from_grad = lr * d_step * (RTOL * np.abs(grad) + 1e-5 * np.abs(grad).max())
+        from_grad = lr * d_step * (RTOL * np.abs(grad)
+                                   + max(1e-5 * np.abs(grad).max(), floor))
         own = RTOL * np.abs(w) + 1e-5 * np.abs(w).max()
         bad = np.abs(g_ - w) > own + from_grad
         assert not bad.any(), (i, int(bad.sum()), float(np.abs(g_ - w)[bad].max()))
@@ -125,3 +132,58 @@ def _hold_state(got, want):
 
 def _close(a, b, rtol=RTOL):
     np.testing.assert_allclose(float(a), float(b), rtol=rtol)
+
+
+def family_batch(cfg, toks, seed=0):
+    """(reference batch, port batch) of ``toks`` (B, S) plus the family's
+    extra input: encdec's (B, enc_seq, D) frames (standard normal, from a
+    NumPy seed; both packages cast them to the compute dtype alike)."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if cfg.family == "encdec":
+        frames = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        jb["frames"], tb["frames"] = jnp.asarray(frames), torch.from_numpy(frames)
+    return jb, tb
+
+
+def hold_decode(jc, jp, c, tp, toks, cache_len, tol, prepare=None):
+    """Decode ``toks`` (B, T) one token a step, token t at position t, in
+    both packages from a fresh cache of ``cache_len`` positions (``prepare
+    (jcache, tcache) -> (jcache, tcache)`` may fill it first): each step's
+    logits at ``tol``, the port's cache consumed (the same dict back), and
+    after each step every cache leaf against the reference's -- integer
+    leaves (ring positions, indices) exactly, float leaves (K / V rings,
+    recurrent states) at ``tol``'s rtol and its atol times the leaf's
+    largest magnitude (at least 1): a bf16 rounding that differs in one
+    layer reaches the next layer's normed input, which an RWKV "prev" or a
+    recurrent state keeps.  -> the last (reference, port) caches."""
+    from repro_torch.models import decode_step, init_cache
+
+    b, steps = toks.shape
+    jcache, tcache = jlm.init_cache(jc, b, cache_len), init_cache(c, b, cache_len, device="cpu")
+    if prepare is not None:
+        jcache, tcache = prepare(jcache, tcache)
+    step = jax.jit(lambda p, cc, bb: jlm.decode_step(jc, p, cc, bb))
+    for t in range(steps):
+        pos = np.full((b, 1), t, np.int32)
+        want, jcache = step(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1]),
+                                         "positions": jnp.asarray(pos)})
+        got, same = decode_step(c, tp, tcache, {"tokens": torch.from_numpy(toks[:, t:t + 1]),
+                                                "positions": torch.from_numpy(pos)})
+        assert same is tcache
+        assert got.dtype == torch.float32 and tuple(got.shape) == (b, c.vocab)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+        wl = jax.tree.leaves(jcache)
+        gl = tree_flatten(tcache)[0]
+        assert len(wl) == len(gl)
+        for g, w in zip(gl, wl):
+            w = np.asarray(w)
+            assert tuple(g.shape) == w.shape
+            if g.is_floating_point():
+                w = w.astype(np.float32)
+                scale = max(1.0, float(np.abs(w).max()))
+                np.testing.assert_allclose(g.float().numpy(), w, rtol=tol["rtol"],
+                                           atol=tol["atol"] * scale)
+            else:
+                np.testing.assert_array_equal(g.numpy(), w)
+    return jcache, tcache
