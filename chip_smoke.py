@@ -15,8 +15,9 @@ checkpoint store, durability simulator), the multi-card sweep, the
 language-model serving path that routes its requests with ASURA, the
 training path that reads ASURA-placed data shards and keeps ASURA-placed
 checkpoints, the MoE models (mixtral-8x22b, deepseek-v2-236b) on both,
-and the recurrent, RWKV and encoder-decoder families (recurrentgemma-9b,
-rwkv6-3b, whisper-large-v3) on both.
+the recurrent, RWKV and encoder-decoder families (recurrentgemma-9b,
+rwkv6-3b, whisper-large-v3) on both, and the sharded model path on a
+(data, model) mesh.
 The deployment follows the repository's own Fig. 5 evaluation points
 (``benchmarks/calc_time.py``): a heterogeneous 4096-node cluster with
 capacities drawn from ``--seed`` in [0.5, 2.0), and one 10,000-node
@@ -260,9 +261,23 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            beside its FLOP bound, with peak memory; the training CLI for
            whisper at ``--reduced`` (frames; B1 pipeline, B2 store): its
            loss must fall;
+ 17. the sharded model path (``launch.{mesh,shardings,dryrun}``):
+      17a. smollm-135m at full width on an NCCL world-size-1 (data, model)
+           mesh, batch 8 x 512 from ``DataPipeline`` ownership (B1): one
+           train step (AdamW from a warm-up of one step), a prefill and 4
+           decode steps (sync-debug "error") against the unsharded steps
+           on the card, at the limits ``SHARD_*`` (PERF.md section 6); the
+           new parameters against AdamW in float64 (``UPDATE_ULPS``, with
+           two controls that must fail it), step ms of both;
+      17b. the dry run of ``DRY_CELL`` on a fake 16x16 group on this host:
+           per-device argument / output / temp / peak bytes against the
+           card's memory, FLOPs, collective bytes by kind;
+      17c. ``python -m repro_torch.launch.shardings --selftest``: 4 CPU
+           gloo ranks on a 2x2 mesh under this host's torch, started
+           after 17a's timed steps and run beside 17b;
   6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
      launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
-     13a-13b, 14a, 15a-15b, 15d, 16a, 16e), time at
+     13a-13b, 14a, 15a-15b, 15d, 16a, 16e, 17a), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
      once per lane, with the count that hashes it at every consult beside
@@ -499,6 +514,17 @@ REC_TRAIN_FULL = (2, 4_096)  # 16e: batch x sequence of the timed full-width ste
 # rwkv6's 32 layers, whisper whole (~48, ~29 and ~45 GB)
 REC_TRAIN_LAYERS = {"recurrentgemma-9b": 3, "rwkv6-3b": 8}
 REC_TRAIN_CLI = ["--arch", "whisper-large-v3", "--reduced"]  # frames; 20 steps of 8 x 128
+# phase 17, the sharded model path (PERF.md section 6 states these limits)
+SHARD_ARCH = "smollm-135m"
+SHARD_BATCH = (8, 512)  # 17a: the pipeline's batch x sequence (train, prefill; the decode cache)
+SHARD_DECODE = 4  # 17a: decode steps under sync-debug "error"
+SHARD_TIMED = 3  # 17a: CUDA-event calls per step kind
+SHARD_LOSS_RTOL = 1e-5  # 17a: the reference's own sharded-vs-unsharded loss tolerance
+SHARD_GNORM_RTOL = 1e-3  # 17a: grad_norm (the card's earlier runs read 1.97e-4)
+SHARD_M_RTOL = 0.1  # 17a: AdamW's m, each leaf against its own max |m| (CPU rehearsal <= 0.0130)
+SHARD_V_RTOL = 0.2  # 17a: AdamW's v (~0.05 g^2), likewise (CPU rehearsal <= 0.0190)
+DRY_CELL = ("mixtral-8x22b", "decode_32k")  # 17b (train_4k takes ~3 min on the host: PERF.md section 5)
+SELFTEST_TIMEOUT = 600  # 17c
 CONV_MACS = 4  # RG-LRU's depthwise conv width
 RWKV_CHUNK_LEN = 128  # RWKV6's WKV chunk
 PLAN_FIELDS = ("ids", "src", "dst", "index", "slot", "src_slot")
@@ -1032,6 +1058,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 16: the recurrent, RWKV and encoder-decoder families -----------
     rec_launches = phase16(torch, np, dev, seed)
 
+    # -- phase 17: the sharded model path --------------------------------------
+    shard_launches = phase17(torch, np, dev, seed)
+
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
     for part in (diff_work, base, hier):
         ms.update(part["ms"])
@@ -1043,7 +1072,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     # -- phase 6: the kernels line -------------------------------------------
     main_paths = (bulk_launches, serve_launches, mig_launches, *base["launches"],
                   *hier["launches"], consumer_launches, mesh_launches, lm_launches,
-                  train_launches, moe_launches, rec_launches)
+                  train_launches, moe_launches, rec_launches, shard_launches)
     kernels = []
     for name in KERNELS + (FANOUT,):
         b_ms, b_by = bound(*work[name])
@@ -2946,14 +2975,13 @@ def train_readings(torch, np, cfg, params, tokens, dev, extra=None) -> tuple[dic
     gradient is near zero: the new parameters against fp32 would read at
     most 2 lr and hold nothing.  The card's new parameters are instead
     held to the update recomputed in float64 (on the card) from its own
-    parameters, ``m`` and ``v`` and the schedule's lr: the reading is max
-    |card - recomputed| over ``UPDATE_ULPS`` x (the new parameter's fp32
-    spacing + 2**-23 x lr x (|Adam step| + |wd x p|)), at most 1 when the
+    parameters, ``m`` and ``v`` and the schedule's lr
+    (``optimizer.update_reading`` at ``UPDATE_ULPS``), at most 1 when the
     card's fp32 arithmetic is AdamW's.  Twice the lr or a reversed decay
     reads far above it.  ``extra``: the batch's other inputs (CPU tensors,
     e.g. encdec's frames)."""
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
-    from repro_torch.train.optimizer import tree_flatten
+    from repro_torch.train.optimizer import tree_flatten, update_reading
 
     opt = AdamWConfig(warmup_steps=1)  # the full lr on step 1: the decay term is many ulp of p
     step = make_train_step(cfg, opt)
@@ -2967,17 +2995,7 @@ def train_readings(torch, np, cfg, params, tokens, dev, extra=None) -> tuple[dic
         out[name] = {"loss": [m["loss"].cpu()], "grad_norm": [m["grad_norm"].cpu()],
                      **{k: [x.cpu() for x in tree_flatten(state[k])[0]] for k in ("m", "v")}}
         if name == "card":  # in float64 on the card: on the CPU it took ~8 s per draw
-            lr = float(np.float32(opt.lr))  # the schedule's lr at count 1 (warm-up of 1 step)
-            bc1, bc2 = (1.0 - float(np.float32(b)) for b in (opt.b1, opt.b2))  # count 1, fp32 b
-            for p0, p1, mo, vo in zip(*(tree_flatten(t)[0] for t in (p, new, state["m"],
-                                                                       state["v"]))):
-                p0, mo, vo = (t.double() for t in (p0, mo, vo))
-                adam, decay = (mo / bc1) / (torch.sqrt(vo / bc2) + opt.eps), opt.weight_decay * p0
-                want = p0 - lr * (adam + decay)
-                w32 = want.float().abs()
-                spacing = torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32
-                tol = UPDATE_ULPS * (spacing.double() + 2.0**-23 * lr * (adam.abs() + decay.abs()))
-                worst = max(worst, float(((p1.double() - want).abs() / tol).max()))
+            worst = update_reading(opt, p, new, state, UPDATE_ULPS)
         del new, state
     return {k: (out["card"][k], out["cpu"][k], out["fp32"][k]) for k in out["card"]}, worst
 
@@ -3868,6 +3886,208 @@ def phase16(torch, np, dev, seed, draws: int = REC_DRAWS) -> dict:
     del rep
     torch.cuda.empty_cache()
     print(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def sharded_steps(torch, np, dev, seed) -> tuple[dict, dict]:
+    """17a: smollm-135m at full width on an NCCL world-size-1 ``(data,
+    model)`` mesh against the unsharded steps on the same card -> (B1's
+    launches, step ms).  AdamW at a warm-up of one step, so the update is
+    ~1e5 ulp of a weight: the sharded step's new parameters are held to
+    AdamW recomputed in float64 from its own parameters, ``m`` and ``v``
+    (``update_reading``, as 14b), and two controls on the same moments
+    (the parameters left as they were, the update doubled) must read far
+    above that limit; ``m`` and ``v`` are held leaf by leaf to the
+    unsharded step's, each against its own largest value."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_uniform_cluster
+    from repro_torch.data import DataPipeline, ShardedDataset
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import hooks, init_cache, init_params
+    from repro_torch.train import AdamWConfig, init_train_state, make_prefill_step
+    from repro_torch.train import make_serve_step, make_train_step
+    from repro_torch.train.optimizer import tree_flatten, update_reading
+
+    b, s = SHARD_BATCH
+    cfg = get_config(SHARD_ARCH)
+    adamw = AdamWConfig(warmup_steps=1)
+    reset_launches()
+    pipe = DataPipeline(ShardedDataset(n_shards=16, tokens_per_shard=b * s * 8, vocab=cfg.vocab),
+                        make_uniform_cluster(2, device=dev), 0, batch_per_host=b, seq_len=s)
+    batch = {"tokens": torch.from_numpy(next(pipe.batches())).to(dev)}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    opt = init_train_state(cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    steps = [{"tokens": torch.randint(0, cfg.vocab, (b, 1), generator=gen, device=dev,
+                                      dtype=torch.int32),
+              "positions": torch.full((b, 1), t, dtype=torch.int32, device=dev)}
+             for t in range(SHARD_DECODE + 1)]
+    ms: dict = {}
+
+    def run(params, opt, batch, steps, cache_of, tag: str) -> dict:
+        train = make_train_step(cfg, adamw)
+        prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+        new_p, new_o, metrics = train(params, opt, batch)
+        logits = prefill(params, batch)
+        ms[f"train_{tag}"] = statistics.median(
+            cuda_ms(torch, lambda: train(params, opt, batch), SHARD_TIMED))
+        ms[f"prefill_{tag}"] = statistics.median(
+            cuda_ms(torch, lambda: prefill(params, batch), SHARD_TIMED))
+        serve(params, cache_of(), steps[0])  # warm-up on a cache of its own
+        cache, out = cache_of(), []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            begin.record()
+            for step in steps[1:]:
+                step_logits, cache = serve(params, cache, step)
+                out.append(step_logits)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms[f"decode_{tag}"] = begin.elapsed_time(end) / SHARD_DECODE
+        return dict(params=new_p, state=new_o, metrics=metrics, prefill=logits, decode=out,
+                    cache=cache)
+
+    plain = run(params, opt, batch, steps, lambda: init_cache(cfg, b, s, device=dev), "unsharded")
+    torch.cuda.set_device(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_debug_mesh(1, 1)
+            with hooks.activation_sharding(sh.activation_constraint_fn(mesh)):
+                placed = (sh.distribute_tree(mesh, params, sh.param_shardings(mesh, params)),
+                          sh.distribute_tree(mesh, opt, sh.opt_shardings(mesh, params)),
+                          sh.distribute_tree(mesh, batch, sh.batch_shardings(mesh, batch)))
+                dsteps = [sh.distribute_tree(mesh, x, sh.batch_shardings(mesh, x)) for x in steps]
+
+                def cache_of():
+                    c = init_cache(cfg, b, s, device=dev)
+                    return sh.distribute_tree(mesh, c, sh.cache_shardings(mesh, cfg, c))
+
+                got = run(*placed, dsteps, cache_of, "sharded")
+                got = {k: sh.full_tree(v) if not isinstance(v, list)
+                       else [sh.full_tree(x) for x in v] for k, v in got.items()}
+        finally:
+            dist.destroy_process_group()
+    launches = dict(LAUNCHES)
+    loss_u, loss_s = (float(r["metrics"]["loss"]) for r in (plain, got))
+    norm_u, norm_s = (float(r["metrics"]["grad_norm"]) for r in (plain, got))
+    flat, rebuild = tree_flatten(params)
+    upd = {"sharded": update_reading(adamw, params, got["params"], got["state"], UPDATE_ULPS),
+           "unsharded": update_reading(adamw, params, plain["params"], plain["state"],
+                                       UPDATE_ULPS),
+           "control: unchanged": update_reading(adamw, params, params, got["state"], UPDATE_ULPS),
+           "control: doubled": update_reading(adamw, params, rebuild(
+               [p0 + 2 * (p1 - p0) for p0, p1 in zip(flat, tree_flatten(got["params"])[0])]),
+               got["state"], UPDATE_ULPS)}
+    names = tree_flatten(sh.tree_map_with_path(lambda path, _: ".".join(path), params))[0]
+    moments = {}
+    for key in ("m", "v"):
+        moments[key] = max((float((x - y).abs().max()) / float(y.abs().max()), name)
+                           for x, y, name in zip(tree_flatten(got["state"][key])[0],
+                                                 tree_flatten(plain["state"][key])[0], names))
+    same_prefill = torch.equal(got["prefill"], plain["prefill"])
+    same_decode = all(torch.equal(x, y) for x, y in zip(got["decode"], plain["decode"]))
+    same_cache = all(torch.equal(x, y) for x, y in zip(tree_flatten(got["cache"])[0],
+                                                       tree_flatten(plain["cache"])[0]))
+    print(f"  batch {b} x {s} from DataPipeline ownership (B1), AdamW lr {adamw.lr} from step 1; "
+          f"loss sharded {loss_s:.8f}, unsharded {loss_u:.8f}, rel "
+          f"{abs(loss_s - loss_u) / abs(loss_u):.3e} (limit {SHARD_LOSS_RTOL}); grad_norm "
+          f"{norm_s:.6f} / {norm_u:.6f}, rel {abs(norm_s - norm_u) / norm_u:.3e} (limit "
+          f"{SHARD_GNORM_RTOL})")
+    print(f"  new parameters: max |step - float64 AdamW of its p, m, v| over {UPDATE_ULPS} ulp: "
+          + ", ".join(f"{k} {v:.4f}" if v < 1e3 else f"{k} {v:.4e}" for k, v in upd.items())
+          + " (limit 1; the controls must exceed it)")
+    print("  AdamW moments, worst leaf's max |sharded - unsharded| / its max |unsharded|: "
+          + ", ".join(f"{k} {r:.4f} ({name})" for k, (r, name) in moments.items())
+          + f" (limits {SHARD_M_RTOL} / {SHARD_V_RTOL})")
+    print(f"  prefill logits equal: {same_prefill}; {SHARD_DECODE} decode steps' logits equal: "
+          f"{same_decode}, caches equal: {same_cache} (sync-debug \"error\")")
+    print(f"  ms (CUDA events, median of {SHARD_TIMED}; decode per step of {SHARD_DECODE}; no "
+          f"other process on the host): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    require(math.isfinite(loss_s) and abs(loss_s - loss_u) <= SHARD_LOSS_RTOL * abs(loss_u),
+            "phase 17a: the sharded loss differs from the unsharded one")
+    require(abs(norm_s - norm_u) <= SHARD_GNORM_RTOL * norm_u,
+            "phase 17a: the sharded grad_norm differs from the unsharded one")
+    require(upd["sharded"] <= 1.0 and upd["unsharded"] <= 1.0,
+            "phase 17a: a step's parameter update is not AdamW's arithmetic")
+    require(min(upd["control: unchanged"], upd["control: doubled"]) > 1.0,
+            "phase 17a: the update check does not tell a wrong step from AdamW's")
+    require(moments["m"][0] <= SHARD_M_RTOL and moments["v"][0] <= SHARD_V_RTOL,
+            "phase 17a: the sharded step's AdamW moments differ")
+    require(same_prefill and same_decode and same_cache,
+            "phase 17a: sharded prefill / decode differ from the unsharded steps")
+    require(launches.get("place_fused", 0) > 0, "phase 17a: the pipeline did not launch B1")
+    return launches, ms
+
+
+def phase17(torch, np, dev, seed) -> dict:
+    """The sharded model path: 17a smollm-135m's train, prefill and decode
+    steps at full width on an NCCL world-size-1 mesh against the unsharded
+    steps (the main path, launches counted); 17b the dry run of one
+    full-width cell on the fake 16x16 mesh, on this host; 17c the 2x2
+    sharded-step selftest on 4 CPU gloo ranks, started after 17a's timed
+    steps and run beside 17b."""
+    import os
+    import signal
+
+    from repro_torch.launch import dryrun
+
+    card = card_line(dev)
+    t_phase = time.perf_counter()
+    print(f"phase 17a ({card}): {SHARD_ARCH} at full width on an NCCL world-size-1 "
+          f"(data, model) mesh: one train step, a prefill and {SHARD_DECODE} decode steps, "
+          f"against the unsharded steps on the card")
+    t0 = time.perf_counter()
+    launches, _ = sharded_steps(torch, np, dev, seed)
+    print(f"  main path launches {launches}; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(HERE / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.shardings", "--selftest"],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        arch, shape = DRY_CELL
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"phase 17b (host reckoning for {card}): python -m repro_torch.launch.dryrun "
+              f"--arch {arch} --shape {shape} on a fake 16x16 group")
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, verbose=False, serve_tp_only=True)  # the CLI's default
+        require(r["status"] == "ok", f"phase 17b: the dry run of {arch} x {shape} failed")
+        gb = {k: r[f"{k}_bytes_per_device"] / 1e9 for k in ("argument", "output", "temp", "peak")}
+        print(f"  per device: argument {gb['argument']:.3f} GB, output {gb['output']:.3f} GB, "
+              f"temp {gb['temp']:.3f} GB, peak {gb['peak']:.3f} GB of the card's "
+              f"{total / 1e9:.3f} GB ({'fits' if r['peak_bytes_per_device'] <= total else 'does not fit'})")
+        print(f"  {r['flops'] / 1e12:.3f} TFLOP, {r['hlo_bytes'] / 1e9:.3f} GB of op traffic, "
+              f"collectives {r['collective_bytes_per_device'] / 1e9:.3f} GB: "
+              + ", ".join(f"{k} {v / 1e9:.3f} GB x {r['collectives']['counts'][k]}"
+                          for k, v in sorted(r["collective_by_kind"].items()))
+              + f"; traced in {r['trace_s']} s, {time.perf_counter() - t0:.1f} s")
+
+        print("phase 17c: python -m repro_torch.launch.shardings --selftest (4 CPU gloo ranks, "
+              "2x2 mesh, this host's torch)")
+        out, err = proc.communicate(timeout=SELFTEST_TIMEOUT)
+    finally:
+        if proc.poll() is None:  # stop the ranks too
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    for line in out.splitlines():
+        print(f"  {line}")
+    require(proc.returncode == 0, f"phase 17c: the 2x2 selftest failed:\n{err[-3000:]}")
+    require("sharded model selftest OK on 4 ranks" in out, "phase 17c: the selftest did not report")
+    print(f"  phase 17 {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import MLAConfig, ModelConfig, MoEConfig
+from .hooks import attend, constrain, merge_heads, ring_write, split_heads
 
 COMPUTE_DTYPE = torch.bfloat16
 MASK = -1e30  # additive bias of a masked (query, key) pair
@@ -75,6 +76,7 @@ def norm_init(cfg: ModelConfig, d: int, *, lead: tuple = (), device=None):
 
 
 def norm_apply(cfg: ModelConfig, p, x):
+    x = constrain(x)  # on a mesh: a row-parallel product's pending sum settled first
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
@@ -171,14 +173,23 @@ def attention_init(generator, cfg: ModelConfig, *, lead: tuple = (), device=None
     }
 
 
+def _heads(t, head_dim: int, n: Optional[int] = None):
+    """(..., H * head_dim) -> (..., H, head_dim); ``n``, if given, is H."""
+    n = t.shape[-1] // head_dim if n is None else n
+    return split_heads(t, -1, n).reshape(*t.shape[:-1], n, head_dim)
+
+
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
     """(..., Sq, Sk) additive mask in fp32: 0 where the query may read the
     key, -1e30 elsewhere."""
-    ok = torch.ones((*q_pos.shape, k_pos.shape[-1]), dtype=torch.bool, device=q_pos.device)
+    ok = None  # every pair; the tests below narrow it
     if causal:
-        ok = ok & (q_pos[..., :, None] >= k_pos[..., None, :])
+        ok = q_pos[..., :, None] >= k_pos[..., None, :]
     if window > 0:
-        ok = ok & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+        near = q_pos[..., :, None] - k_pos[..., None, :] < window
+        ok = near if ok is None else ok & near
+    if ok is None:
+        ok = torch.ones_like(q_pos[..., :, None] == k_pos[..., None, :])
     return torch.where(ok, 0.0, MASK).to(torch.float32)
 
 
@@ -206,15 +217,17 @@ def _sdpa(q, k, v, bias):
     group = h // hkv
     scale = 1.0 / math.sqrt(d)
     # (b, hkv, group * sq, d): the rows of one kv head's query group
-    qg = q.reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4).reshape(b, hkv, group * sq, d)
+    qg = split_heads(q, 2, hkv).reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, group * sq, d)
     outs = []
     for j in range(hkv):
-        scores = torch.matmul(qg[:, j], k[:, :, j].transpose(1, 2)).float()
-        scores = _scaled(scores.view(b, group, sq, -1), scale, bias[:, None])
+        scores = torch.bmm(qg[:, j], k[:, :, j].transpose(1, 2)).float()
+        sk = scores.shape[-1]
+        scores = _scaled(scores.view(b, group, sq, sk), scale, bias[:, None])
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        outs.append(torch.matmul(probs.view(b, group * sq, -1), v[:, :, j]))
+        outs.append(torch.bmm(probs.view(b, group * sq, sk), v[:, :, j]))
     out = torch.stack(outs, dim=1).view(b, hkv, group, sq, d)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    return merge_heads(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d), 2, hkv)
 
 
 def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
@@ -235,11 +248,14 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=EMPTY_POS)
-    qg = q.reshape(b, sq, hkv, group, d)
+    qg = split_heads(q, 2, hkv).reshape(b, sq, hkv, group, d)
     scale = 1.0 / math.sqrt(d)
-    m = torch.full((b, hkv, group, sq), MASK, dtype=torch.float32, device=q.device)
-    norm = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, group, sq, d), dtype=torch.float32, device=q.device)
+    # the running state, shaped (and placed, on a mesh) as the queries
+    rows = qg.permute(0, 2, 3, 1, 4)  # (b, hkv, group, sq, d)
+    m = torch.full_like(rows[..., 0], MASK, dtype=torch.float32,
+                        memory_format=torch.contiguous_format)
+    norm = torch.zeros_like(m)
+    acc = torch.zeros_like(rows, dtype=torch.float32, memory_format=torch.contiguous_format)
     for c in range(n_chunks):
         kb, vb = k[:, c * chunk:(c + 1) * chunk], v[:, c * chunk:(c + 1) * chunk]
         pb = k_pos[:, c * chunk:(c + 1) * chunk]
@@ -257,7 +273,7 @@ def _sdpa_blockwise(q, k, v, q_pos, k_pos, *, causal: bool, window: int):
         acc = acc * alpha[..., None] + pv
         m = m_new
     out = acc / torch.clamp(norm, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return merge_heads(out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d), 2, hkv).to(q.dtype)
 
 
 def attention_apply(
@@ -286,10 +302,10 @@ def attention_apply(
     b, s, _ = x.shape
     hd = cfg.head_dim_
     n_kv = n_kv_heads if n_kv_heads is not None else cfg.n_kv_heads
-    q = (x @ p["w_q"].to(dt)).reshape(b, s, -1, hd)
+    q = _heads(x @ p["w_q"].to(dt), hd)
     if kv_override is None:
-        k = (x @ p["w_k"].to(dt)).reshape(b, s, n_kv, hd)
-        v = (x @ p["w_v"].to(dt)).reshape(b, s, n_kv, hd)
+        k = _heads(x @ p["w_k"].to(dt), hd, n_kv)
+        v = _heads(x @ p["w_v"].to(dt), hd, n_kv)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     else:
@@ -299,22 +315,22 @@ def attention_apply(
         idx = cache["index"]
         size = cache["k"].shape[1]
         slot = (idx.long() + torch.arange(s, device=x.device)) % size
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        cache["pos"].index_copy_(1, slot, positions.to(cache["pos"].dtype))
+        ring_write(cache["k"], 1, slot, k.to(cache["k"].dtype))
+        ring_write(cache["v"], 1, slot, v.to(cache["v"].dtype))
+        ring_write(cache["pos"], 1, slot, positions.to(cache["pos"].dtype))
         idx.add_(s)
         new_cache = cache
         bias = _mask_bias(positions, cache["pos"], causal=True, window=window)
-        out = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt), bias)
+        out = attend(_sdpa, q, cache["k"].to(dt), cache["v"].to(dt), bias)
     elif kv_override is not None:
         bias = _mask_bias(positions, k_positions, causal=False, window=0)
-        out = _sdpa(q, k, v, bias)
+        out = attend(_sdpa, q, k, v, bias)
     elif s > BLOCKWISE_THRESHOLD:
         out = _sdpa_blockwise(q, k, v, positions, positions, causal=causal, window=window)
     else:
         bias = _mask_bias(positions, positions, causal=causal, window=window)
-        out = _sdpa(q, k, v, bias)
-    return out.reshape(b, s, -1) @ p["w_o"].to(dt), new_cache
+        out = attend(_sdpa, q, k, v, bias)
+    return merge_heads(out.reshape(b, s, -1), -1, out.shape[2]) @ p["w_o"].to(dt), new_cache
 
 
 def attention_cache_init(cfg: ModelConfig, batch: int, max_len: int, window: int = 0, *,
@@ -395,7 +411,7 @@ def _slots(experts, n_experts: int):
     return torch.zeros_like(experts).scatter(1, order, rank), counts
 
 
-def moe_apply(cfg: ModelConfig, p, x, moe: MoEConfig):
+def moe_apply(cfg: ModelConfig, p, x, moe: MoEConfig, own: Optional[slice] = None):
     """Grouped capacity dispatch -> (y, aux_loss), the reference's MoE.
 
     The ``b * s`` tokens split into ``max(n // MOE_GROUP, 1)`` groups (a
@@ -409,7 +425,11 @@ def moe_apply(cfg: ModelConfig, p, x, moe: MoEConfig):
     slot rows as one batched product; a token's output is the sum of its
     kept experts' rows, each times its gate rounded to the compute dtype,
     summed in fp32 and rounded once.  ``aux`` is the Switch load-balancing
-    loss over the pre-capacity routing."""
+    loss over the pre-capacity routing.
+
+    ``own`` (expert parallelism on a mesh): the experts whose weights
+    ``p`` holds; only their slot rows are computed, the others' rows read
+    zeros, so ``y`` is this rank's part of a sum over ranks."""
     dt = x.dtype
     b, s, d = x.shape
     n_tok = b * s
@@ -435,11 +455,17 @@ def moe_apply(cfg: ModelConfig, p, x, moe: MoEConfig):
     src = torch.full((n_slots + 1,), n_tok, dtype=torch.int64, device=x.device).index_copy(
         0, row.reshape(-1), tok.reshape(-1))[:n_slots]  # an empty slot reads the zero row
     xe = F.pad(x.reshape(n_tok, d), (0, 0, 0, 1))[src].view(e, g * cap, d)
+    n_rows = n_slots
+    if own is not None:
+        xe = xe[own]
+        n_rows = xe.shape[0] * g * cap
+        lo = own.start * g * cap
+        row = torch.where((row >= lo) & (row < lo + n_rows), row - lo, n_rows)
     act = F.silu if cfg.act == "swiglu" else _gelu
     hid = act(torch.bmm(xe, p["w_gate"].to(dt)))
     if "w_up" in p:
         hid = hid * torch.bmm(xe, p["w_up"].to(dt))
-    ye = F.pad(torch.bmm(hid, p["w_down"].to(dt)).view(n_slots, d), (0, 0, 0, 1))
+    ye = F.pad(torch.bmm(hid, p["w_down"].to(dt)).view(n_rows, d), (0, 0, 0, 1))
     w = gate.to(dt).float().view(n_tok, k)  # the reference rounds the gate before the product
     rows = row.view(n_tok, k)
     y = w[:, :1] * ye[rows[:, 0]].float()
@@ -499,27 +525,29 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions, cache: Optional[dict] = None
     b, s, _ = x.shape
     h = cfg.n_heads
     cq = rmsnorm(x @ p["w_dq"].to(dt), p["q_norm"])
-    q = (cq @ p["w_uq"].to(dt)).reshape(b, s, h, -1)
+    q = _heads(cq @ p["w_uq"].to(dt), mla.qk_nope_dim + mla.qk_rope_dim)
     q_nope, q_rope = q.split([mla.qk_nope_dim, mla.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = rmsnorm(x @ p["w_dkv"].to(dt), p["kv_norm"])  # (b, s, kv_lora)
-    krope = apply_rope((x @ p["w_kr"].to(dt)).reshape(b, s, 1, mla.qk_rope_dim), positions,
+    krope = apply_rope(_heads(x @ p["w_kr"].to(dt), mla.qk_rope_dim), positions,
                        cfg.rope_theta)
     new_cache = None
     if cache is not None:
         idx = cache["index"]
         size = cache["ckv"].shape[1]
         slot = (idx.long() + torch.arange(s, device=x.device)) % size
-        cache["ckv"].index_copy_(1, slot, ckv.to(cache["ckv"].dtype))
-        cache["krope"].index_copy_(1, slot, krope[:, :, 0].to(cache["krope"].dtype))
-        cache["pos"].index_copy_(1, slot, positions.to(torch.int32))
+        ring_write(cache["ckv"], 1, slot, ckv.to(cache["ckv"].dtype))
+        ring_write(cache["krope"], 1, slot, krope[:, :, 0].to(cache["krope"].dtype))
+        ring_write(cache["pos"], 1, slot, positions.to(torch.int32))
         idx.add_(s)
         new_cache = cache
-        ckv_all, krope_all, k_pos = cache["ckv"].to(dt), cache["krope"].to(dt), cache["pos"]
+        # every head reads the whole latent (its width may be sharded in the cache)
+        ckv_all = split_heads(cache["ckv"].to(dt), -1, 1)
+        krope_all, k_pos = cache["krope"].to(dt), cache["pos"]
     else:
         ckv_all, krope_all, k_pos = ckv, krope[:, :, 0], positions
-    k_nope = (ckv_all @ p["w_uk"].to(dt)).reshape(b, -1, h, mla.qk_nope_dim)
-    v = (ckv_all @ p["w_uv"].to(dt)).reshape(b, -1, h, mla.v_head_dim)
+    k_nope = _heads(ckv_all @ p["w_uk"].to(dt), mla.qk_nope_dim)
+    v = _heads(ckv_all @ p["w_uv"].to(dt), mla.v_head_dim)
     k = torch.cat([k_nope, krope_all[:, :, None].expand(*k_nope.shape[:3], mla.qk_rope_dim)],
                   dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -527,8 +555,8 @@ def mla_apply(cfg: ModelConfig, p, x, *, positions, cache: Optional[dict] = None
         out = _sdpa_blockwise(q_full, k, v_pad(v, k), positions, k_pos, causal=True, window=0)
         out = out[..., :mla.v_head_dim]
     else:
-        out = _sdpa_mixed(q_full, k, v, _mask_bias(positions, k_pos, causal=True, window=0))
-    return out.reshape(b, s, -1) @ p["w_o"].to(dt), new_cache
+        out = attend(_sdpa_mixed, q_full, k, v, _mask_bias(positions, k_pos, causal=True, window=0))
+    return merge_heads(out.reshape(b, s, -1), -1, out.shape[2]) @ p["w_o"].to(dt), new_cache
 
 
 def v_pad(v, k):

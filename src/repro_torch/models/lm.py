@@ -49,12 +49,11 @@ import functools
 import math
 
 import torch
-import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from .config import ModelConfig
-from . import layers
+from . import hooks, layers
 from .hooks import constrain
 from .layers import (
     _init,
@@ -194,7 +193,7 @@ def _lm_block_apply(cfg: ModelConfig, p, x, positions, cache=None):
     h = norm_apply(cfg, p["norm2"], x)
     aux = None
     if "moe" in p:
-        mlp_out, aux = moe_apply(cfg, p["moe"], h, cfg.moe)
+        mlp_out, aux = hooks.moe(moe_apply, cfg, p["moe"], h)
     else:
         mlp_out = mlp_apply(cfg, p["mlp"], h)
     return x + mlp_out, aux, new_cache
@@ -241,8 +240,8 @@ def _cross_kv(cfg: ModelConfig, p, enc):
     dt = enc.dtype
     b, se, _ = enc.shape
     hd = cfg.head_dim_
-    k = (enc @ p["w_k"].to(dt)).reshape(b, se, cfg.n_kv_heads, hd)
-    v = (enc @ p["w_v"].to(dt)).reshape(b, se, cfg.n_kv_heads, hd)
+    k = layers._heads(enc @ p["w_k"].to(dt), hd, cfg.n_kv_heads)
+    v = layers._heads(enc @ p["w_v"].to(dt), hd, cfg.n_kv_heads)
     return k, v
 
 
@@ -268,7 +267,7 @@ def _dec_block_apply(cfg: ModelConfig, p, x, positions, enc, cache=None):
     x = x + a_out
     h2 = norm_apply(cfg, p["norm2"], x)
     k, v = _cross_kv(cfg, p["cross"], enc)
-    enc_pos = _positions(enc.shape[0], enc.shape[1], enc.device)
+    enc_pos = constrain(_positions(enc.shape[0], enc.shape[1], enc.device))
     c_out, _ = attention_apply(cfg, p["cross"], h2, positions=positions,
                                kv_override=(k, v, enc_pos))
     x = x + c_out
@@ -400,13 +399,13 @@ class LanguageModel(_ParamTree):
 
 def _embed(params, tokens):
     # gather then cast, as the reference's take(embed).astype(bf16)
-    return F.embedding(tokens, params["embed"]).to(layers.COMPUTE_DTYPE)
+    return hooks.embedding(tokens, params["embed"]).to(layers.COMPUTE_DTYPE)
 
 
 def _lm_head(cfg: ModelConfig, params):
     if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+        return hooks.gather(params["embed"]).T
+    return hooks.gather(params["lm_head"])
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -420,7 +419,8 @@ def _run_stack(cfg: ModelConfig, kind: str, stacked: dict, n: int, x, positions,
     or a whole rglru super-block) runs under the remat policy; the
     decoder's encoder output ``enc`` is an argument of the remat unit."""
     def block(p, h, *memory):
-        h, aux, _ = _block_apply(cfg, kind, p, h, positions, enc=memory[0] if memory else None)
+        h, aux, _ = _block_apply(cfg, kind, hooks.gather(p), h, positions,
+                                 enc=memory[0] if memory else None)
         return h, aux
 
     memory = () if enc is None else (enc,)
@@ -440,7 +440,7 @@ def _encode(cfg: ModelConfig, params, frames):
     attention, as the reference), the final norm."""
     x = frames.to(layers.COMPUTE_DTYPE)
     b, s, _ = x.shape
-    positions = _positions(b, s, x.device)
+    positions = constrain(_positions(b, s, x.device))
     x = constrain(x + _sinusoidal(positions, cfg.d_model).to(x.dtype))
     x, _ = _run_stack(cfg, "enc", params["enc_blocks"], cfg.n_enc_layers, x, positions)
     return norm_apply(cfg, params["enc_final_norm"], x)
@@ -464,7 +464,7 @@ def forward(cfg: ModelConfig, params, batch: dict):
         prefix = batch["patches"].to(layers.COMPUTE_DTYPE)
         n_prefix = prefix.shape[1]
         x = torch.cat([prefix, x], dim=1)
-    positions = _positions(b, s + n_prefix, x.device)
+    positions = constrain(_positions(b, s + n_prefix, x.device))
     enc = None
     if cfg.family == "encdec":
         enc = _encode(cfg, params, batch["frames"])
@@ -483,10 +483,7 @@ def forward(cfg: ModelConfig, params, batch: dict):
 def _ce_chunk(h, head, t, m):
     """(sum of masked NLL, mask sum) of one chunk: the head product in the
     compute dtype, then fp32 logsumexp."""
-    logits = (h @ head).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
-    nll = (lse - gold) * m
+    nll = hooks.nll((h @ head).float(), t) * m
     return nll.sum(), m.sum()
 
 
@@ -511,9 +508,10 @@ def loss_fn(cfg: ModelConfig, params, batch: dict):
     (targets are the tokens rolled by one, the last position masked)."""
     hidden, aux = forward(cfg, params, batch)
     tokens = batch["tokens"]
-    targets = torch.roll(tokens, -1, dims=1)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)  # rolled by one
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
+    mask = constrain(mask)
     ce = chunked_ce(cfg, params, hidden, targets, mask)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -580,7 +578,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
     for key, n, kind in _stacks(cfg):
         blocks, caches = params[key], cache[key]
         for i in range(n):
-            x, _, _ = _block_apply(cfg, kind, _layer(blocks, i), x, positions,
+            x, _, _ = _block_apply(cfg, kind, hooks.gather(_layer(blocks, i)), x, positions,
                                    state=_layer(caches, i), enc=enc)
             x = constrain(x)
     x = norm_apply(cfg, params["final_norm"], x)

@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from . import hooks
+from .hooks import merge_heads, split_heads
 from .layers import _gelu, _init, rmsnorm
 
 RWKV_CHUNK = 128
@@ -93,7 +95,7 @@ def _causal_conv(x, w, b, state=None):
     ``+ b``) -> (y, new tail (B, W-1, C) in x's dtype)."""
     width = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+        pad = torch.zeros_like(x[:, :1]).expand(-1, width - 1, -1)
     else:
         pad = state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
@@ -211,11 +213,12 @@ def _wkv_chunked(r, k, v, logw, u, head_dim: int, state=None):
     c = RWKV_CHUNK
     n = -(-s // c)
     pad = n * c - s
-    if pad:  # pad decay 0 => w = 1; padded k, v are 0
-        r, k, v, logw = (F.pad(t, (0, 0, 0, pad)) for t in (r, k, v, logw))
+    if pad:  # pad decay 0 => w = 1; padded k, v are 0 (zeros shaped, and placed, as t's rows)
+        r, k, v, logw = (torch.cat([t, torch.zeros_like(t[:, :1]).expand(-1, pad, -1)], dim=1)
+                         for t in (r, k, v, logw))
 
     def hsplit(t):  # (B, n * C, D) -> (n, B, H, C, hd) fp32
-        return t.reshape(b, n, c, h, head_dim).permute(1, 0, 3, 2, 4).float()
+        return split_heads(t, -1, h).reshape(b, n, c, h, head_dim).permute(1, 0, 3, 2, 4).float()
 
     rc, kc, vc, wc = hsplit(r), hsplit(k), hsplit(v), hsplit(logw)
     uu = u.reshape(h, head_dim).float()
@@ -229,8 +232,7 @@ def _wkv_chunked(r, k, v, logw, u, head_dim: int, state=None):
     total = csum[..., -1:, :]  # (n, B, H, 1, dk)
     kv = torch.einsum("nbhjk,nbhjv->nbhkv", kc * torch.exp(total - csum), vc)
     decay = torch.exp(total[..., 0, :, None])  # (n, B, H, dk, 1)
-    S = (torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32, device=r.device)
-         if state is None else state.float())
+    S = torch.zeros_like(kv[0]) if state is None else state.float()
     entry = []
     for i in range(n):
         entry.append(S)
@@ -238,7 +240,7 @@ def _wkv_chunked(r, k, v, logw, u, head_dim: int, state=None):
     out = torch.einsum("nbhck,nbhkv->nbhcv", r_dec, torch.stack(entry))
     out = out + intra
     out = out + bonus[..., None] * vc
-    return out.permute(1, 0, 3, 2, 4).reshape(b, n * c, d)[:, :s], S
+    return merge_heads(out.permute(1, 0, 3, 2, 4).reshape(b, n * c, d), -1, h)[:, :s], S
 
 
 def rwkv6_timemix_apply(cfg: ModelConfig, p, x, *, state=None):
@@ -253,7 +255,7 @@ def rwkv6_timemix_apply(cfg: ModelConfig, p, x, *, state=None):
     xs = _token_shift(x, prev)
     # data-dependent shift mixes (5 lora heads: r, k, v, w, g)
     delta = xs - x
-    lora = torch.tanh(x @ p["mix_lora_a"].to(dt)).reshape(b, s, 5, RWKV_LORA)
+    lora = split_heads(torch.tanh(x @ p["mix_lora_a"].to(dt)), -1, 5).reshape(b, s, 5, RWKV_LORA)
     mixes = p["mix_base"].to(dt)[None, None] + torch.einsum(
         "bslr,lrd->bsld", lora, p["mix_lora_b"].to(dt))
     xr, xk, xv, xw, xg = (x + delta * mixes[:, :, i] for i in range(5))
@@ -263,11 +265,12 @@ def rwkv6_timemix_apply(cfg: ModelConfig, p, x, *, state=None):
     g = F.silu(xg @ p["w_g"].to(dt))
     decay_in = torch.tanh(xw @ p["decay_lora_a"].to(dt)) @ p["decay_lora_b"].to(dt)
     logw = -torch.exp(p["decay_base"].float() + decay_in.float())  # (B, S, D) < 0
-    wkv, new_S = _wkv_chunked(r, k, v, logw, p["bonus_u"], hd,
-                              None if state is None else state["S"])
+    wkv, new_S = hooks.wkv(_wkv_chunked, r, k, v, logw, p["bonus_u"], hd,
+                           None if state is None else state["S"])
     # per-head groupnorm (fp32, unit scale), then the learned output scale
-    wkv = rmsnorm(wkv.reshape(b, s, d // hd, hd),
+    wkv = rmsnorm(split_heads(wkv, -1, d // hd).reshape(b, s, d // hd, hd),
                   torch.ones(hd, dtype=torch.float32, device=x.device)).reshape(b, s, d)
+    wkv = merge_heads(wkv, -1, d // hd)
     wkv = wkv.to(dt) * p["ln_scale"].to(dt)
     out = (wkv * g) @ p["w_o"].to(dt)
     if state is None:

@@ -16,6 +16,7 @@ decay order differ.  The arithmetic here is the reference's, in its order.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -96,3 +97,29 @@ def adamw_update(cfg: AdamWConfig, grads, state, params):
         "count": count,
     }
     return rebuild([o[0] for o in out]), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def update_reading(cfg: AdamWConfig, params, new_params, state, ulps: int) -> float:
+    """How far one step's ``new_params`` lie from AdamW recomputed in
+    float64 from the step's own ``params`` and new ``state`` (its ``m``,
+    ``v`` and ``count``), on the tensors' device: max |new - want| over
+    ``ulps`` x (want's fp32 spacing + 2**-23 x lr x (|Adam step| + |wd x
+    p|)).  At most 1 when the step's fp32 arithmetic is AdamW's; a step
+    that leaves the parameters as they were, or takes twice the lr, reads
+    far above it once lr is many ulp of the parameters (a short warm-up).
+    The fp32 scalars (lr, the bias corrections) are the ones the step
+    computes."""
+    count = torch.tensor(float(state["count"]), dtype=torch.float32)
+    lr = float(cfg.lr * torch.clamp(count / max(cfg.warmup_steps, 1), max=1.0))
+    bc1, bc2 = (float(1.0 - b ** count) for b in (cfg.b1, cfg.b2))
+    worst = 0.0
+    for p0, p1, m, v in zip(*(tree_flatten(t)[0] for t in (params, new_params, state["m"],
+                                                         state["v"]))):
+        p0, m, v = (t.double() for t in (p0, m, v))
+        adam, decay = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps), cfg.weight_decay * p0
+        want = p0 - lr * (adam + decay)
+        w32 = want.float().abs()
+        spacing = torch.nextafter(w32, torch.full_like(w32, math.inf)) - w32
+        tol = ulps * (spacing.double() + 2.0**-23 * lr * (adam.abs() + decay.abs()))
+        worst = max(worst, float(((p1.double() - want).abs() / tol).max()))
+    return worst

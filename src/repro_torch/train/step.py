@@ -32,7 +32,7 @@ import torch
 
 from ..models import decode_step, loss_fn, prefill
 from ..models.config import ModelConfig
-from ..models import layers
+from ..models import hooks, layers
 from .optimizer import AdamWConfig, adamw_init, adamw_update, tree_flatten
 
 
@@ -76,7 +76,8 @@ def make_serve_step(cfg: ModelConfig):
     working = _WorkingCopy()
 
     def serve_step(params, cache, batch):
-        return decode_step(cfg, working(params), cache, batch)
+        with hooks.scope():
+            return decode_step(cfg, working(params), cache, batch)
 
     return serve_step
 
@@ -85,7 +86,8 @@ def make_prefill_step(cfg: ModelConfig):
     working = _WorkingCopy()
 
     def prefill_step(params, batch):
-        return prefill(cfg, working(params), batch)
+        with hooks.scope():
+            return prefill(cfg, working(params), batch)
 
     return prefill_step
 
@@ -114,6 +116,10 @@ def make_train_step(
         return val.detach(), list(torch.autograd.grad(val, xs))
 
     def train_step(params, opt_state, batch):
+        with hooks.scope():
+            return _train_step(params, opt_state, batch)
+
+    def _train_step(params, opt_state, batch):
         leaves, rebuild = tree_flatten(params)
         if n_microbatches == 1:
             val, grads = value_and_grad(leaves, rebuild, batch)

@@ -821,6 +821,111 @@ def test_gloo_mesh_stages_card_tensors_through_the_host(nccl_mesh):
     assert engine.ledger.counter("mesh.host_staged") == 2  # one gather, one all-reduce
 
 
+
+# ---------------------------------------------------------------------------
+# The sharded model path on the card (chip_smoke.py phase 17a): the port's
+# steps on a world-size-1 NCCL (data, model) mesh, every collective the
+# identity, against the unsharded steps on the same card; reduced smollm.
+# ---------------------------------------------------------------------------
+
+from repro_torch.launch import shardings as sh  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def sharded_smollm(nccl_mesh):
+    """(cfg, params, opt, batch, decode batches, the (data, model) mesh)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, reduced_config
+    from repro_torch.train import init_train_state
+
+    cfg = reduced_config(get_config("smollm-135m"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=gen, device="cuda", dtype=torch.int32)
+    steps = [{"tokens": tokens[:, t:t + 1], "positions": torch.full((4, 1), t, dtype=torch.int32,
+                                                                   device="cuda")}
+             for t in range(4)]
+    return (cfg, params, init_train_state(cfg, params), {"tokens": tokens}, steps,
+            make_debug_mesh(1, 1, "cuda"))
+
+
+def _sharded(mesh):
+    from repro_torch.models import hooks
+
+    return hooks.activation_sharding(sh.activation_constraint_fn(mesh))
+
+
+def test_sharded_train_and_prefill_on_card_equal_unsharded(sharded_smollm):
+    """chip_smoke.py 17a's checks: AdamW from a warm-up of one step, the
+    new parameters against AdamW in float64 of the step's own p, m, v
+    (4 ulp; leaving them as they were, or doubling the update, reads far
+    above), m and v leaf by leaf against each leaf's own max, grad_norm."""
+    from repro_torch.train import AdamWConfig, make_prefill_step, make_train_step
+    from repro_torch.train.optimizer import tree_flatten, update_reading
+
+    cfg, params, opt, batch, _, mesh = sharded_smollm
+    adamw = AdamWConfig(warmup_steps=1)
+    p_u, o_u, m_u = make_train_step(cfg, adamw)(params, opt, batch)
+    logits_u = make_prefill_step(cfg)(params, batch)
+    with _sharded(mesh):
+        p = sh.distribute_tree(mesh, params, sh.param_shardings(mesh, params))
+        o = sh.distribute_tree(mesh, opt, sh.opt_shardings(mesh, params))
+        b = sh.distribute_tree(mesh, batch, sh.batch_shardings(mesh, batch))
+        p_s, o_s, m_s = make_train_step(cfg, adamw)(p, o, b)
+        logits_s = make_prefill_step(cfg)(p, b)
+    p_s, o_s, m_s = (sh.full_tree(t) for t in (p_s, o_s, m_s))
+    loss_u, loss_s = float(m_u["loss"]), float(m_s["loss"])
+    assert abs(loss_s - loss_u) <= 1e-5 * abs(loss_u), (loss_s, loss_u)
+    norm_u, norm_s = float(m_u["grad_norm"]), float(m_s["grad_norm"])
+    assert abs(norm_s - norm_u) <= 1e-3 * norm_u, (norm_s, norm_u)
+    flat, rebuild = tree_flatten(params)
+    doubled = rebuild([x + 2 * (y - x) for x, y in zip(flat, tree_flatten(p_s)[0])])
+    readings = [update_reading(adamw, params, new, state, 4)
+                for new, state in ((p_s, o_s), (p_u, o_u), (params, o_s), (doubled, o_s))]
+    assert max(readings[:2]) <= 1.0 < min(readings[2:]), readings
+    names = tree_flatten(sh.tree_map_with_path(lambda path, _: ".".join(path), params))[0]
+    for key, limit in (("m", 0.1), ("v", 0.2)):
+        for x, y, name in zip(tree_flatten(o_s[key])[0], tree_flatten(o_u[key])[0], names):
+            diff, top = float((x - y).abs().max()), float(y.abs().max())
+            assert diff <= limit * top, (key, name, diff, top)
+    assert torch.equal(sh.full_tree(logits_s), logits_u)
+
+
+def test_sharded_decode_on_card_equals_unsharded_without_host_sync(sharded_smollm):
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_serve_step
+
+    cfg, params, _, _, steps, mesh = sharded_smollm
+    serve = make_serve_step(cfg)
+    cache = init_cache(cfg, 4, 16, device="cuda")
+    want = [serve(params, cache, b)[0] for b in steps]
+    with _sharded(mesh):
+        p = sh.distribute_tree(mesh, params, sh.serve_param_shardings(mesh, params))
+        serve = make_serve_step(cfg)
+
+        def new_cache():
+            c = init_cache(cfg, 4, 16, device="cuda")
+            return sh.distribute_tree(mesh, c, sh.cache_shardings(mesh, cfg, c))
+
+        dsteps = [sh.distribute_tree(mesh, b, sh.batch_shardings(mesh, b)) for b in steps]
+        serve(p, new_cache(), dsteps[0])  # warm-up on a cache of its own
+        c, got = new_cache(), []
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for b in dsteps:
+                logits, c = serve(p, c, b)
+                got.append(logits)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(got, want):
+        assert torch.equal(sh.full_tree(g), w)
+    from repro_torch.train.optimizer import tree_flatten
+
+    for x, y in zip(tree_flatten(sh.full_tree(c))[0], tree_flatten(cache)[0]):
+        assert torch.equal(x, y)
+
 # ---------------------------------------------------------------------------
 # The dense language-model serving path: the card's bf16 logits against an
 # fp32 run of the same weights and inputs on the CPU, with the CPU's bf16

@@ -92,6 +92,21 @@ def test_model_imports_load_neither_jax_nor_the_reference():
     assert proc.stdout.strip() == "[]"
 
 
+def test_sharded_model_imports_load_neither_jax_nor_the_reference():
+    proc = _run(
+        "import sys, repro_torch.launch.mesh as m, repro_torch.launch.shardings as s, "
+        "repro_torch.launch.op_cost as c, repro_torch.launch.dryrun as d, "
+        "repro_torch.launch.reanalyze as r, repro_torch.models.hooks as h\n"
+        "assert callable(m.make_production_mesh) and callable(s.param_pspec)\n"
+        "assert callable(c.analyze) and callable(d.run_cell) and callable(r.main)\n"
+        "assert h.constrain is not None and h._PLACEMENT is None\n"
+        "bad = sorted(x for x in sys.modules if x == 'jax' or x.startswith('jax.')"
+        " or x == 'repro' or x.startswith('repro.'))\n"
+        "print(bad)"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
 def test_consumer_packages_export_the_reference_names():
     import repro.checkpoint
     import repro.data
