@@ -56,13 +56,24 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
      R = 3 for the add and for a removal, ASURA's invariants on every plan
      (an add moves rows only to the new node, a removal only from the
      removed one); then ``ReplicaRouter.begin_scale_migration`` (add,
-     R = 3, ingress 64) over the 2**20 serving keys and one instrumented
+     R = 3, ingress 64) over the 2**20 serving keys (its replica plan
+     timed again on the cached tables with and without the prefilter,
+     identical) and one instrumented
      ``serve_migrating`` batch (65,536, Zipf 1.1, pow2) per mover round
      until the window drains, plus one ``superstep_migrating(4)`` held to
      4 ``serve_migrating`` calls of a second driver.  The same sequence at
      2**18 tracked ids and batch 4096 runs on the card and on the CPU (the
-     twins); plans, round matrices, chosen nodes, counts, queue, qhist and
-     the metrics slab must agree bit for bit;
+     twins); plans, round matrices, chosen nodes, counts, queue, qhist,
+     the metrics slab and the window's ADDITION-NUMBER prefilter counters
+     must agree bit for bit;
+     8c. the ADDITION-NUMBER kernel against its twin on phase 8's v0
+         table with the trace's extended ladder: R = 1 and 3 on 2**20 + 13
+         ids, R = 9 (picks in scratch rows) and max_draws 2 (forced -1
+         lanes) on 2**16; ``PlacementEngine.addition_numbers_device``
+         under sync-debug "error" (one launch) against the twin; the
+         kernel's time at 2**24 ids (R = 3) and at 2**20 + 13 beside the
+         twin's there, and the work this run's data needs (B2 at the
+         extended top makes the trace's draws);
   9. the paper's baselines (consistent hashing, random slicing, weighted
      rendezvous), under sync-debug "error" wherever a device path runs:
      9a. the lookup kernels B5 (ch), B6 (rs) against their twins on
@@ -271,12 +282,15 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            two controls that must fail it), step ms of both;
       17b. the dry run of ``DRY_CELL`` on a fake 16x16 group on this host:
            per-device argument / output / temp / peak bytes against the
-           card's memory, FLOPs, collective bytes by kind;
+           card's memory, FLOPs, collective bytes by kind; then the reduced
+           ``DRY_MULTI_POD`` training cell on a fake 2x16x16 group (the
+           batch on the flattened (pod, data) axis) under this host's torch;
       17c. ``python -m repro_torch.launch.shardings --selftest``: 4 CPU
            gloo ranks on a 2x2 mesh under this host's torch, started
            after 17a's timed steps and run beside 17b;
-  6. (printed last) one JSON line per kernel (B1-B9 and the fan-out):
-     launches on the main paths (phases 4, 5, 8, 9b-9d, 10b-10d, 11a-11d, 12a,
+  6. (printed last) one JSON line per kernel (B1-B9, the fan-out and the
+     ADDITION-NUMBER trace): launches on the main paths (phases 4, 5, 8,
+     9b-9d, 10b-10d, 11a-11d, 12a,
      13a-13b, 14a, 15a-15b, 15d, 16a, 16e, 17a), time at
      the bulk size, the twin's time, the least time the card could take
      for the same work (an ASURA ladder hashing each distinct level's seed
@@ -371,6 +385,11 @@ REPLACES = {
 KERNELS = tuple(REPLACES)
 FANOUT = "baseline_replicas"  # no TPU kernel: the reference's jnp loop
 FANOUT_OF = "src/repro/kernels/baselines.py:389"
+AN = "addition_numbers"  # no TPU kernel: the reference's jnp ADDITION-NUMBER trace
+AN_OF = "src/repro/kernels/ref.py:312"
+# the trace's min-key update of an unused draw: k <, k ==, f <, and, or, two
+# selects
+MIN_KEY_OPS = 7
 WRH_IDS = 1 << 20  # bulk wrh: O(N) per id
 WRH_CHECK_IDS = (1 << 16) + 13
 CPU_STEPS = 2  # card-vs-CPU serving: 2 step() calls, then superstep(2)
@@ -524,6 +543,7 @@ SHARD_GNORM_RTOL = 1e-3  # 17a: grad_norm (the card's earlier runs read 1.97e-4)
 SHARD_M_RTOL = 0.1  # 17a: AdamW's m, each leaf against its own max |m| (CPU rehearsal <= 0.0130)
 SHARD_V_RTOL = 0.2  # 17a: AdamW's v (~0.05 g^2), likewise (CPU rehearsal <= 0.0190)
 DRY_CELL = ("mixtral-8x22b", "decode_32k")  # 17b (train_4k takes ~3 min on the host: PERF.md section 5)
+DRY_MULTI_POD = ("rwkv6-3b", "train_4k")  # 17b, reduced, on 2x16x16 (ROADMAP C3)
 SELFTEST_TIMEOUT = 600  # 17c
 CONV_MACS = 4  # RG-LRU's depthwise conv width
 RWKV_CHUNK_LEN = 128  # RWKV6's WKV chunk
@@ -555,6 +575,20 @@ def cuda_ms(torch, fn, reps: int) -> list[float]:
         e.record()
     torch.cuda.synchronize()
     return [s.elapsed_time(e) for s, e in zip(starts, ends)]
+
+
+def timed(torch, dev, fn):
+    """(``fn()``, its ms): CUDA events on the card (the first call, no
+    warm-up: for a twin that takes seconds), the host clock elsewhere."""
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), 1e3 * (time.perf_counter() - t0)
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    result = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return result, s.elapsed_time(e)
 
 
 def mismatches(torch, a, b) -> tuple[int, int]:
@@ -690,6 +724,7 @@ PTXAS_KERNELS = (
     ("place_replicas", "asura_place", r"21place_replicas_kernelI"),
     ("diff_nodes", "asura_place", r"17diff_nodes_kernel"),
     ("diff_replicas", "asura_place", r"20diff_replicas_kernelI"),
+    (AN, "asura_place", r"23addition_numbers_kernelI"),
 )
 
 
@@ -816,7 +851,11 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {name: 0 for name in KERNELS + (FANOUT,)}
+    worst = {name: 0 for name in KERNELS + (FANOUT, AN)}
+    t_run = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        print(f"  [{done} done {time.perf_counter() - t_run:.1f} s into the run]")
 
     def hold(name: str, what: str, got, want) -> None:
         bad, err = mismatches(torch, got, want)
@@ -1000,8 +1039,11 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     if profile:
         print_profile(profile_steps(torch, RequestStreamDriver(engine, **cfg).step, 4))
 
+    elapsed("phases 1-5")
+
     # -- phase 7: diff kernels vs twins ---------------------------------------
     diff_work = phase7(torch, np, dev, caps[LADDER_NODES], ids, hold)
+    elapsed("phase 7")
 
     # -- phase 8: migration main path ----------------------------------------
     print(f"phase 8: migration path, {LADDER_NODES} nodes, {BULK_IDS} tracked ids, "
@@ -1013,8 +1055,8 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     mig_launches = big.pop("launches")
     print(f"  launches {mig_launches}")
     require(mig_launches["diff_nodes"] > 0 and mig_launches["diff_replicas"] > 0
-            and mig_launches["place_replicas"] > 0,
-            "the migration path did not launch B2, B3 and B4")
+            and mig_launches["place_replicas"] > 0 and mig_launches[AN] > 0,
+            "the migration path did not launch B2, B3, B4 and the ADDITION-NUMBER kernel")
     print(f"phase 8b: the same sequence at {SMALL_TRACKED} tracked ids, batch "
           f"{SMALL_BATCH}, on the card and on the CPU")
     t0 = time.perf_counter()
@@ -1031,38 +1073,51 @@ def run(seed: int, dev, profile: bool = False) -> dict:
         same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
         require(same, f"phase 8b: {key} differs between the card and the CPU")
     print(f"  equal on the card and the CPU in {len(card)} results, {card['rounds']} rounds "
-          f"(plans, round matrices, chosen, counts, queue, qhist, slab; "
-          f"{time.perf_counter() - t0:.1f} s)")
+          f"(plans, round matrices, chosen, counts, queue, qhist, slab, the window's "
+          f"prefilter scanned / kept {card['window.prefilter_scanned']} / "
+          f"{card['window.prefilter_kept']}; {time.perf_counter() - t0:.1f} s)")
+    elapsed("phases 8, 8b")
+    an_work = phase8c(torch, np, dev, caps[LADDER_NODES], ids, bulk, hold)
+    elapsed("phase 8c")
 
     # -- phase 9: the baselines ----------------------------------------------
     base = phase9(torch, np, dev, caps, seed, ids, bulk, hold, profile)
+    elapsed("phase 9")
 
     # -- phase 10: failure-domain-aware placement ----------------------------
     hier = phase10(torch, np, dev, caps, seed, ids, bulk, hold, profile)
+    elapsed("phase 10")
 
     # -- phase 11: the consumers of placement ---------------------------------
     consumer_launches = phase11(torch, np, dev, caps[LADDER_NODES], seed)
+    elapsed("phase 11")
 
     # -- phase 12: the multi-card sweep ---------------------------------------
     mesh_launches = phase12(torch, np, dev, caps[LADDER_NODES], seed, bulk)
+    elapsed("phase 12")
 
     # -- phase 13: the dense language-model serving path ----------------------
     lm_launches = phase13(torch, np, dev, seed)
+    elapsed("phase 13")
 
     # -- phase 14: the dense language-model training path ---------------------
     train_launches = phase14(torch, np, dev, seed)
+    elapsed("phase 14")
 
     # -- phase 15: the MoE language models ------------------------------------
     moe_launches = phase15(torch, np, dev, seed)
+    elapsed("phase 15")
 
     # -- phase 16: the recurrent, RWKV and encoder-decoder families -----------
     rec_launches = phase16(torch, np, dev, seed)
+    elapsed("phase 16")
 
     # -- phase 17: the sharded model path --------------------------------------
     shard_launches = phase17(torch, np, dev, seed)
+    elapsed("phase 17")
 
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
-    for part in (diff_work, base, hier):
+    for part in (diff_work, base, hier, an_work):
         ms.update(part["ms"])
         plain.update(part["plain"])
         work.update(part["work"])
@@ -1074,10 +1129,11 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                   *hier["launches"], consumer_launches, mesh_launches, lm_launches,
                   train_launches, moe_launches, rec_launches, shard_launches)
     kernels = []
-    for name in KERNELS + (FANOUT,):
+    no_tpu_kernel = {FANOUT: (FANOUT_OF, SOURCE_BASELINES), AN: (AN_OF, SOURCE)}
+    for name in KERNELS + (FANOUT, AN):
         b_ms, b_by = bound(*work[name])
         launches = sum(part.get(name, 0) for part in main_paths)
-        replaces, source = REPLACES.get(name, (FANOUT_OF, SOURCE_BASELINES))
+        replaces, source = REPLACES.get(name) or no_tpu_kernel[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
@@ -1088,6 +1144,10 @@ def run(seed: int, dev, profile: bool = False) -> dict:
             entry["note"] = ("no TPU counterpart: the reference runs this R-way "
                              "fan-out as a jnp loop; times are ch at R=3")
             entry["ms_by_algorithm"] = base["fanout_ms"]
+        if name == AN:
+            entry["note"] = ("no TPU counterpart: the reference computes this trace in "
+                             f"jnp; R=3 on the extended ladder; plain_ms on {CHECK_IDS} ids, "
+                             f"where the kernel takes {an_work['ms_small']:.4f} ms")
         if name in unseeded:
             entry["bound_unseeded_ms"] = bound(*unseeded[name])[0]
         if name in diff_work["two_walks"]:
@@ -1253,6 +1313,66 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
     return out
 
 
+def phase8c(torch, np, dev, caps, ids, bulk, hold) -> dict:
+    """The ADDITION-NUMBER kernel against its twin on phase 8's v0 table,
+    the engine's trace under sync-debug "error", and the kernel's time and
+    work at 2**24 ids (R = 3)."""
+    from repro_torch.core import PlacementEngine, make_cluster
+    from repro_torch.kernels import asura_place as ap
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import addition_numbers_top
+
+    engine = PlacementEngine(make_cluster(caps), device=dev)
+    art = engine.artifact()
+    top = addition_numbers_top(art.top_level)  # the ladder the engine's trace uses
+    tabs = (art.len32_dev, art.node_of_dev)
+    small = ids[: 1 << 16]
+    print(f"phase 8c: addition_numbers_cuda vs twin on the {len(caps)}-node v0 table "
+          f"(top {art.top_level}, the trace's ladder from {top}), exact")
+    out = {"ms": {}, "plain": {}, "work": {}, "unseeded": {}}
+    with uncounted(ap.LAUNCHES):
+        for R, sub, max_draws in ((3, ids, 128), (1, ids, 128), (9, small, 128),
+                                  (1, small, 2), (3, small, 2)):
+            kw = dict(top_level=top, s_log2=1, max_draws=max_draws, n_replicas=R)
+            got = ap.addition_numbers_cuda(sub, *tabs, **kw)
+            if R == 3 and max_draws == 128:  # the twin's time on this check, one call
+                kernel = got
+                want, out["plain"][AN] = timed(torch, dev, lambda: ref.addition_numbers_ref(
+                    sub, *tabs, **kw))
+            else:
+                want = ref.addition_numbers_ref(sub, *tabs, **kw)
+            hold(AN, f"R={R} {sub.shape[0]} ids max_draws={max_draws} "
+                     f"({int((got < 0).sum())} lanes -1)", got, want)
+        kw = dict(top_level=top, s_log2=1, max_draws=128, n_replicas=3)
+        before = ap.LAUNCHES[AN]
+        with sync_guard(torch, dev):
+            got = engine.addition_numbers_device(ids, n_replicas=3)
+        require(ap.LAUNCHES[AN] == before + 1, "addition_numbers_device did not launch once")
+        hold(AN, "engine addition_numbers_device R=3 (sync-debug error) vs the kernel's",
+             got, kernel)
+        out["ms"][AN] = statistics.median(cuda_ms(
+            torch, lambda: ap.addition_numbers_cuda(bulk, *tabs, **kw), TIMED_CALLS))
+        out["ms_small"] = statistics.median(cuda_ms(
+            torch, lambda: ap.addition_numbers_cuda(ids, *tabs, **kw), TIMED_CALLS))
+        # B2 at the trace's top makes the trace's draws (the same loop, cap
+        # and stop at R nodes): its stats give the consults and draws, its
+        # filled slots the used draws; every other draw takes the min key
+        _, st = ap.place_replicas_cuda(bulk, *tabs, emit_stats=True, **kw)
+        consults, draws = ladder_work(torch, st, top)
+        unused = draws - (3 * BULK_IDS - int(st[ref.DEPTH_BINS].view(torch.int32)))
+        distinct = distinct_levels(bulk, *tabs, top, 3)
+    nbytes = 8 * BULK_IDS + 8 * art.n_segs
+    rest = (OPS_PER_DRAW + 3) * draws + MIN_KEY_OPS * unused
+    seeded, unseeded = ladder_ops(consults, distinct)
+    out["work"][AN] = (nbytes, seeded + rest)
+    out["unseeded"][AN] = (nbytes, unseeded + rest)
+    print(f"  work at R=3: {consults} levels of {distinct} distinct / {draws} draws / "
+          f"{unused} unused draws; median {out['ms'][AN]:.4f} ms over {TIMED_CALLS} calls "
+          f"on {BULK_IDS} ids, {out['ms_small']:.4f} ms on {ids.shape[0]}, where the twin "
+          f"takes {out['plain'][AN]:.2f} ms")
+    return out
+
+
 def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: int,
                    seed: int, quiet: bool = False, profile: bool = False) -> dict:
     """The migration sequence of phase 8 on ``dev`` -> its results (host
@@ -1261,10 +1381,11 @@ def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: 
     from repro_torch.core import make_cluster
     from repro_torch.kernels import asura_place as ap
     from repro_torch.migrate import MigrationPlanner
-    from repro_torch.obs import MetricsRegistry
+    from repro_torch.obs import MetricsRegistry, TraceLedger
     from repro_torch.serve import Router, TrafficModel
 
     say = (lambda *a, **k: None) if quiet else print
+    prefilter = ("planner.prefilter_scanned", "planner.prefilter_kept")
     cuda = dev.type == "cuda"
     res: dict = {}
     n = len(caps)
@@ -1320,9 +1441,14 @@ def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: 
     t0 = time.perf_counter()
     plan = planner.plan(tracked, v0, v1)
     t_plan = time.perf_counter() - t0
+    pre_ledger = TraceLedger()
     t0 = time.perf_counter()
-    plan_pre = planner.plan(tracked, v0, v1, max_new_seg=max(new_segs))
+    plan_pre = MigrationPlanner(engine, ledger=pre_ledger).plan(
+        tracked, v0, v1, max_new_seg=max(new_segs))
     t_pre = time.perf_counter() - t0
+    scanned, kept = (pre_ledger.counter(k) for k in prefilter)
+    require(scanned == n_tracked and 0 < kept < scanned,
+            f"the prefilter scanned {scanned} and kept {kept} of {n_tracked} ids")
     t0 = time.perf_counter()
     rep_add = planner.plan_replicas(tracked, v0, v1, 3)
     rep_rm = planner.plan_replicas(tracked, v1, v2, 3)
@@ -1337,7 +1463,8 @@ def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: 
     require(bool((rep_rm.src == victim).all()), "removal plan: a row moves from a live node")
     require(rep_rm.n_moves > 0 and rep_add.n_moves > 0, "an event moved nothing")
     say(f"  plan {t_plan:.3f} s, prefiltered plan {t_pre:.3f} s (identical, "
-        f"{plan.n_moves} rows); plan_replicas R=3 add + removal {t_rep:.3f} s")
+        f"{plan.n_moves} rows; the prefilter kept {kept} of {scanned} ids for the diff); "
+        f"plan_replicas R=3 add + removal {t_rep:.3f} s")
     say(f"  invariants hold: add rows all to node {n}, removal rows all from node "
         f"{victim}; replica moved share add {rep_add.moved_fraction:.6f} vs capacity "
         f"share {1.0 / total_cap:.6f}, removal {rep_rm.moved_fraction:.6f} vs "
@@ -1356,11 +1483,35 @@ def migration_path(torch, np, dev, caps, *, n_tracked: int, n_keys: int, batch: 
     keys = TrafficModel.ids_from_ranks(
         torch.arange(n_keys, dtype=torch.int64), driver.traffic.id_salt
     ).numpy().astype(np.uint32)
+    window_ledger = TraceLedger()
     t0 = time.perf_counter()
     mig = router.begin_scale_migration(keys, add=(n, 1.0), n_replicas=3,
-                                       ingress=WINDOW_INGRESS)
+                                       ingress=WINDOW_INGRESS, ledger=window_ledger)
     t_begin = time.perf_counter() - t0
-    say(f"  window: {mig.state.plan.n_moves} replica rows to move ({t_begin:.3f} s to plan)")
+    if cuda:
+        # the window's plan again on its two (now cached) tables, with the
+        # prefilter the window ran and without it, alternated
+        wplanner = MigrationPlanner(router.engine)
+        max_seg = max(router.cluster.nodes[n].segments)
+        t_window = {max_seg: [], None: []}
+        with uncounted(ap.LAUNCHES):
+            for pre in (max_seg, None) * 3:
+                t0 = time.perf_counter()
+                again = wplanner.plan_replicas(keys, mig.v_from, mig.v_to, 3, max_new_seg=pre)
+                t_window[pre].append(time.perf_counter() - t0)
+                for f in ("ids", "src", "dst", "index", "slot", "src_slot"):
+                    require(np.array_equal(getattr(again, f), getattr(mig.state.plan, f)),
+                            f"the window's plan again (max_new_seg={pre}) differs in {f}")
+        say(f"  window's plan again on cached tables: prefiltered "
+            f"{', '.join(f'{t:.4f}' for t in t_window[max_seg])} s, unfiltered "
+            f"{', '.join(f'{t:.4f}' for t in t_window[None])} s (identical plans)")
+    for k in prefilter:
+        res[f"window.{k.split('.')[1]}"] = window_ledger.counter(k)
+    require(res["window.prefilter_scanned"] == n_keys
+            and 0 < res["window.prefilter_kept"] < n_keys,
+            "the window's add did not prefilter its keys")
+    say(f"  window: {mig.state.plan.n_moves} replica rows to move ({t_begin:.3f} s to plan; "
+        f"the prefilter kept {res['window.prefilter_kept']} of {n_keys} keys)")
     rounds, chosen_all, ids_all, ev = 0, [], [], []
     while not mig.done:
         res[f"round{rounds}"] = repr(sorted(mig.round().items()))
@@ -3966,14 +4117,14 @@ def sharded_steps(torch, np, dev, seed) -> tuple[dict, dict]:
         try:
             mesh = make_debug_mesh(1, 1)
             with hooks.activation_sharding(sh.activation_constraint_fn(mesh)):
-                placed = (sh.distribute_tree(mesh, params, sh.param_shardings(mesh, params)),
-                          sh.distribute_tree(mesh, opt, sh.opt_shardings(mesh, params)),
-                          sh.distribute_tree(mesh, batch, sh.batch_shardings(mesh, batch)))
-                dsteps = [sh.distribute_tree(mesh, x, sh.batch_shardings(mesh, x)) for x in steps]
+                placed = (sh.distribute_tree(params, sh.param_shardings(mesh, params)),
+                          sh.distribute_tree(opt, sh.opt_shardings(mesh, params)),
+                          sh.distribute_tree(batch, sh.batch_shardings(mesh, batch)))
+                dsteps = [sh.distribute_tree(x, sh.batch_shardings(mesh, x)) for x in steps]
 
                 def cache_of():
                     c = init_cache(cfg, b, s, device=dev)
-                    return sh.distribute_tree(mesh, c, sh.cache_shardings(mesh, cfg, c))
+                    return sh.distribute_tree(c, sh.cache_shardings(mesh, cfg, c))
 
                 got = run(*placed, dsteps, cache_of, "sharded")
                 got = {k: sh.full_tree(v) if not isinstance(v, list)
@@ -4075,6 +4226,17 @@ def phase17(torch, np, dev, seed) -> dict:
               + ", ".join(f"{k} {v / 1e9:.3f} GB x {r['collectives']['counts'][k]}"
                           for k, v in sorted(r["collective_by_kind"].items()))
               + f"; traced in {r['trace_s']} s, {time.perf_counter() - t0:.1f} s")
+        arch, shape = DRY_MULTI_POD
+        print(f"phase 17b: python -m repro_torch.launch.dryrun --arch {arch} --shape {shape} "
+              f"--reduced --multi-pod (fake 2x16x16 group)")
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, shape, multi_pod=True, reduced=True, verbose=False)
+        require(r["status"] == "ok" and r["n_devices"] == 512 and r["mesh"] == "2x16x16",
+                f"phase 17b: the multi-pod dry run of {arch} x {shape} failed")
+        print(f"  per device: peak {r['peak_bytes_per_device'] / 1e9:.3f} GB, "
+              f"{r['flops'] / 1e12:.3f} TFLOP, collectives "
+              f"{r['collective_bytes_per_device'] / 1e9:.3f} GB; traced in {r['trace_s']} s, "
+              f"{time.perf_counter() - t0:.1f} s")
 
         print("phase 17c: python -m repro_torch.launch.shardings --selftest (4 CPU gloo ranks, "
               "2x2 mesh, this host's torch)")

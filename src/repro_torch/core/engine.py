@@ -878,8 +878,9 @@ class PlacementEngine:
         self, datum_ids, version: int | None = None, n_replicas: int = 1
     ) -> torch.Tensor:
         """Section 2.D ADDITION NUMBERs against a cached version (default:
-        current) -> (batch,) int32 on the engine's device; -1 means
-        "unknown, treat as candidate" (the planner's add-node prefilter)."""
+        current) -> (batch,) int32 on the engine's device, one kernel
+        launch and no host sync; -1 means "unknown, treat as candidate"
+        (the planner's add-node prefilter)."""
         from ..kernels.ops import addition_numbers_on_table_device
 
         self._require_asura("addition_numbers_device")

@@ -9,6 +9,7 @@ Nothing is compiled at import time.
 
 from .asura_place import (
     LAUNCHES,
+    addition_numbers_cuda,
     diff_nodes_cuda,
     diff_replicas_cuda,
     place_cuda,
@@ -27,6 +28,7 @@ from .hierarchy_ref import hier_place_replicas_ref
 
 __all__ = [
     "LAUNCHES",
+    "addition_numbers_cuda",
     "baseline_replicas_cuda",
     "ch_place_cuda",
     "diff_nodes_cuda",

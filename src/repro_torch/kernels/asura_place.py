@@ -7,7 +7,10 @@ and no caller of its own uses it); ``place_fused_cuda`` replaces
 the serving path's stats vector; ``diff_nodes_cuda`` and
 ``diff_replicas_cuda`` replace ``diff_nodes_pallas`` and
 ``diff_replicas_pallas`` (the migration planner's two-version diffs).
-All five:
+``addition_numbers_cuda`` replaces no TPU kernel: it is the section 2.D
+ADDITION-NUMBER trace, which the reference computes in jnp
+(``kernels/ref.py`` ``addition_numbers_ref``), for the planner's
+add-node prefilter.  All six:
 
   * take the plain-torch twin (``ref.py``) only for CPU tensors; for CUDA
     tensors they launch the kernel or raise -- no fallback;
@@ -30,7 +33,8 @@ import torch
 
 from . import build, ref
 
-LAUNCHES = {"place": 0, "place_fused": 0, "place_replicas": 0, "diff_nodes": 0, "diff_replicas": 0}
+LAUNCHES = {"place": 0, "place_fused": 0, "place_replicas": 0, "diff_nodes": 0,
+            "diff_replicas": 0, "addition_numbers": 0}
 
 
 def reset_launches() -> None:
@@ -52,6 +56,8 @@ def _lib() -> ctypes.CDLL:
     lib.asura_diff_nodes.restype = i32
     lib.asura_diff_replicas.argtypes = [p] * 6 + [i64] + [i32] * 7 + [p]
     lib.asura_diff_replicas.restype = i32
+    lib.asura_addition_numbers.argtypes = [p] * 5 + [i64] + [i32] * 5 + [p]
+    lib.asura_addition_numbers.restype = i32
     return lib
 
 
@@ -338,4 +344,53 @@ def diff_replicas_cuda(
     )
     _raise_on(rc, "asura_diff_replicas")
     LAUNCHES["diff_replicas"] += 1
+    return out
+
+
+def addition_numbers_cuda(
+    ids: torch.Tensor,
+    len32: torch.Tensor,
+    node_of: torch.Tensor,
+    *,
+    top_level: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    n_replicas: int = 1,
+) -> torch.Tensor:
+    """Section 2.D ADDITION NUMBER per id -> (n,) int32: the minimum unused
+    anterior ASURA number of the bounded R-replica trace against one table,
+    run with the ladder at ``top_level`` (the caller's extended top), -1
+    where the lane did not fill R slots within ``max_draws * max(1, R)``
+    draws or had no unused draw."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs = len32.shape[0] if isinstance(len32, torch.Tensor) else 0
+    _check("len32", len32, torch.uint32, dev, n_segs)
+    _check("node_of", node_of, torch.int32, dev, n_segs)
+    _check_ladder(n_segs, top_level, s_log2, max_draws)
+    R = int(n_replicas)
+    if R < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if max_draws * R >= 2**31:  # the kernel counts draws in int32, as the reference does
+        raise ValueError(f"max_draws * n_replicas must be < 2**31, got {max_draws} * {R}")
+    if dev.type == "cpu":
+        return ref.addition_numbers_ref(
+            ids, len32, node_of, top_level=top_level, s_log2=s_log2,
+            max_draws=max_draws, n_replicas=R,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"addition_numbers_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    # R > 8: each lane keeps its picked nodes in its own row of this
+    nodes = torch.empty((n, R), dtype=torch.int32, device=dev) if R > 8 else None
+    rc = _lib().asura_addition_numbers(
+        ids.data_ptr(), len32.data_ptr(), node_of.data_ptr(), out.data_ptr(),
+        None if nodes is None else nodes.data_ptr(), n, n_segs, top_level,
+        s_log2, max_draws, R, _stream(dev),
+    )
+    _raise_on(rc, "asura_addition_numbers")
+    LAUNCHES["addition_numbers"] += 1
     return out

@@ -1,13 +1,14 @@
 // ASURA STEP 2's per-lane device functions, shared by every kernel that
 // places one id per thread against a segment table: asura_place.cu (B1-B4,
-// B9) and hierarchy.cu (B8, whose level 1 is B2's body and whose level 2
-// is B1's).  kernels/build.py hashes this header with every source that
-// includes it.
+// B9 and the ADDITION-NUMBER trace) and hierarchy.cu (B8, whose level 1 is
+// B2's body and whose level 2 is B1's).  kernels/build.py hashes this
+// header with every source that includes it.
 //
 // The bodies take the ladder's counters as a policy, TopLadder<K, S>: the
 // top K levels' counters in registers, the deeper ones in the caller's
 // local array.  B1, B2 and B9 also keep the top S levels' generator seeds
-// (S > 0); B3, B4 and B8 hash every consult's seed anew (S = 0).
+// (S > 0), as does the ADDITION-NUMBER trace; B3, B4 and B8 hash every
+// consult's seed anew (S = 0).
 
 #pragma once
 
@@ -361,6 +362,43 @@ struct NodeSet<0> {
     for (int r = found; r < R; ++r) row[r] = -1;
   }
 };
+
+// The ADDITION-NUMBER trace's per-lane body (section 2.D): B2's draw loop
+// for the first R hits on distinct nodes within max_draws * max(1, R)
+// draws, keeping the lexicographic minimum (k, f), f unsigned, of the
+// lane's UNUSED draws -- a miss past the table, a miss inside a segment,
+// or a hit on a node already picked.  The cap counts every draw, hits or
+// not, and the lane stops once it holds R nodes (the reference's lanes
+// freeze there).  Returns that minimum's k, or -1 where the lane did not
+// fill R slots or had no unused draw.  The sentinel (0x7FFFFFFF, 0) is the
+// reference's: k < 2**31 always, so only k = 0x7FFFFFFF is never kept.
+// RMAX > 0: the picked nodes in registers (R <= RMAX); RMAX == 0: in the
+// lane's R-entry scratch row ``gnode``.
+template <int RMAX, class Ladder>
+__device__ __forceinline__ int32_t addition_number_lane_with(
+    uint32_t id, Ladder& ladder, const uint32_t* __restrict__ len32,
+    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
+    int max_draws, int R, int32_t* gnode) {
+  constexpr uint32_t kNoK = 0x7FFFFFFFu;
+  ladder.reset(id, top_level);
+  NodeSet<RMAX> set(gnode);
+  uint32_t min_k = kNoK, min_f = 0u;
+  const int cap = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
+  for (int d = 0; d < cap && set.found < R; ++d) {
+    uint32_t k, f;
+    ladder.next(id, top_level, s_log2, k, f);
+    bool used = false;
+    if (hits(k, f, n_segs, len32)) {
+      const int held = set.found;
+      used = set.add(__ldg(node_of + k)) > held;
+    }
+    if (!used && (k < min_k || (k == min_k && f < min_f))) {
+      min_k = k;
+      min_f = f;
+    }
+  }
+  return set.found >= R && min_k != kNoK ? static_cast<int32_t>(min_k) : -1;
+}
 
 // B4's per-lane body: B2's first R hits on distinct nodes, nodes out,
 // against both tables in one walk of the deeper ladder, as B3's body

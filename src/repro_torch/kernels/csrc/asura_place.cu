@@ -23,6 +23,19 @@
 //       (2, n, R) replica-node sets (the per-slot alignment is plain
 //       torch outside).
 //
+// And one kernel with no TPU counterpart:
+//   * asura_addition_numbers: the section 2.D ADDITION NUMBER of each id,
+//       the minimum unused anterior ASURA number of its R-replica trace
+//       (the twin of the reference's jnp addition_numbers_ref,
+//       kernels/ref.py, which has no Pallas kernel).  The migration
+//       planner's add-node prefilter runs it over every tracked id, so
+//       only ids whose number is at or below the new segments pay the
+//       two-version diff; as plain torch it read its count of lanes still
+//       tracing on every draw, a host sync per draw.  It is B2's body
+//       (addition_number_lane_with in asura_lane.cuh) with the min-key
+//       compare of every unused draw added, on the table's ladder extended
+//       by up to four levels (the top may reach 30), one int32 out per id.
+//
 // The two tables of a diff differ in length (an add appends segments, a
 // removal leaves length-0 holes) and may differ in top level.  The
 // reference places each id twice, with fresh counters per table; here
@@ -205,6 +218,27 @@ diff_replicas_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable l
                                            R, out_hi + i * R, out_lo + i * R);
 }
 
+// The ADDITION-NUMBER trace: the id's number, or -1.  RMAX > 0 keeps the
+// picked nodes in registers; RMAX == 0 (R > 8) in the lane's own row of
+// the (n, R) scratch ``nodes_buf``.
+template <int RMAX>
+__global__ void __launch_bounds__(kThreads)
+addition_numbers_kernel(const uint32_t* __restrict__ ids,
+                        const uint32_t* __restrict__ len32,
+                        const int32_t* __restrict__ node_of,
+                        int32_t* __restrict__ out, int32_t* __restrict__ nodes_buf,
+                        int64_t n, int n_segs, int top_level, int s_log2,
+                        int max_draws, int R) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t deep[ReplicasLadder::kDeep];
+  ReplicasLadder ladder;
+  ladder.deep = deep;
+  out[i] = port_lane::addition_number_lane_with<RMAX>(
+      ids[i], ladder, len32, node_of, n_segs, top_level, s_log2, max_draws, R,
+      RMAX == 0 ? nodes_buf + i * R : nullptr);
+}
+
 template <int RMAX>
 void launch_replicas(dim3 grid, cudaStream_t stream, const uint32_t* ids,
                      const uint32_t* len32, const int32_t* node_of, int32_t* out,
@@ -350,5 +384,39 @@ extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
     ASURA_DIFF_REPLICAS(0);
   }
 #undef ASURA_DIFF_REPLICAS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// nodes_buf: (n, R) int32 scratch, used (and required) only when R > 8.
+extern "C" int asura_addition_numbers(const void* ids, const void* len32,
+                                      const void* node_of, void* out,
+                                      void* nodes_buf, int64_t n, int n_segs,
+                                      int top_level, int s_log2, int max_draws,
+                                      int R, void* stream) {
+  const dim3 grid = grid_for(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* i = static_cast<const uint32_t*>(ids);
+  auto* l = static_cast<const uint32_t*>(len32);
+  auto* no = static_cast<const int32_t*>(node_of);
+  auto* o = static_cast<int32_t*>(out);
+  auto* nb = static_cast<int32_t*>(nodes_buf);
+#define ASURA_ADDITION_NUMBERS(RM)                                       \
+  addition_numbers_kernel<RM><<<grid, kThreads, 0, s>>>(i, l, no, o, nb, n, \
+                                                        n_segs, top_level, \
+                                                        s_log2, max_draws, R)
+  if (R <= 1) {
+    ASURA_ADDITION_NUMBERS(1);
+  } else if (R <= 2) {
+    ASURA_ADDITION_NUMBERS(2);
+  } else if (R <= 3) {
+    ASURA_ADDITION_NUMBERS(3);
+  } else if (R <= 4) {
+    ASURA_ADDITION_NUMBERS(4);
+  } else if (R <= 8) {
+    ASURA_ADDITION_NUMBERS(8);
+  } else {
+    ASURA_ADDITION_NUMBERS(0);
+  }
+#undef ASURA_ADDITION_NUMBERS
   return static_cast<int>(cudaGetLastError());
 }

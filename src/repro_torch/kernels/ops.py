@@ -12,9 +12,10 @@ Two tiers, as in the reference:
 
 The migration planner's two-version diffs (``diff_nodes_on_tables_device``,
 ``diff_replicas_on_tables_device``) place every id under two tables in
-one launch; the per-slot replica alignment after it and the ADDITION
-NUMBER trace (``addition_numbers_on_table_device``) are plain torch, as
-the reference leaves them outside its Pallas kernels.
+one launch; the per-slot replica alignment after it is plain torch, as
+the reference leaves it outside its Pallas kernels.  The ADDITION NUMBER
+trace (``addition_numbers_on_table_device``), jnp in the reference, is one
+launch of its own kernel.
 
 The failure-domain-aware (two-level) entry points
 (``hier_place_replicas_on_tables[_device]``,
@@ -47,6 +48,7 @@ from ..core.asura import (
 )
 from ..device import resolve_device
 from .asura_place import (
+    addition_numbers_cuda,
     diff_nodes_cuda,
     diff_replicas_cuda,
     place_fused_cuda,
@@ -54,7 +56,6 @@ from .asura_place import (
 )
 from .baselines import REPLICA_MAX_TRIES, baseline_place_cuda, baseline_replicas_cuda
 from .hierarchy import hier_place_replicas_cuda
-from .ref import addition_numbers_ref
 from .u32 import as_u32, to_u32
 
 __all__ = [
@@ -311,6 +312,18 @@ def diff_replicas_on_tables_device(
     return align_replica_sets(sets[0], sets[1])
 
 
+def addition_numbers_top(
+    top_level: int, *, extra_levels: int | None = None,
+    params: AsuraParams = DEFAULT_PARAMS,
+) -> int:
+    """The top level of the ADDITION-NUMBER trace's ladder: the table's
+    ``top_level`` plus ``extra_levels`` (default: up to 4, capped by the
+    2**31 segment-space bound)."""
+    if extra_levels is None:
+        extra_levels = max(0, min(4, 31 - params.s_log2 - top_level))
+    return top_level + extra_levels
+
+
 def addition_numbers_on_table_device(
     datum_ids,
     len32: torch.Tensor,
@@ -331,14 +344,12 @@ def addition_numbers_on_table_device(
     has one and equals the minimally extended scalar result where it does
     not.  -1 marks the remaining lanes (more extension needed, or no
     convergence): callers treat -1 as "candidate", which keeps the
-    prefilter sound.  Plain torch on every device (``addition_numbers_ref``);
-    the lanes-still-tracing count it reads each draw is a host sync, so
-    this is a control-path call."""
-    if extra_levels is None:
-        extra_levels = max(0, min(4, 31 - params.s_log2 - top_level))
+    prefilter sound.  One kernel launch and no host sync for a CUDA
+    table, the twin (``ref.addition_numbers_ref``) for a CPU one."""
     ids = as_ids(datum_ids, len32.device)
-    return addition_numbers_ref(
-        ids, len32, node_of, top_level=top_level + extra_levels,
+    return addition_numbers_cuda(
+        ids, len32, node_of,
+        top_level=addition_numbers_top(top_level, extra_levels=extra_levels, params=params),
         s_log2=params.s_log2, max_draws=params.max_draws, n_replicas=n_replicas,
     )
 

@@ -367,14 +367,15 @@ def addition_numbers_ref(
     """Section 2.D ADDITION NUMBER per lane -> (batch,) int32.
 
     Every lane runs the bounded replica trace, tracking the minimum
-    *unused* anterior ASURA number as an exact ``(k << 32) | frac32`` key.
-    Lanes that do not converge within ``max_draws * max(1, R)`` draws, or
-    whose every anterior number was used, return -1 ("unknown: treat as a
-    candidate", which keeps the planner's AN <= f prefilter sound); the
-    others equal ``core.asura.addition_numbers_batch``.  The reference has
-    no Pallas kernel for this trace (metadata work off the hot path), so
-    this plain-torch version runs on every device; lanes are dropped once
-    they hold R replicas (their state no longer changes).
+    *unused* anterior ASURA number as an exact ``(k << 32) | frac32`` key
+    below the reference's sentinel ``(0x7FFFFFFF, 0)``.  Lanes that do not
+    converge within ``max_draws * max(1, R)`` draws, or whose every
+    anterior number was used, return -1 ("unknown: treat as a candidate",
+    which keeps the planner's AN <= f prefilter sound); the others equal
+    ``core.asura.addition_numbers_batch``.  The twin of the CUDA kernel
+    ``asura_addition_numbers`` (the reference has no Pallas kernel for
+    this trace); lanes are dropped once they hold R replicas (their state
+    no longer changes), so it reads its count of live lanes every draw.
     """
     ids = as_u32(ids)
     len32 = as_u32(len32)
@@ -382,7 +383,7 @@ def addition_numbers_ref(
     n_segs = len32.shape[0]
     n, R = ids.shape[0], n_replicas
     dev = ids.device
-    no_min = torch.iinfo(torch.int64).max
+    no_min = 0x7FFFFFFF << 32  # the reference's (NO_K, 0): k < 2**31 always
     result = torch.full((n,), -1, dtype=torch.int64, device=dev)
     alive = torch.arange(n, device=dev)
     live_ids = ids

@@ -66,6 +66,7 @@ from .shardings import (
     param_shardings,
     replicated,
     serve_param_shardings,
+    to_placements,
 )
 
 # microbatch counts per (arch, shape), as the reference's table (empty)
@@ -143,14 +144,16 @@ def cell_argument_bytes(cfg: ModelConfig, spec: ShapeSpec, mesh, *,
     return shard_bytes(in_specs, in_sh)
 
 
-def _fake_inputs(mesh, tree, shardings):
-    """DTensors with fake local shards (call under ``FakeTensorMode``)."""
+def _fake_inputs(tree, shardings):
+    """DTensors with fake local shards on their shardings' meshes (call
+    under ``FakeTensorMode``)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
-        return {k: _fake_inputs(mesh, v, shardings[k]) for k, v in tree.items()}
+        return {k: _fake_inputs(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_fake_inputs(mesh, t, s) for t, s in zip(tree, shardings))
+        return type(tree)(_fake_inputs(t, s) for t, s in zip(tree, shardings))
+    mesh = shardings.mesh
     local = torch.empty(local_shape(shardings, tree.shape), dtype=tree.dtype,
                         device=mesh.device_type)
     return DTensor.from_local(local, mesh, shardings.placements, run_check=False,
@@ -165,16 +168,20 @@ def _contiguous_stride(shape) -> tuple:
     return tuple(reversed(stride))
 
 
-def _place(mesh, tree, shardings):
-    """Redistribute a step's outputs onto the cell's output shardings."""
+def _place(tree, shardings):
+    """Redistribute a step's outputs onto the cell's output specs, each on
+    the mesh it came out on (a loss computed from activations on the batch
+    mesh stays there)."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
-        return {k: _place(mesh, v, shardings[k]) for k, v in tree.items()}
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_place(mesh, t, s) for t, s in zip(tree, shardings))
-    if isinstance(tree, DTensor) and tuple(tree.placements) != shardings.placements:
-        return tree.redistribute(mesh, shardings.placements)
+        return type(tree)(_place(t, s) for t, s in zip(tree, shardings))
+    if isinstance(tree, DTensor):
+        want = to_placements(tree.device_mesh, shardings.spec)
+        if tuple(tree.placements) != want:
+            return tree.redistribute(tree.device_mesh, want)
     return tree
 
 
@@ -227,7 +234,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, verbose: bool = 
         arg_bytes = shard_bytes(in_specs, in_sh)
         t0 = time.perf_counter()
         with FakeTensorMode(allow_non_fake_inputs=True) as fake_mode:
-            args = _fake_inputs(mesh, in_specs, in_sh)
+            args = _fake_inputs(in_specs, in_sh)
         # The step runs outside the mode: ops on the fake inputs stay fake
         # (a fake tensor enters its mode itself), while DTensor's own index
         # arithmetic and the models' small constants are real tensors (a
@@ -239,7 +246,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False, verbose: bool = 
         counter = op_cost.OpCounter()
         placement = activation_constraint_fn(mesh, whole=fake_mode.from_tensor)
         with hooks.activation_sharding(placement), counter:
-            out = _place(mesh, fn(*args), out_sh)
+            out = _place(fn(*args), out_sh)
         outs = _local_tensors(out)
         out_bytes = sum(t.untyped_storage().nbytes() for t in outs)
         fresh = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in outs

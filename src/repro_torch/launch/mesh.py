@@ -11,6 +11,16 @@ counterpart of the reference's forced host devices.
 Meshes are made by FUNCTIONS, so importing this module touches no process
 group.  ``device_type`` defaults to the card, as every entry point of the
 port; the dry run and the CPU tests pass ``"cpu"``.
+
+The multi-pod mesh shards the batch over ("pod", "data") together.  A
+DTensor sharded on one dimension over two mesh axes meets strided shards
+in every view that splits or merges that dimension, so batch-sharded
+tensors live on ``batch_mesh(mesh)`` instead: the same ranks in the same
+order as a 2-D ("pod_data", "model") mesh, whose first axis is the two
+flattened -- one plain 32-way shard of the batch, as 16x16's is 16-way.
+Parameters stay on the 3-D mesh (FSDP over "data" alone, as the
+reference's specs say) and cross to the batch mesh where a layer gathers
+them (``launch.shardings``).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 POD, DATA, MODEL = "pod", "data", "model"
+POD_DATA = "pod_data"  # the batch mesh's flattened (pod, data) axis
 
 
 def _mesh(shape: tuple, names: tuple, device_type):
@@ -50,8 +61,12 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = N
     return _mesh((16, 16), (DATA, MODEL), device_type)
 
 
-def make_debug_mesh(data: int = 1, model: int = 1, device_type: str | None = None):
-    """A (data, model) mesh over the whole group (tests: 1x1, 2x2)."""
+def make_debug_mesh(data: int = 1, model: int = 1, device_type: str | None = None, *,
+                    pod: int = 1):
+    """A (data, model) mesh over the whole group (tests: 1x1, 2x2), with
+    "pod" in front for ``pod > 1`` (tests: 2x2x1, 2x1x2)."""
+    if pod > 1:
+        return _mesh((pod, data, model), (POD, DATA, MODEL), device_type)
     return _mesh((data, model), (DATA, MODEL), device_type)
 
 
@@ -66,9 +81,31 @@ def axis_sizes(mesh) -> dict:
     return dict(zip(names, tuple(shape)))
 
 
+def batch_mesh(mesh):
+    """The mesh batch-sharded tensors live on: ``mesh`` itself, or for a
+    ``DeviceMesh`` with a "pod" axis the ("pod_data", "model") mesh over
+    the same ranks, built once per mesh object and kept on it (the module
+    docstring says why).
+    Anything else (the spec functions' mesh-like objects) is returned as
+    it is."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or POD not in axis_sizes(mesh):
+        return mesh
+    # kept on the object, not in a table by value: meshes compare equal by
+    # layout, and an equal mesh of an earlier, destroyed group holds dead
+    # process groups
+    if getattr(mesh, "_batch_mesh", None) is None:
+        sizes = axis_sizes(mesh)
+        mesh._batch_mesh = _mesh((sizes[POD] * sizes[DATA], sizes[MODEL]),
+                                 (POD_DATA, MODEL), mesh.device_type)
+    return mesh._batch_mesh
+
+
 def data_axes(mesh) -> tuple:
-    """Axes that shard the batch: ("pod", "data") multi-pod, else ("data",)."""
-    return tuple(a for a in axis_sizes(mesh) if a in (POD, DATA))
+    """Axes that shard the batch: ("pod", "data") multi-pod, ("pod_data",)
+    on its batch mesh, else ("data",)."""
+    return tuple(a for a in axis_sizes(mesh) if a in (POD, DATA, POD_DATA))
 
 
 def batch_pspec(mesh) -> tuple:

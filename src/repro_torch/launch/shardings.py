@@ -9,7 +9,8 @@ Baseline scheme, the reference's rule for rule:
   * embeddings: vocab on model, d_model on data;
   * MoE experts: expert axis on model (EP), falling back to TP over d_ff
     when the expert count does not divide ``model``;
-  * batch: sharded over ("pod", "data");
+  * batch: sharded over ("pod", "data"), placed on the batch mesh where
+    the two are one flattened axis (``launch.mesh.batch_mesh``);
   * decode caches: batch over the data axes; kv heads / state width on
     model when divisible, else the sequence (flash-decode style); batch 1
     moves the data axes to the sequence.
@@ -44,7 +45,7 @@ from typing import Any
 import torch
 
 from ..models.config import ModelConfig
-from .mesh import DATA, MODEL, axis_sizes, data_axes
+from .mesh import DATA, MODEL, POD, POD_DATA, axis_sizes, batch_mesh, data_axes
 
 
 def _P(*entries) -> tuple:
@@ -258,11 +259,26 @@ def logits_pspec(mesh, batch: int, vocab: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def _mesh_axes(mesh, entry) -> tuple:
+    """The axes of ``mesh`` that shard a dimension whose spec entry is
+    ``entry``: on a batch mesh ("pod", "data") is its one "pod_data" axis,
+    and either alone has no axis there."""
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    if POD_DATA not in axis_sizes(mesh) or not ({POD, DATA} & set(axes)):
+        return axes
+    i = axes.index(POD) if POD in axes else -1
+    if i < 0 or axes[i:i + 2] != (POD, DATA):
+        raise ValueError(f"spec entry {entry} shards over 'pod' or 'data' alone; the "
+                         f"batch mesh {tuple(axis_sizes(mesh))} has them flattened")
+    return axes[:i] + (POD_DATA,) + axes[i + 2:]
+
+
 def to_placements(mesh, spec: tuple) -> tuple:
     """DTensor placements of ``spec``, one per mesh axis: an axis that
     shards dimension d is ``Shard(d)``, every other axis ``Replicate()``.
     A dimension sharded by a tuple of axes is split major-first, which is
-    DTensor's order when the axes run in mesh order (as every rule's do)."""
+    DTensor's order when the axes run in mesh order (as every rule's do).
+    On a batch mesh ("pod", "data") maps to its flattened axis."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(axis_sizes(mesh))
@@ -270,7 +286,7 @@ def to_placements(mesh, spec: tuple) -> tuple:
     for d, entry in enumerate(spec):
         if entry is None:
             continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = _mesh_axes(mesh, entry)
         idx = [names.index(a) for a in axes]
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry} does not run in mesh order {names}")
@@ -282,7 +298,8 @@ def to_placements(mesh, spec: tuple) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh (the reference's ``NamedSharding``) and the DTensor
-    placements it implies."""
+    placements it implies.  ``mesh`` is the mesh the tensor is placed on:
+    the batch mesh for batch, cache and logits shardings."""
 
     mesh: Any
     spec: tuple
@@ -298,7 +315,7 @@ def local_shape(sharding: NamedSharding, shape) -> tuple:
     sizes = axis_sizes(sharding.mesh)
     out = list(shape)
     for d, entry in enumerate(sharding.spec):
-        for a in (entry if isinstance(entry, tuple) else (entry,) if entry else ()):
+        for a in (_mesh_axes(sharding.mesh, entry) if entry else ()):
             out[d] //= sizes[a]
     return tuple(out)
 
@@ -323,14 +340,16 @@ def serve_param_shardings(mesh, params_tree):
 
 
 def batch_shardings(mesh, batch_tree):
+    on = batch_mesh(mesh)
     return tree_map_with_path(
-        lambda path, leaf: NamedSharding(mesh, batch_leaf_pspec(mesh, tuple(leaf.shape))),
+        lambda path, leaf: NamedSharding(on, batch_leaf_pspec(mesh, tuple(leaf.shape))),
         batch_tree)
 
 
 def cache_shardings(mesh, cfg: ModelConfig, cache_tree):
+    on = batch_mesh(mesh)
     return tree_map_with_path(
-        lambda path, leaf: NamedSharding(mesh, cache_pspec(path, leaf, mesh, cfg)), cache_tree)
+        lambda path, leaf: NamedSharding(on, cache_pspec(path, leaf, mesh, cfg)), cache_tree)
 
 
 def opt_shardings(mesh, params_tree):
@@ -344,18 +363,19 @@ def replicated(mesh, tree):
 
 
 def logits_sharding(mesh, batch: int, vocab: int) -> NamedSharding:
-    return NamedSharding(mesh, logits_pspec(mesh, batch, vocab))
+    return NamedSharding(batch_mesh(mesh), logits_pspec(mesh, batch, vocab))
 
 
-def distribute_tree(mesh, tree, shardings):
-    """Place every tensor of ``tree`` on ``mesh`` by its ``NamedSharding``
-    (same structure): each rank keeps its shard of the full tensor it
-    holds (every rank must hold the same values, as after a shared seed)."""
+def distribute_tree(tree, shardings):
+    """Place every tensor of ``tree`` by its ``NamedSharding`` (same
+    structure), on the sharding's mesh: each rank keeps its shard of the
+    full tensor it holds (every rank must hold the same values, as after
+    a shared seed)."""
     from torch.distributed.tensor import distribute_tensor
 
     if isinstance(tree, dict):
-        return {k: distribute_tree(mesh, v, shardings[k]) for k, v in tree.items()}
-    return distribute_tensor(tree, mesh, shardings.placements)
+        return {k: distribute_tree(v, shardings[k]) for k, v in tree.items()}
+    return distribute_tensor(tree, shardings.mesh, shardings.placements)
 
 
 def full_tree(tree):
@@ -371,6 +391,47 @@ def full_tree(tree):
 # ---------------------------------------------------------------------------
 # The model's placement hooks on a mesh
 # ---------------------------------------------------------------------------
+
+
+def _across(placements, src, dst) -> list:
+    """``placements`` on mesh ``src`` re-expressed on ``dst``, one of the two
+    a batch mesh of the other: the "pod_data" axis holds what "pod" and
+    "data" both hold (a part of a sum over its ranks is one over each of
+    the two axes in turn, a shard over it two nested ones, major first)."""
+    src_names, dst_names = list(axis_sizes(src)), list(axis_sizes(dst))
+    at = {a: placements[i] for i, a in enumerate(src_names)}
+    if POD_DATA in at:
+        at[POD] = at[DATA] = at.pop(POD_DATA)
+    elif POD_DATA in dst_names:
+        if at[POD] != at[DATA]:
+            raise ValueError(f"{tuple(placements)} on {tuple(src_names)} differ over "
+                             "'pod' and 'data': no placement of the batch mesh holds them")
+        at[POD_DATA] = at.pop(POD)
+    return [at[a] for a in dst_names]
+
+
+class _Remesh(torch.autograd.Function):
+    """A DTensor moved to another mesh over the same ranks in the same order
+    (the multi-pod mesh and its batch mesh): the same local shard, the
+    placements re-expressed (``_across``), and its gradient moved back the
+    same way, so autograd hands the parameter a gradient on its own mesh."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from torch.distributed.tensor import DTensor
+
+        ctx.mesh, ctx.shape, ctx.stride = x.device_mesh, x.shape, x.stride()
+        return DTensor.from_local(x.to_local(), mesh, _across(x.placements, x.device_mesh, mesh),
+                                  run_check=False, shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        moved = DTensor.from_local(grad.to_local(), ctx.mesh,
+                                   _across(grad.placements, grad.device_mesh, ctx.mesh),
+                                   run_check=False, shape=ctx.shape, stride=ctx.stride)
+        return moved, None
 
 
 def activation_constraint_fn(mesh, whole=None):
@@ -391,6 +452,9 @@ def activation_constraint_fn(mesh, whole=None):
       * ``gather``: a parameter's shards over the data axes all-gathered
         (FSDP), its tensor-parallel shards kept, so every product runs
         Megatron-style without a choice left to DTensor's per-op solver;
+        on the multi-pod mesh the gathered parameter then moves to the
+        batch mesh, where the activations live (``launch.mesh.batch_mesh``),
+        and its gradient back;
       * ``split_heads``: a dimension about to be split into ``n`` groups
         is gathered over the axes whose combined size does not divide
         ``n`` (smollm's 9 heads, mixtral's 8 kv heads, RWKV's 40 on a
@@ -398,7 +462,8 @@ def activation_constraint_fn(mesh, whole=None):
       * ``attend``: an attention kernel run by ``local_map`` on each
         rank's own heads and rows, where heads and batch divide (the
         same kernel, on fewer heads, as one card runs it);
-      * ``wkv``: RWKV6's chunked WKV run likewise on each rank's heads;
+      * ``wkv``: RWKV6's chunked WKV run likewise on each rank's rows and
+        heads (every head where they do not divide ``model``);
       * ``moe``: the MoE layer run by ``local_map`` on each rank's token
         groups (all of them where the groups do not split over the data
         ranks) and its experts (expert parallel) or d_ff slice (the
@@ -423,6 +488,7 @@ def activation_constraint_fn(mesh, whole=None):
     from ..models.layers import MOE_GROUP
     from ..train.optimizer import tree_flatten as _flatten
 
+    mesh = batch_mesh(mesh)  # where activations, batches and caches live
     sizes = axis_sizes(mesh)
     names = list(sizes)
     dp_idx = [names.index(a) for a in data_axes(mesh)]
@@ -463,11 +529,14 @@ def activation_constraint_fn(mesh, whole=None):
         def gather(self, tree):
             if isinstance(tree, dict):
                 return {k: self.gather(v) for k, v in tree.items()}
-            if not isinstance(tree, DTensor) or not any(
-                    isinstance(tree.placements[i], Shard) for i in dp_idx):
+            if not isinstance(tree, DTensor):
                 return tree
-            want = [Replicate() if i in dp_idx else p for i, p in enumerate(tree.placements)]
-            return tree.redistribute(mesh, want)
+            own = tree.device_mesh
+            own_dp = [i for i, a in enumerate(axis_sizes(own)) if a in data_axes(own)]
+            if any(isinstance(tree.placements[i], Shard) for i in own_dp):
+                want = [Replicate() if i in own_dp else p for i, p in enumerate(tree.placements)]
+                tree = tree.redistribute(own, want)
+            return tree if own == mesh else _Remesh.apply(tree, mesh)
 
         def split_heads(self, x, dim, n):
             if not isinstance(x, DTensor):
@@ -499,18 +568,23 @@ def activation_constraint_fn(mesh, whole=None):
 
         def wkv(self, fn, r, k, v, logw, u, head_dim, state):
             # RWKV6's heads are independent: each rank runs the chunked WKV
-            # on its own heads and rows (the bonus' gradient a part of a sum
-            # over the data axes); where they do not divide (40 heads on a
-            # 16-way model axis), DTensor places it
+            # on its own rows and heads (the bonus' gradient a part of a sum
+            # over the data axes); where the heads do not divide the model
+            # axis (40 on 16), on its rows and every head, as the inputs
+            # come (``split_heads`` gathered them over the model axis): the
+            # model ranks repeat the work, and DTensor meets none of the
+            # kernel's views.  A batch the data axes do not divide: DTensor
+            # places it
             n_heads = r.shape[-1] // head_dim
-            if not isinstance(r, DTensor) or n_heads % model_size or r.shape[0] % dp_size:
+            if not isinstance(r, DTensor) or r.shape[0] % dp_size:
                 return fn(r, k, v, logw, u, head_dim, state)
+            split = n_heads % model_size == 0
             axes = range(len(names))
-            rows = tuple(Shard(0) if i in dp_idx else Shard(2) if i == model_idx
+            rows = tuple(Shard(0) if i in dp_idx else Shard(2) if i == model_idx and split
                          else Replicate() for i in axes)
-            heads = tuple(Shard(0) if i in dp_idx else Shard(1) if i == model_idx
+            heads = tuple(Shard(0) if i in dp_idx else Shard(1) if i == model_idx and split
                           else Replicate() for i in axes)
-            bonus = tuple(Shard(0) if i == model_idx else Replicate() for i in axes)
+            bonus = tuple(Shard(0) if i == model_idx and split else Replicate() for i in axes)
             bonus_grad = tuple(Partial() if i in dp_idx else p_ for i, p_ in enumerate(bonus))
             if state is None:
                 return local_map(lambda *a: fn(*a, head_dim, None), out_placements=(rows, heads),
@@ -728,14 +802,14 @@ def _check_ring_write(mesh, placement, cfg) -> None:
             raise AssertionError(f"the check needs a sequence-sharded ring, got "
                                  f"{shard[key]['k']}")
         want = cache[key]["k"][0]
-        ring = distribute_tree(mesh, cache[key]["k"], shard[key]["k"])
+        ring = distribute_tree(cache[key]["k"], shard[key]["k"])
         for slot in ([5], [0], [3, 4], [6, 7, 0, 1]):
             slot = torch.tensor(slot)
             values = torch.randn(batch, len(slot), 1, want.shape[-1], generator=gen).to(want.dtype)
             want.index_copy_(1, slot, values)
             with placement.scope():
                 placement.ring_write(ring[0], 1, slot, distribute_tree(
-                    mesh, values, NamedSharding(mesh, batch_leaf_pspec(mesh, values.shape))))
+                    values, NamedSharding(batch_mesh(mesh), batch_leaf_pspec(mesh, values.shape))))
             _compare(ring[0], want, f"ring {shard[key]['k'].spec} write at slots "
                      f"{slot.tolist()}", exact=True)
 
@@ -771,8 +845,11 @@ def _selftest_cases(archs, model: int) -> list:
 
 
 def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int = 8,
-             seq: int = 64, decode_steps: int = 3, seed: int = 0) -> list:
-    """On every rank of a ``data x model`` gloo group: one train step, a
+             seq: int = 64, decode_steps: int = 3, seed: int = 0,
+             check_ring: bool = True, pod: int = 1) -> list:
+    """On every rank of a ``data x model`` gloo group (``pod x data x
+    model`` with a "pod" axis for ``pod > 1``, the batch then on the batch
+    mesh, parameters crossing to it): one train step, a
     prefill and ``decode_steps`` decode steps of each reduced config in
     fp32 compute, sharded by the rules on a CPU mesh and unsharded on the
     rank alone, AdamW at ``SELFTEST_OPT``; loss, grad norm, logits, caches
@@ -781,9 +858,10 @@ def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int 
     parameter's update by ``hold_update``.  ``batch x seq`` tokens make 2 MoE groups, one per
     data rank (the MoE's local dispatch); a decode step's one group takes
     DTensor's placement.  Every distributed tree's local shards must have
-    the shapes their specs imply, and a ring whose sequence is sharded
-    must be written as ``index_copy_`` writes it.  Returns the cases
-    checked."""
+    the shapes their specs imply, and (``check_ring``, which needs a
+    model axis that shards the first arch's ring sequence) a ring whose
+    sequence is sharded must be written as ``index_copy_`` writes it.
+    Returns the cases checked."""
     from ..configs import get_config
     from ..models import hooks, layers, reduced_config
     from ..models import init_cache, init_params
@@ -792,12 +870,12 @@ def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int 
     from ..train.optimizer import tree_flatten
     from .mesh import make_debug_mesh
 
-    mesh = make_debug_mesh(data, model, device_type="cpu")
+    mesh = make_debug_mesh(data, model, device_type="cpu", pod=pod)
     placement = activation_constraint_fn(mesh)
     prev_dtype = layers.COMPUTE_DTYPE
     layers.set_compute_dtype(torch.float32)
     try:
-        if model > 1:
+        if model > 1 and check_ring:
             _check_ring_write(mesh, placement, reduced_config(get_config(archs[0])))
         cases = _selftest_cases(archs, model)
         adamw = AdamWConfig(**SELFTEST_OPT)
@@ -820,17 +898,17 @@ def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int 
                         trees = ((params, param_shardings(mesh, params)),
                                  (opt, opt_shardings(mesh, params)),
                                  (train_batch, batch_shardings(mesh, train_batch)))
-                        p, o, b = (distribute_tree(mesh, t, s) for t, s in trees)
+                        p, o, b = (distribute_tree(t, s) for t, s in trees)
                         for (_, s), d, what in zip(trees, (p, o, b), ("params", "opt", "batch")):
                             _check_local_shards(d, s, f"{arch} {what}")
                     new_p, new_o, metrics = make_train_step(cfg, adamw)(p, o, b)
                     if sharded:
-                        p = distribute_tree(mesh, params, serve_param_shardings(mesh, params))
+                        p = distribute_tree(params, serve_param_shardings(mesh, params))
                     logits = make_prefill_step(cfg)(p, b)
                     cache = init_cache(cfg, batch, seq, device="cpu")
                     if sharded:
                         cache_sh = cache_shardings(mesh, cfg, cache)
-                        cache = distribute_tree(mesh, cache, cache_sh)
+                        cache = distribute_tree(cache, cache_sh)
                         _check_local_shards(cache, cache_sh, f"{arch} cache")
                     serve = make_serve_step(cfg)
                     steps = []
@@ -838,7 +916,7 @@ def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int 
                         db = {"tokens": tokens[:, t:t + 1],
                               "positions": torch.full((batch, 1), t, dtype=torch.int32)}
                         if sharded:
-                            db = distribute_tree(mesh, db, batch_shardings(mesh, db))
+                            db = distribute_tree(db, batch_shardings(mesh, db))
                         step_logits, cache = serve(p, cache, db)
                         steps.append(step_logits)
                 layers.set_moe_observer(None)
@@ -868,7 +946,8 @@ def selftest(data: int = 2, model: int = 2, *, archs=SELFTEST_ARCHS, batch: int 
     return [name for name, _ in cases]
 
 
-def _selftest_rank(rank: int, world: int, init_file: str, data: int, model: int) -> None:
+def _selftest_rank(rank: int, world: int, init_file: str, data: int, model: int,
+                   archs: tuple, check_ring: bool, pod: int) -> None:
     import datetime
 
     import torch.distributed as dist
@@ -877,25 +956,29 @@ def _selftest_rank(rank: int, world: int, init_file: str, data: int, model: int)
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
-        archs = selftest(data, model)
+        archs = selftest(data, model, archs=archs, check_ring=check_ring, pod=pod)
         if rank == 0:
-            print(f"rank 0 of {world}: {data}x{model} gloo mesh, sharded == unsharded for "
+            shape = f"{pod}x{data}x{model}" if pod > 1 else f"{data}x{model}"
+            print(f"rank 0 of {world}: {shape} gloo mesh, sharded == unsharded for "
                   f"{', '.join(archs)}", flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def spawn_selftest(data: int = 2, model: int = 2) -> int:
-    """``selftest`` on ``data * model`` spawned CPU ranks (gloo, joined by
-    a ``file://`` store).  A failing rank fails the run."""
+def spawn_selftest(data: int = 2, model: int = 2, archs=SELFTEST_ARCHS,
+                   check_ring: bool = True, pod: int = 1) -> int:
+    """``selftest`` on ``pod * data * model`` spawned CPU ranks (gloo,
+    joined by a ``file://`` store).  A failing rank fails the run."""
     import os
     import tempfile
 
     import torch.multiprocessing as mp
 
-    world = data * model
+    world = pod * data * model
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_selftest_rank, args=(world, os.path.join(tmp, "store"), data, model),
+        mp.start_processes(_selftest_rank,
+                           args=(world, os.path.join(tmp, "store"), data, model, tuple(archs),
+                                 check_ring, pod),
                            nprocs=world, start_method="spawn")
     return world
 
@@ -908,12 +991,13 @@ def main(argv=None) -> int:
     ap.add_argument("--selftest", action="store_true")
     ap.add_argument("--data", type=int, default=2)
     ap.add_argument("--model", type=int, default=2)
+    ap.add_argument("--pod", type=int, default=1)
     args = ap.parse_args(argv)
     if not args.selftest:
         print("nothing to do (pass --selftest)")
         return 0
     t0 = time.perf_counter()
-    n = spawn_selftest(args.data, args.model)
+    n = spawn_selftest(args.data, args.model, pod=args.pod)
     print(f"sharded model selftest OK on {n} ranks in {time.perf_counter() - t0:.1f} s")
     return 0
 

@@ -443,7 +443,7 @@ def _encode(cfg: ModelConfig, params, frames):
     positions = constrain(_positions(b, s, x.device))
     x = constrain(x + _sinusoidal(positions, cfg.d_model).to(x.dtype))
     x, _ = _run_stack(cfg, "enc", params["enc_blocks"], cfg.n_enc_layers, x, positions)
-    return norm_apply(cfg, params["enc_final_norm"], x)
+    return norm_apply(cfg, hooks.gather(params["enc_final_norm"]), x)
 
 
 def forward(cfg: ModelConfig, params, batch: dict):
@@ -474,7 +474,7 @@ def forward(cfg: ModelConfig, params, batch: dict):
         x, stack_aux = _run_stack(cfg, kind, params[key], n, x, positions, enc)
         if stack_aux is not None:
             aux = aux + stack_aux
-    x = norm_apply(cfg, params["final_norm"], x)
+    x = norm_apply(cfg, hooks.gather(params["final_norm"]), x)
     if n_prefix:
         x = x[:, n_prefix:]
     return x, aux
@@ -581,5 +581,5 @@ def decode_step(cfg: ModelConfig, params, cache: dict, batch: dict):
             x, _, _ = _block_apply(cfg, kind, hooks.gather(_layer(blocks, i)), x, positions,
                                    state=_layer(caches, i), enc=enc)
             x = constrain(x)
-    x = norm_apply(cfg, params["final_norm"], x)
+    x = norm_apply(cfg, hooks.gather(params["final_norm"]), x)
     return _logits(cfg, params, x), cache

@@ -175,20 +175,21 @@ class ReplicaRouter:
         ingress=None,
         clock=None,
         round_seconds: float = 1.0,
+        ledger=None,
     ):
         """Apply a membership change as a LIVE migration -> ``LiveMigration``.
 
         The minimal session moves (cache re-prefills) drain under
         per-replica ingress/egress budgets while ``route_migrating`` keeps
         every request on the replica whose cache is warm: the v owner until
-        the session's re-prefill lands, the v+1 owner after.  The plan
-        diffs every session on the diff kernel: unlike the reference, an
-        add-only event skips the ADDITION-NUMBER prefilter, whose trace
-        costs more on the card than the diff it saves (the plan is the
-        same).  With ``n_replicas > 1`` the plan is the per-slot replica
-        plan and ``route_replicas_migrating`` serves the mixed-version
-        sets.  The v table is pinned in the engine's LRU before the
-        cluster mutates."""
+        the session's re-prefill lands, the v+1 owner after.  An add-only
+        event runs the ADDITION-NUMBER prefilter (the trace's kernel), so
+        only AN candidates pay the two-version diff; the plan is the same
+        either way.  With ``n_replicas > 1`` the plan is the per-slot
+        replica plan and ``route_replicas_migrating`` serves the
+        mixed-version sets.  The v table is pinned in the engine's LRU
+        before the cluster mutates.  ``ledger``, if given, takes the
+        planner's span and prefilter counters."""
         from ..migrate import LiveMigration, MigrationPlanner
 
         if self.algorithm != "asura":
@@ -210,16 +211,20 @@ class ReplicaRouter:
         ids = np.asarray(session_ids, dtype=np.uint32)
         self.engine.artifact()  # pin the v table in the LRU before mutating
         v_from = self.cluster.version
+        max_new_seg = None
         if remove is not None:
             self.cluster.remove_node(remove)
         if add is not None:
-            self.cluster.add_node(*add)
-        planner = MigrationPlanner(self.engine)
+            new_segs = self.cluster.add_node(*add)
+            if remove is None:
+                max_new_seg = max(new_segs)
+        planner = MigrationPlanner(self.engine, ledger=ledger)
         v_to = self.cluster.version
         if n_replicas > 1:
-            plan = planner.plan_replicas(ids, v_from, v_to, n_replicas)
+            plan = planner.plan_replicas(ids, v_from, v_to, n_replicas,
+                                         max_new_seg=max_new_seg)
         else:
-            plan = planner.plan(ids, v_from, v_to)
+            plan = planner.plan(ids, v_from, v_to, max_new_seg=max_new_seg)
         self._scale_migration = LiveMigration.from_plan(
             self.engine, plan, egress=egress, ingress=ingress, clock=clock,
             round_seconds=round_seconds,

@@ -172,6 +172,30 @@ def test_rs_edge_ids_hit_every_start_and_the_last():
     assert np.isin(starts.astype(np.int64), h).all()  # every start, the last too
 
 
+@pytest.mark.parametrize("cut", [1, 5])
+def test_rs_lookup_below_the_first_start_matches_reference(cut):
+    """A table whose ``starts[0] != 0`` (the first ``cut`` intervals of a
+    reference table dropped): a hash below the first start takes the last
+    owner in the twin and in B6's wrapper, as the reference's jnp
+    ``rs_lookup`` does (its ``take`` at -1 wraps) and as the NumPy oracle
+    does (``owners[-1]``); no engine path builds such a table."""
+    starts, owners = _tables("rs")
+    starts, owners = starts[cut:], owners[cut:]
+    assert starts[0] != 0
+    below = _unfmix32(np.linspace(0, int(starts[0]) - 1, 257).astype(np.uint32))
+    ids = np.concatenate([_ids(BATCH, seed=cut), _edge_ids(starts), below])
+    h = tr.fmix32(tr.as_u32(_t(ids))).numpy().astype(np.int64)
+    assert (h < int(starts[0])).sum() >= 257  # hashes below the first start
+    a, b = tb.rs_table_prep(starts, owners, device="cpu")
+    ja, jbb = jb.rs_table_prep(starts, owners)
+    want = np.asarray(jb.rs_lookup(jnp.asarray(ids), ja, jbb))
+    got = tr.rs_lookup(_t(ids), a, b)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert np.array_equal(tb.rs_place_cuda(_t(ids), a, b).numpy(), want)
+    assert np.array_equal(want.astype(np.int64), rs_place_np(ids, starts, owners))
+    assert (want[h < int(starts[0])] == owners[-1]).all()
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_neg_log2_q16_matches_reference(seed):
     h = _ids(1 << 14, seed=seed)

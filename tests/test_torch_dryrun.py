@@ -13,12 +13,15 @@ reanalyze}``) on the CPU.
     apply), every key of the reference's record present, per-device
     argument bytes equal to the sum of local shards under the reference's
     specs, and a per-device reckoning (the product FLOPs of one rank, not
-    of the mesh).
+    of the mesh); a multi-pod rank of a batch-sharded cell reckons what a
+    16x16 rank does at half the global batch.
   * ``--op-dir`` then ``reanalyze``: the re-derived fields equal the run's.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 
 import jax
@@ -164,17 +167,30 @@ def test_collective_bytes_by_kind_hand_counted(fake_4):
 CELLS = [
     ("smollm-135m", "train_4k", False), ("smollm-135m", "prefill_32k", False),
     ("smollm-135m", "decode_32k", False), ("smollm-135m", "long_500k", False),
-    ("smollm-135m", "decode_32k", True),
+    ("smollm-135m", "decode_32k", True), ("smollm-135m", "train_4k", True),
     ("rwkv6-3b", "train_4k", False), ("rwkv6-3b", "prefill_32k", False),
     ("rwkv6-3b", "decode_32k", False), ("rwkv6-3b", "long_500k", False),
     ("rwkv6-3b", "decode_32k", True), ("rwkv6-3b", "long_500k", True),
+    ("rwkv6-3b", "prefill_32k", True), ("rwkv6-3b", "train_4k", True),
 ]
+
+
+@functools.cache
+def _cell(arch, shape, multi_pod, half_batch=False):
+    """One reduced cell's record, traced once per file: the multi-pod
+    comparison below reads the cells CELLS has already run."""
+    with pytest.MonkeyPatch.context() as mp:
+        if half_batch:
+            spec = dryrun.SHAPES[shape]
+            mp.setitem(dryrun.SHAPES, shape,
+                       dataclasses.replace(spec, global_batch=spec.global_batch // 2))
+        return dryrun.run_cell(arch, shape, multi_pod=multi_pod, reduced=True,
+                               verbose=False, serve_tp_only=True)  # the CLI's default
 
 
 @pytest.mark.parametrize("arch,shape,multi_pod", CELLS)
 def test_run_cell_on_reduced_configs(arch, shape, multi_pod, bare_ref):
-    r = dryrun.run_cell(arch, shape, multi_pod=multi_pod, reduced=True, verbose=False,
-                        serve_tp_only=True)  # the CLI's default
+    r = _cell(arch, shape, multi_pod)
     cfg = reduced_config(get_config(arch))
     if shape == "long_500k" and not cfg.subquadratic:
         assert r["status"] == "skipped" and "500k" in r["reason"]
@@ -192,6 +208,32 @@ def test_run_cell_on_reduced_configs(arch, shape, multi_pod, bare_ref):
     assert r["flops"] > 0 and r["hlo_bytes"] > 0
     assert r["collective_bytes_per_device"] == sum(r["collective_by_kind"].values())
     assert r["param_count"] == cfg.param_count()
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm-135m", "train_4k"), ("rwkv6-3b", "prefill_32k"), ("rwkv6-3b", "train_4k"),
+])
+def test_multi_pod_rank_reckons_a_16x16_rank_at_half_the_batch(arch, shape):
+    """The batch lives on the batch mesh, whose first axis is ("pod",
+    "data") flattened (``launch.mesh.batch_mesh``), so a rank of the
+    2x16x16 mesh holds one plain 32-way shard of the batch and runs the
+    same per-device step as a rank of the 16x16 mesh at half the global
+    batch: the same rows, the same parameter shards (FSDP over "data"
+    alone), the same FLOPs.  Against the 16x16 cell at the full batch that
+    is half the FLOPs where DTensor's plan does not depend on the rows a
+    rank holds (prefill); in training, at 16 rows a rank, DTensor splits
+    some weight-gradient products one row a device over "model" as well,
+    which 8 rows cannot do whole, so there the multi-pod rank does a
+    little more than half."""
+    mp, sp = _cell(arch, shape, True), _cell(arch, shape, False)
+    half = _cell(arch, shape, False, half_batch=True)
+    assert mp["status"] == "ok" and mp["n_devices"] == 512 and mp["mesh"] == "2x16x16"
+    for key in ("flops", "argument_bytes_per_device", "output_bytes_per_device"):
+        assert mp[key] == half[key], key
+    if SHAPES[shape].kind == "prefill":
+        assert 2 * mp["flops"] == sp["flops"]
+    else:
+        assert sp["flops"] < 2 * mp["flops"] < 1.15 * sp["flops"]
 
 
 def test_run_cell_counts_one_device_not_the_mesh():

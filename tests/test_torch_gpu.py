@@ -21,6 +21,7 @@ from repro_torch.core import PlacementEngine, make_cluster, make_uniform_cluster
 from repro_torch.core.asura import AsuraParams
 from repro_torch.kernels import LAUNCHES, ref
 from repro_torch.kernels.asura_place import place_fused_cuda, place_replicas_cuda
+from repro_torch.kernels.ops import addition_numbers_top
 from repro_torch.kernels.u32 import as_u32
 from repro_torch.obs import MetricsRegistry
 from repro_torch.serve import RequestStreamDriver
@@ -300,6 +301,119 @@ def test_migration_paths_on_card_have_no_host_sync_and_match_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the ADDITION-NUMBER trace's kernel on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ladder,max_draws", [
+    ("10 nodes", 128), ("1 node", 128), ("64 nodes", 128), ("4096 nodes", 128),
+    ("10000 nodes", 128), ("4096 nodes", 2), ("4096 nodes", 1), ("10 nodes", 0),
+])
+@pytest.mark.parametrize("R", [1, 3, 9])
+def test_addition_numbers_kernel_matches_twin(cuda_device, R, ladder, max_draws):
+    """The kernel equals its twin lane for lane on the extended ladder,
+    -1 lanes included: a small ``max_draws`` forces unconverged lanes;
+    R = 3 runs the three-slot instantiation, R = 9 the scratch rows."""
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+
+    art = _artifact(LADDERS[ladder], cuda_device)
+    ids = _ids(50_003, cuda_device, seed=R + max_draws)
+    kw = dict(top_level=addition_numbers_top(art.top_level), s_log2=1, max_draws=max_draws,
+              n_replicas=R)
+    before = LAUNCHES["addition_numbers"]
+    got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+    assert LAUNCHES["addition_numbers"] == before + 1
+    want = ref.addition_numbers_ref(ids, art.len32_dev, art.node_of_dev, **kw)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    if max_draws <= 2 and R > 1:
+        assert (got < 0).any()
+
+
+@pytest.mark.parametrize("top_level,max_draws", [(18, 4096), (26, 64), (30, 16)])
+def test_addition_numbers_kernel_on_a_deep_extended_ladder(cuda_device, top_level, max_draws):
+    """Tops far above the 4096-node table's own (12): every counter below
+    the register levels lives in the lane's local array, up to level 30,
+    the deepest a 31-bit segment space allows; the deeper tops leave most
+    or all lanes unconverged (-1)."""
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+
+    art = _artifact(LADDERS["4096 nodes"], cuda_device)
+    ids = _ids(20_011, cuda_device, seed=top_level)
+    for R in (1, 3):
+        kw = dict(top_level=top_level, s_log2=1, max_draws=max_draws, n_replicas=R)
+        got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+        assert torch.equal(got, ref.addition_numbers_ref(
+            ids, art.len32_dev, art.node_of_dev, **kw))
+    if top_level == 18:
+        assert (got >= 0).any()
+
+
+def test_addition_numbers_kernel_empty_batch_and_bad_inputs(cuda_device):
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+
+    art = _artifact(CAPS, cuda_device)
+    before = LAUNCHES["addition_numbers"]
+    out = addition_numbers_cuda(_ids(0, cuda_device), art.len32_dev, art.node_of_dev,
+                                top_level=art.top_level, n_replicas=3)
+    assert out.shape == (0,) and out.dtype == torch.int32
+    assert LAUNCHES["addition_numbers"] == before
+    ids = _ids(10, cuda_device)
+    with pytest.raises(ValueError, match="n_replicas"):
+        addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, top_level=3, n_replicas=0)
+    with pytest.raises(ValueError, match="< 2\\*\\*31"):
+        addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, top_level=3,
+                              max_draws=2**28, n_replicas=8)
+    with pytest.raises(ValueError, match="s_log2 \\+ top_level"):
+        addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, top_level=31)
+    with pytest.raises(ValueError, match="is on"):
+        addition_numbers_cuda(ids, art.len32_dev.cpu(), art.node_of_dev, top_level=3)
+
+
+def test_addition_numbers_device_has_no_host_sync_and_matches_cpu(cuda_device):
+    """The engine's trace on the card: one launch, no host sync, equal to
+    the CPU engine's (the twin)."""
+    eng = PlacementEngine(make_cluster(LADDERS["4096 nodes"]), device=cuda_device)
+    eng.artifact()
+    ids = _ids(200_000, cuda_device, seed=3)
+    got = {}
+    torch.cuda.synchronize()
+    before = LAUNCHES["addition_numbers"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for R in (1, 3):
+            got[R] = eng.addition_numbers_device(ids, n_replicas=R)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["addition_numbers"] == before + 2
+    cpu = PlacementEngine(make_cluster(LADDERS["4096 nodes"]), device="cpu")
+    for R, an in got.items():
+        assert torch.equal(an.cpu(), cpu.addition_numbers_device(ids.cpu(), n_replicas=R))
+
+
+def test_prefiltered_window_on_card_matches_cpu(cuda_device):
+    """An add-only window prefilters on the card as on the CPU: the same
+    plan and the same scanned / kept counters, fewer ids diffed than
+    scanned."""
+    from repro_torch.obs import TraceLedger
+
+    sessions = np.arange(20_000, dtype=np.uint32)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        for R in (1, 3):
+            router, ledger = Router({i: 1.0 for i in range(8)}, device=dev), TraceLedger()
+            mig = router.begin_scale_migration(sessions, add=(8, 1.0), n_replicas=R,
+                                               ledger=ledger)
+            counts = tuple(ledger.counter(k) for k in (
+                "planner.prefilter_scanned", "planner.prefilter_kept"))
+            out[dev.type, R] = (mig.state.plan, counts)
+    for R in (1, 3):
+        (g, gc), (c, cc) = out["cuda", R], out["cpu", R]
+        for f in ("ids", "src", "dst", "index", "slot", "src_slot"):
+            assert np.array_equal(getattr(g, f), getattr(c, f)), f
+        assert gc == cc and gc[0] == len(sessions) and 0 < gc[1] < gc[0]
+
+
+# ---------------------------------------------------------------------------
 # the baseline kernels (B5 ch, B6 rs, B7 wrh, the fan-out) on the card
 # ---------------------------------------------------------------------------
 
@@ -355,6 +469,25 @@ def test_baseline_lookup_kernel_matches_twin(cuda_device, alg, n):
     got = place(ids, a, b)
     assert LAUNCHES[f"{alg}_place"] == before + (1 if ids.shape[0] else 0)
     assert torch.equal(got, tr.LOOKUPS[alg](ids, a, b))
+
+
+@pytest.mark.parametrize("cut", [1, 5])
+def test_rs_kernel_below_the_first_start_matches_twin(cuda_device, cut):
+    """B6 on a table whose ``starts[0] != 0``: a hash below the first start
+    takes the last owner, as the twin (and the reference's jnp lookup)."""
+    t = RandomSlicingTable({i: float(c) for i, c in enumerate(BASE_CAPS)})
+    t.rebalance({**t.weights, len(BASE_CAPS): 1.0})
+    keys, vals = t.starts_owners()
+    keys, vals = keys[cut:], vals[cut:]
+    assert keys[0] != 0
+    below = _unfmix32(np.linspace(0, int(keys[0]) - 1, 1025).astype(np.uint32))
+    ids = torch.cat([_ids(100_003, cuda_device, seed=cut),
+                     torch.from_numpy(np.concatenate([_unfmix32(keys), below])).to(cuda_device)])
+    a, b = tb.TABLE_PREP["rs"](keys, vals, device=cuda_device)
+    got = tb.rs_place_cuda(ids, a, b)
+    assert torch.equal(got, tr.rs_lookup(ids, a, b))
+    h = tr.fmix32(tr.as_u32(ids)).to(torch.int64)
+    assert bool((got[h < int(keys[0])] == int(vals[-1])).all())
 
 
 def test_wrh_kernel_walks_several_shared_tiles(cuda_device):
@@ -869,9 +1002,9 @@ def test_sharded_train_and_prefill_on_card_equal_unsharded(sharded_smollm):
     p_u, o_u, m_u = make_train_step(cfg, adamw)(params, opt, batch)
     logits_u = make_prefill_step(cfg)(params, batch)
     with _sharded(mesh):
-        p = sh.distribute_tree(mesh, params, sh.param_shardings(mesh, params))
-        o = sh.distribute_tree(mesh, opt, sh.opt_shardings(mesh, params))
-        b = sh.distribute_tree(mesh, batch, sh.batch_shardings(mesh, batch))
+        p = sh.distribute_tree(params, sh.param_shardings(mesh, params))
+        o = sh.distribute_tree(opt, sh.opt_shardings(mesh, params))
+        b = sh.distribute_tree(batch, sh.batch_shardings(mesh, batch))
         p_s, o_s, m_s = make_train_step(cfg, adamw)(p, o, b)
         logits_s = make_prefill_step(cfg)(p, b)
     p_s, o_s, m_s = (sh.full_tree(t) for t in (p_s, o_s, m_s))
@@ -901,14 +1034,14 @@ def test_sharded_decode_on_card_equals_unsharded_without_host_sync(sharded_smoll
     cache = init_cache(cfg, 4, 16, device="cuda")
     want = [serve(params, cache, b)[0] for b in steps]
     with _sharded(mesh):
-        p = sh.distribute_tree(mesh, params, sh.serve_param_shardings(mesh, params))
+        p = sh.distribute_tree(params, sh.serve_param_shardings(mesh, params))
         serve = make_serve_step(cfg)
 
         def new_cache():
             c = init_cache(cfg, 4, 16, device="cuda")
-            return sh.distribute_tree(mesh, c, sh.cache_shardings(mesh, cfg, c))
+            return sh.distribute_tree(c, sh.cache_shardings(mesh, cfg, c))
 
-        dsteps = [sh.distribute_tree(mesh, b, sh.batch_shardings(mesh, b)) for b in steps]
+        dsteps = [sh.distribute_tree(b, sh.batch_shardings(mesh, b)) for b in steps]
         serve(p, new_cache(), dsteps[0])  # warm-up on a cache of its own
         c, got = new_cache(), []
         torch.cuda.synchronize()

@@ -27,7 +27,9 @@ Two halves, as ``tests/test_torch_mesh.py``:
     check every rank's local shards against the specs and a
     sequence-sharded ring's writes (one slot, two shards', wrapping; batch
     4 and 1).  The run starts with the module and overlaps the in-process
-    cases.
+    cases.  The same selftest on 1x3 (RWKV6's heads do not divide the
+    model axis) and on 2x2x1 and 2x1x2 meshes with a "pod" axis, whose
+    batch lives on the flattened batch mesh.
 """
 
 from __future__ import annotations
@@ -122,9 +124,9 @@ def tiny():
 
 
 def _distribute(mesh, params, opt, batch):
-    return (sh.distribute_tree(mesh, params, sh.param_shardings(mesh, params)),
-            sh.distribute_tree(mesh, opt, sh.opt_shardings(mesh, params)),
-            sh.distribute_tree(mesh, batch, sh.batch_shardings(mesh, batch)))
+    return (sh.distribute_tree(params, sh.param_shardings(mesh, params)),
+            sh.distribute_tree(opt, sh.opt_shardings(mesh, params)),
+            sh.distribute_tree(batch, sh.batch_shardings(mesh, batch)))
 
 
 def test_sharded_train_step_on_debug_mesh_matches_reference(mesh, tiny, fp32):
@@ -185,12 +187,12 @@ def test_one_rank_decode_equals_the_unsharded_port(mesh):
     cache = init_cache(cfg, BATCH, 8, device="cpu")
     want = [serve(params, cache, b)[0] for b in steps]
     with hooks.activation_sharding(sh.activation_constraint_fn(mesh)):
-        p = sh.distribute_tree(mesh, params, sh.serve_param_shardings(mesh, params))
+        p = sh.distribute_tree(params, sh.serve_param_shardings(mesh, params))
         c = init_cache(cfg, BATCH, 8, device="cpu")
-        c = sh.distribute_tree(mesh, c, sh.cache_shardings(mesh, cfg, c))
+        c = sh.distribute_tree(c, sh.cache_shardings(mesh, cfg, c))
         serve = make_serve_step(cfg)
         for b, w in zip(steps, want):
-            b = sh.distribute_tree(mesh, b, sh.batch_shardings(mesh, b))
+            b = sh.distribute_tree(b, sh.batch_shardings(mesh, b))
             logits, c = serve(p, c, b)
             assert torch.equal(sh.full_tree(logits), w)
     assert torch.equal(sh.full_tree(c["dense_blocks"]["k"]), cache["dense_blocks"]["k"])
@@ -214,3 +216,32 @@ def test_selftest_on_4_gloo_ranks(four_ranks):
     assert "sharded model selftest OK on 4 ranks" in stdout
     assert ("sharded == unsharded for smollm-135m, mixtral-8x22b, deepseek-v2-236b, rwkv6-3b, "
             "mixtral-8x22b with 7 experts" in stdout)
+
+
+def test_wkv_per_rank_where_the_heads_do_not_divide_the_model_axis(capfd):
+    """A 1x3 gloo mesh: RWKV6's 4 heads do not divide the 3-way model
+    axis, so each rank runs the WKV on its rows and every head
+    (``local_map``); train, prefill and decode equal the unsharded port.
+    No ring of this mesh has a sharded sequence, so the ring check is off."""
+    from repro_torch.launch.shardings import spawn_selftest
+
+    assert spawn_selftest(1, 3, archs=("rwkv6-3b",), check_ring=False) == 3
+    assert "sharded == unsharded for rwkv6-3b" in capfd.readouterr().out
+
+
+@pytest.mark.parametrize("data,model", [(2, 1), (1, 2)], ids=["2x2x1", "2x1x2"])
+def test_selftest_on_a_multi_pod_mesh(capfd, data, model):
+    """Four gloo ranks on a (pod, data, model) mesh: the batch, the caches
+    and the activations live on the batch mesh (``launch.mesh.batch_mesh``,
+    "pod" and "data" flattened), every gathered parameter crosses to it
+    and its gradient back (``shardings._Remesh``); the train step's update,
+    loss, grad norm and moments, prefill, decode and MoE routes of every
+    selftest arch equal the unsharded port's, as on the 2x2 mesh.  2x2x1
+    holds FSDP over "data" beside "pod"; 2x1x2 holds tensor parallelism
+    and the sequence-sharded ring."""
+    from repro_torch.launch.shardings import spawn_selftest
+
+    assert spawn_selftest(data, model, pod=2) == 4
+    out = capfd.readouterr().out
+    assert f"2x{data}x{model} gloo mesh, sharded == unsharded for smollm-135m" in out
+    assert "rwkv6-3b" in out
