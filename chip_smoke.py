@@ -312,7 +312,8 @@ kernel of this checkout and of each other one on the same inputs at the
 bulk sizes in turns (theirs, ours, ours, theirs; outputs must be equal),
 with each build's ptxas numbers; B2 at R = 3 with and without the stats
 vector and at R = 1; B3 and B4 on the add, the removal and the
-1024-node scale-out (top change).
+1024-node scale-out (top change); the ADDITION-NUMBER kernel on phase
+8c's extended ladder at R = 3 (2**24 and 2**20 ids) and R = 1 (2**20).
 ``--only LABEL`` (repeatable) keeps the kernels whose label starts with
 LABEL, and builds only their libraries.
 
@@ -387,6 +388,7 @@ FANOUT = "baseline_replicas"  # no TPU kernel: the reference's jnp loop
 FANOUT_OF = "src/repro/kernels/baselines.py:389"
 AN = "addition_numbers"  # no TPU kernel: the reference's jnp ADDITION-NUMBER trace
 AN_OF = "src/repro/kernels/ref.py:312"
+AN_CHUNK = 1 << 20  # the ids of one trace on the main path (a plan chunk, a window)
 # the trace's min-key update of an unused draw: k <, k ==, f <, and, or, two
 # selects
 MIN_KEY_OPS = 7
@@ -644,6 +646,18 @@ def ladder_work(torch, stats, top_level: int) -> tuple[int, int]:
     hist = as_u32(stats[:DEPTH_BINS]).cpu()
     depth = torch.arange(DEPTH_BINS, dtype=torch.int64)
     return int((hist * depth).sum()), int(hist.sum())
+
+
+def high_stops(torch, stats, n_segs: int, top_level: int, s_log2: int = 1) -> int:
+    """Draws of a [depth_hist..., nonconv] vector that stop at a level
+    above the table, where every number is a miss past it (k >= 2**(s +
+    L - 1) >= n_segs): those of depth 1 .. the count of such levels."""
+    from repro_torch.kernels.ref import DEPTH_BINS
+    from repro_torch.kernels.u32 import as_u32
+
+    low = max(1, (n_segs - 1).bit_length() - s_log2 + 1)  # the lowest such level
+    above = max(0, top_level - low + 1)
+    return int(as_u32(stats[:DEPTH_BINS]).cpu()[1:above + 1].sum())
 
 
 def distinct_levels(ids, len32, node_of, top_level: int, R: int, max_draws: int = 128) -> int:
@@ -1359,15 +1373,20 @@ def phase8c(torch, np, dev, caps, ids, bulk, hold) -> dict:
         # filled slots the used draws; every other draw takes the min key
         _, st = ap.place_replicas_cuda(bulk, *tabs, emit_stats=True, **kw)
         consults, draws = ladder_work(torch, st, top)
+        high = high_stops(torch, st, art.n_segs, top)
         unused = draws - (3 * BULK_IDS - int(st[ref.DEPTH_BINS].view(torch.int32)))
         distinct = distinct_levels(bulk, *tabs, top, 3)
     nbytes = 8 * BULK_IDS + 8 * art.n_segs
-    rest = (OPS_PER_DRAW + 3) * draws + MIN_KEY_OPS * unused
+    # a draw that stops above the table is a miss known from its level: its
+    # consults and one min of the level's stops; only the others take the
+    # draw's ops and the table test, and the unused ones the min-key update
+    rest = (high + (OPS_PER_DRAW + 3) * (draws - high)
+            + MIN_KEY_OPS * (unused - high))
     seeded, unseeded = ladder_ops(consults, distinct)
     out["work"][AN] = (nbytes, seeded + rest)
     out["unseeded"][AN] = (nbytes, unseeded + rest)
-    print(f"  work at R=3: {consults} levels of {distinct} distinct / {draws} draws / "
-          f"{unused} unused draws; median {out['ms'][AN]:.4f} ms over {TIMED_CALLS} calls "
+    print(f"  work at R=3: {consults} levels of {distinct} distinct / {draws} draws "
+          f"({high} stopping above the table) / {unused} unused draws; median {out['ms'][AN]:.4f} ms over {TIMED_CALLS} calls "
           f"on {BULK_IDS} ids, {out['ms_small']:.4f} ms on {ids.shape[0]}, where the twin "
           f"takes {out['plain'][AN]:.2f} ms")
     return out
@@ -4268,6 +4287,7 @@ def compare(seed: int, dev, trees: list[Path], only: list[str] | None = None) ->
     from repro_torch.core import PlacementEngine, make_cluster
     from repro_torch.core import HierarchicalCluster
     from repro_torch.kernels import build
+    from repro_torch.kernels.ops import addition_numbers_top
     import repro_torch
 
     theirs = [load_tree(t, f"against{k}_repro_torch") for k, t in enumerate(trees)]
@@ -4306,6 +4326,8 @@ def compare(seed: int, dev, trees: list[Path], only: list[str] | None = None) ->
                                            s_pad=art.s_pad))
     wrh_ids = bulk[:WRH_IDS]
     reps = (bulk, a.len32_dev, a.node_of_dev)
+    an_top = addition_numbers_top(a.top_level)
+    an_small = (bulk[:AN_CHUNK], a.len32_dev, a.node_of_dev)
     cases = [
         ("place_fused", "asura_place", "place_fused_cuda", (bulk, *flat),
          dict(top_level=a.top_level, emit_nodes=True)),
@@ -4318,6 +4340,14 @@ def compare(seed: int, dev, trees: list[Path], only: list[str] | None = None) ->
          dict(top_level=a.top_level, n_replicas=1, emit_nodes=True)),
         ("place", "asura_place", "place_cuda", (bulk, a.len32_dev),
          dict(top_level=a.top_level)),
+        # the trace on its extended ladder, as phase 8c runs it: the bulk
+        # size and the main path's chunk of 2**20 ids
+        (f"{AN} R=3", "asura_place", "addition_numbers_cuda", reps,
+         dict(top_level=an_top, n_replicas=3)),
+        (f"{AN} R=3 (2**20 ids)", "asura_place", "addition_numbers_cuda", an_small,
+         dict(top_level=an_top, n_replicas=3)),
+        (f"{AN} R=1 (2**20 ids)", "asura_place", "addition_numbers_cuda", an_small,
+         dict(top_level=an_top, n_replicas=1)),
         ("ch_place", "baselines", "ch_place_cuda", (bulk, base["ch"].keys_dev,
                                                     base["ch"].vals_dev), {}),
         ("rs_place", "baselines", "rs_place_cuda", (bulk, base["rs"].keys_dev,

@@ -7,8 +7,10 @@
 // The bodies take the ladder's counters as a policy, TopLadder<K, S>: the
 // top K levels' counters in registers, the deeper ones in the caller's
 // local array.  B1, B2 and B9 also keep the top S levels' generator seeds
-// (S > 0), as does the ADDITION-NUMBER trace; B3, B4 and B8 hash every
-// consult's seed anew (S = 0).
+// (S > 0); B3, B4 and B8 hash every consult's seed anew (S = 0).  The
+// ADDITION-NUMBER trace runs the levels above the table level-major and
+// walks B2's ladder below them, in rounds, so that its lanes can take a
+// new id when theirs is done.
 
 #pragma once
 
@@ -363,42 +365,178 @@ struct NodeSet<0> {
   }
 };
 
-// The ADDITION-NUMBER trace's per-lane body (section 2.D): B2's draw loop
-// for the first R hits on distinct nodes within max_draws * max(1, R)
-// draws, keeping the lexicographic minimum (k, f), f unsigned, of the
-// lane's UNUSED draws -- a miss past the table, a miss inside a segment,
-// or a hit on a node already picked.  The cap counts every draw, hits or
-// not, and the lane stops once it holds R nodes (the reference's lanes
-// freeze there).  Returns that minimum's k, or -1 where the lane did not
-// fill R slots or had no unused draw.  The sentinel (0x7FFFFFFF, 0) is the
-// reference's: k < 2**31 always, so only k = 0x7FFFFFFF is never kept.
-// RMAX > 0: the picked nodes in registers (R <= RMAX); RMAX == 0: in the
-// lane's R-entry scratch row ``gnode``.
-template <int RMAX, class Ladder>
-__device__ __forceinline__ int32_t addition_number_lane_with(
-    uint32_t id, Ladder& ladder, const uint32_t* __restrict__ len32,
-    const int32_t* __restrict__ node_of, int n_segs, int top_level, int s_log2,
-    int max_draws, int R, int32_t* gnode) {
-  constexpr uint32_t kNoK = 0x7FFFFFFFu;
-  ladder.reset(id, top_level);
-  NodeSet<RMAX> set(gnode);
-  uint32_t min_k = kNoK, min_f = 0u;
-  const int cap = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
-  for (int d = 0; d < cap && set.found < R; ++d) {
-    uint32_t k, f;
-    ladder.next(id, top_level, s_log2, k, f);
-    bool used = false;
-    if (hits(k, f, n_segs, len32)) {
-      const int held = set.found;
-      used = set.add(__ldg(node_of + k)) > held;
+// The ADDITION-NUMBER trace of one id (section 2.D), in rounds of up to
+// kRound numbers, so that a lane whose id is done can take the next id
+// while its warp goes on: B2's draw loop for the first R hits on distinct
+// nodes within max_draws * max(1, R) draws, keeping the lexicographic
+// minimum (k, f), f unsigned, of the lane's UNUSED draws -- a miss past
+// the table, a miss inside a segment, or a hit on a node already picked.
+// The cap counts every draw, hits or not, and the trace ends once it holds
+// R nodes (the reference's lanes freeze there).  result() is that
+// minimum's k, or -1 where the trace did not fill R slots or had no unused
+// draw.  The sentinel (0x7FFFFFFF, 0) is the reference's: k < 2**31
+// always, so only k = 0x7FFFFFFF is never kept.
+//
+// The trace's ladder starts up to four levels above the table's top, so
+// ~15 of 16 numbers stop in those levels, where every number is a miss
+// past the table: a number that stops at level L has k >= 2**(s + L - 1),
+// and the launcher takes as such "high" levels (at most kHigh) those with
+// 2**(s + L - 1) >= n_segs.  A walk that hashes as it descends pays each
+// level's hash for the whole warp whenever one lane needs it, ~6 levels
+// where a lane needs ~2.  Here the high levels run level-major: a round
+// hashes the top level's next draws for all its numbers at once, and each
+// level below the draws of the numbers that did not stop above it (the
+// j-th draw of a level goes to its j-th consulting number, as in the walk),
+// keeping each level's stops as a bit mask.  Only the numbers that pass
+// every high level walk the ladder below (``ladder``, B2's, from the
+// first level under them) and are tested against the table, in order.
+// The counters are the walk's, so every draw is unchanged.  A high-level
+// number is never used and its key exceeds every key of a lower level, so
+// the high numbers only decide the minimum where no unused number reached
+// the walk, and there by the lowest high level with a stop (within one
+// level the draws' order is the keys').  A trace that ends inside a round
+// keeps only the stops before the number that ended it, counted through
+// the masks.  RMAX > 0: the picked nodes in registers (R <= RMAX); RMAX ==
+// 0: in the id's R-entry scratch row ``gnode``.
+template <int RMAX, int kRound, int kHigh, class Ladder>
+struct AdditionNumberTrace {
+  static_assert(1 <= kRound && kRound <= 32, "a round's stops are a 32-bit mask");
+  static constexpr uint32_t kNoK = 0x7FFFFFFFu;
+
+  uint32_t seed[kHigh > 0 ? kHigh : 1];  // high level top_level - i
+  uint32_t c[kHigh > 0 ? kHigh : 1];     // its counter
+  Ladder ladder;                         // the walk from top_level - high
+  NodeSet<RMAX> set;
+  uint32_t min_k, min_f;  // the minimum unused number that reached the walk
+  int high_i;             // the lowest high level with a stop (index i), or -1
+  uint32_t high_h;        // the least draw of a stop there
+  int left;               // draws left under the cap
+
+  __device__ __forceinline__ AdditionNumberTrace() : set(nullptr) {}
+
+  __device__ __forceinline__ void reset(uint32_t id, int top_level, int high, int max_draws,
+                                        int R, int32_t* gnode) {
+#pragma unroll
+    for (int i = 0; i < kHigh; ++i) {
+      if (i < high) seed[i] = level_seed(id, top_level - i);
+      c[i] = 0u;
     }
-    if (!used && (k < min_k || (k == min_k && f < min_f))) {
-      min_k = k;
-      min_f = f;
+    ladder.reset(id, top_level - high);
+    set = NodeSet<RMAX>(gnode);
+    min_k = kNoK;
+    min_f = 0u;
+    high_i = -1;
+    high_h = 0u;
+    left = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
+  }
+
+  __device__ __forceinline__ bool tracing(int R) const { return left > 0 && set.found < R; }
+
+  // A stop at high level i with draw h, if it is below the minimum's.
+  __device__ __forceinline__ void keep_high(int i, uint32_t h) {
+    if (i > high_i || (i == high_i && h < high_h)) {
+      high_i = i;
+      high_h = h;
     }
   }
-  return set.found >= R && min_k != kNoK ? static_cast<int32_t>(min_k) : -1;
-}
+
+  __device__ __forceinline__ void round(uint32_t id, const uint32_t* __restrict__ len32,
+                                        const int32_t* __restrict__ node_of, int n_segs,
+                                        int top_level, int high, int s_log2, int R) {
+    const int n = left < kRound ? left : kRound;
+    uint32_t stops[kHigh > 0 ? kHigh : 1];  // bit j: level i's j-th draw stopped its number
+    uint32_t least[kHigh > 0 ? kHigh : 1];  // the least of those draws
+    int consults[kHigh > 0 ? kHigh : 1];    // numbers consulting level i
+    int reach = n;                          // numbers passing the levels so far
+#pragma unroll
+    for (int i = 0; i < kHigh; ++i) {
+      stops[i] = 0u;
+      least[i] = ~0u;
+      consults[i] = 0;
+      if (i < high) {
+        consults[i] = reach;
+        for (int j = 0; j < reach; ++j) {
+          const uint32_t h = draw_seeded(seed[i], c[i] + static_cast<uint32_t>(j));
+          if (h >= 0x80000000u) {
+            stops[i] |= 1u << j;
+            least[i] = h < least[i] ? h : least[i];
+          }
+        }
+        c[i] += static_cast<uint32_t>(reach);
+        reach -= __popc(stops[i]);
+      }
+    }
+    // the numbers that passed every high level, in order
+    const int walk_top = top_level - high;
+    int t = 0;
+    for (; t < reach; ++t) {
+      uint32_t k, f;
+      ladder.next(id, walk_top, s_log2, k, f);
+      bool used = false;
+      if (hits(k, f, n_segs, len32)) {
+        const int held = set.found;
+        used = set.add(__ldg(node_of + k)) > held;
+      }
+      if (!used && (k < min_k || (k == min_k && f < min_f))) {
+        min_k = k;
+        min_f = f;
+      }
+      if (set.found >= R) break;
+    }
+    if (t == reach) {  // every number of the round was drawn
+      left -= n;
+#pragma unroll
+      for (int i = 0; i < kHigh; ++i) {
+        if (stops[i] != 0u) keep_high(i, least[i]);
+      }
+      return;
+    }
+    // The trace ended at walking number t: only the numbers before it were
+    // drawn, and their high stops matter only where no unused number
+    // reached the walk.
+    if (min_k != kNoK) return;
+    int pos = t;  // its index among the numbers passing level i, then consulting it
+#pragma unroll
+    for (int i = kHigh - 1; i >= 0; --i) {
+      if (i < high) pos = static_cast<int>(__fns(~stops[i], 0u, pos + 1));
+    }
+    int before = pos;  // the numbers before it that consulted level i
+    int lowest = -1, drawn = 0;
+#pragma unroll
+    for (int i = 0; i < kHigh; ++i) {
+      if (i < high) {
+        const int here = __popc(stops[i] & ((1u << before) - 1u));
+        if (here > 0) {
+          lowest = i;
+          drawn = before;
+        }
+        before -= here;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kHigh; ++i) {
+      if (i == lowest) {  // its stops before the end, hashed again
+        const uint32_t base = c[i] - static_cast<uint32_t>(consults[i]);
+        uint32_t h_min = ~0u;
+        for (int j = 0; j < drawn; ++j) {
+          if ((stops[i] >> j) & 1u) {
+            const uint32_t h = draw_seeded(seed[i], base + static_cast<uint32_t>(j));
+            h_min = h < h_min ? h : h_min;
+          }
+        }
+        keep_high(i, h_min);
+      }
+    }
+  }
+
+  __device__ __forceinline__ int32_t result(int R, int top_level, int s_log2) const {
+    if (set.found < R) return -1;
+    if (min_k != kNoK) return static_cast<int32_t>(min_k);
+    if (high_i < 0) return -1;
+    const uint32_t k = high_h >> (32 - s_log2 - (top_level - high_i));
+    return k != kNoK ? static_cast<int32_t>(k) : -1;
+  }
+};
 
 // B4's per-lane body: B2's first R hits on distinct nodes, nodes out,
 // against both tables in one walk of the deeper ladder, as B3's body

@@ -31,10 +31,10 @@
 //       planner's add-node prefilter runs it over every tracked id, so
 //       only ids whose number is at or below the new segments pay the
 //       two-version diff; as plain torch it read its count of lanes still
-//       tracing on every draw, a host sync per draw.  It is B2's body
-//       (addition_number_lane_with in asura_lane.cuh) with the min-key
-//       compare of every unused draw added, on the table's ladder extended
-//       by up to four levels (the top may reach 30), one int32 out per id.
+//       tracing on every draw, a host sync per draw.  It is B2's draw
+//       loop with the min-key compare of every unused draw added, on the
+//       table's ladder extended by up to four levels (the top may reach
+//       30), one int32 out per id (AdditionNumberTrace in asura_lane.cuh).
 //
 // The two tables of a diff differ in length (an add appends segments, a
 // removal leaves length-0 holes) and may differ in top level.  The
@@ -77,9 +77,19 @@
 // summed per warp (__reduce_add_sync) and added to a per-block shared
 // histogram by one lane, the deeper depths by each lane; the block's
 // histogram is flushed with one u32 atomicAdd per bin.
+// The ADDITION-NUMBER trace draws ~16x B2's numbers per id (77 at R = 3),
+// 15 of 16 stopping in the levels above the table, where a walk that
+// hashes as it descends runs ~6 levels' hashes per warp for the ~2 each
+// lane needs.  It runs those levels level-major in rounds of 32 numbers
+// (each level's draws for all its consulting numbers at once, the stops
+// a bit mask) and walks B2's ladder only for the ~1 in 16 numbers that
+// reach the table; its warps are persistent, and a lane whose id is done
+// takes the warp's next one.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "asura_lane.cuh"
 
@@ -101,6 +111,12 @@ constexpr int kDiffReplicasTopCounters = 6;
 // swept on the card (PERF.md section 6)
 using PlaceLadder = port_lane::TopLadder<6, 3>;
 using ReplicasLadder = port_lane::TopLadder<6, 5>;
+// The ADDITION-NUMBER trace (AdditionNumberTrace): numbers per round and
+// the high levels it runs level-major at most, each the fastest of those
+// swept on the card (PERF.md section 6); below the high levels it walks
+// B2's ladder
+constexpr int kAdditionRound = 32;
+constexpr int kAdditionHigh = 3;
 
 // B9: the bounded loop alone, -1 for a non-converged lane.
 __global__ void __launch_bounds__(kThreads)
@@ -218,25 +234,61 @@ diff_replicas_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable l
                                            R, out_hi + i * R, out_lo + i * R);
 }
 
-// The ADDITION-NUMBER trace: the id's number, or -1.  RMAX > 0 keeps the
-// picked nodes in registers; RMAX == 0 (R > 8) in the lane's own row of
-// the (n, R) scratch ``nodes_buf``.
+// The ADDITION-NUMBER trace: each id's number, or -1.  Persistent warps:
+// each warp owns ``per_warp`` ids from warp * per_warp on, and a lane
+// whose trace is done writes its number and takes the warp's next id not
+// yet taken, so no lane idles while another of its warp runs a long
+// trace; the warp leaves when all its ids are done.  ``high``: the levels
+// from top_level down that run level-major (the launcher's).
+// RMAX > 0 keeps the picked nodes in registers; RMAX == 0 (R > 8) in the
+// id's own row of the (n, R) scratch ``nodes_buf``.
 template <int RMAX>
 __global__ void __launch_bounds__(kThreads)
 addition_numbers_kernel(const uint32_t* __restrict__ ids,
                         const uint32_t* __restrict__ len32,
                         const int32_t* __restrict__ node_of,
                         int32_t* __restrict__ out, int32_t* __restrict__ nodes_buf,
-                        int64_t n, int n_segs, int top_level, int s_log2,
-                        int max_draws, int R) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                        int64_t n, int64_t per_warp, int n_segs, int top_level, int high,
+                        int s_log2, int max_draws, int R) {
+  const int lane = threadIdx.x & 31;
+  // the warp's ids: ids[first + a] for 0 <= a < count (per_warp < 2**31)
+  const int64_t first = ((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5) *
+                        per_warp;
+  const int count = first >= n ? 0 : static_cast<int>(n - first < per_warp ? n - first : per_warp);
+  ids += first;
+  out += first;
+  int a = lane;
+  bool live = a < count;
   uint32_t deep[ReplicasLadder::kDeep];
-  ReplicasLadder ladder;
-  ladder.deep = deep;
-  out[i] = port_lane::addition_number_lane_with<RMAX>(
-      ids[i], ladder, len32, node_of, n_segs, top_level, s_log2, max_draws, R,
-      RMAX == 0 ? nodes_buf + i * R : nullptr);
+  port_lane::AdditionNumberTrace<RMAX, kAdditionRound, kAdditionHigh, ReplicasLadder> trace;
+  trace.ladder.deep = deep;
+  uint32_t id = 0u;
+  auto take = [&] {
+    id = ids[a];
+    trace.reset(id, top_level, high, max_draws, R,
+                RMAX == 0 ? nodes_buf + (first + a) * static_cast<int64_t>(R) : nullptr);
+  };
+  if (live) take();
+  int next = 32;  // the warp's first id not yet taken
+  const uint32_t below = (1u << lane) - 1u;
+  while (__any_sync(0xFFFFFFFFu, live)) {
+    if (live) {
+      if (trace.tracing(R)) trace.round(id, len32, node_of, n_segs, top_level, high, s_log2, R);
+      if (!trace.tracing(R)) {
+        out[a] = trace.result(R, top_level, s_log2);
+        live = false;
+      }
+    }
+    const uint32_t free = __ballot_sync(0xFFFFFFFFu, !live);
+    if (next < count && free != 0u) {  // the same on every lane of the warp
+      if (!live) {
+        a = next + __popc(free & below);
+        live = a < count;
+        if (live) take();
+      }
+      next += __popc(free);
+    }
+  }
 }
 
 template <int RMAX>
@@ -387,36 +439,71 @@ extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The warps of addition_numbers_kernel<RMAX> the current device holds at
+// once (SMs x resident blocks per SM x warps per block).  The queries
+// behind it are host calls that cannot change between launches, so each
+// (device, RMAX) asks them once; the plan's prefilter launches 16 times.
+template <int RMAX>
+cudaError_t addition_numbers_resident(int64_t& warps) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int64_t> cached[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep && (warps = cached[dev].load(std::memory_order_relaxed)) > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, addition_numbers_kernel<RMAX>,
+                                                        kThreads, 0);
+  }
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  warps = static_cast<int64_t>(sms) * per_sm * (kThreads / 32);
+  if (keep) cached[dev].store(warps, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
 // nodes_buf: (n, R) int32 scratch, used (and required) only when R > 8.
 extern "C" int asura_addition_numbers(const void* ids, const void* len32,
                                       const void* node_of, void* out,
                                       void* nodes_buf, int64_t n, int n_segs,
                                       int top_level, int s_log2, int max_draws,
                                       int R, void* stream) {
-  const dim3 grid = grid_for(n);
+  if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* i = static_cast<const uint32_t*>(ids);
   auto* l = static_cast<const uint32_t*>(len32);
   auto* no = static_cast<const int32_t*>(node_of);
   auto* o = static_cast<int32_t*>(out);
   auto* nb = static_cast<int32_t*>(nodes_buf);
-#define ASURA_ADDITION_NUMBERS(RM)                                       \
-  addition_numbers_kernel<RM><<<grid, kThreads, 0, s>>>(i, l, no, o, nb, n, \
-                                                        n_segs, top_level, \
-                                                        s_log2, max_draws, R)
-  if (R <= 1) {
-    ASURA_ADDITION_NUMBERS(1);
-  } else if (R <= 2) {
-    ASURA_ADDITION_NUMBERS(2);
-  } else if (R <= 3) {
-    ASURA_ADDITION_NUMBERS(3);
-  } else if (R <= 4) {
-    ASURA_ADDITION_NUMBERS(4);
-  } else if (R <= 8) {
-    ASURA_ADDITION_NUMBERS(8);
-  } else {
-    ASURA_ADDITION_NUMBERS(0);
-  }
-#undef ASURA_ADDITION_NUMBERS
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kWarps = kThreads / 32;
+  // the high levels: those whose numbers are misses past the table, as a
+  // number stopping at level L >= 1 has k >= 2**(s_log2 + L - 1) >= n_segs
+  int bits = 0;  // ceil(log2(n_segs))
+  while ((int64_t{1} << bits) < n_segs) ++bits;
+  const int low = bits - s_log2 + 1 > 1 ? bits - s_log2 + 1 : 1;  // the lowest high level
+  int high = top_level - low + 1;
+  high = high < 0 ? 0 : high > kAdditionHigh ? kAdditionHigh : high;
+  auto launch = [&](auto rmax) -> cudaError_t {
+    constexpr int RMAX = decltype(rmax)::value;
+    // one id per lane, but no more warps than the card holds at once
+    int64_t resident = 0;
+    const cudaError_t err = addition_numbers_resident<RMAX>(resident);
+    if (err != cudaSuccess) return err;
+    const int64_t warps = (n + 31) / 32 < resident ? (n + 31) / 32 : resident;
+    const int64_t per_warp = (n + warps - 1) / warps;
+    if (per_warp > INT32_MAX - 64) return cudaErrorInvalidValue;  // a warp counts its ids in int
+    const dim3 grid(static_cast<unsigned int>((warps + kWarps - 1) / kWarps));
+    addition_numbers_kernel<RMAX><<<grid, kThreads, 0, s>>>(
+        i, l, no, o, nb, n, per_warp, n_segs, top_level, high, s_log2, max_draws, R);
+    return cudaGetLastError();
+  };
+  if (R <= 1) return static_cast<int>(launch(std::integral_constant<int, 1>{}));
+  if (R <= 2) return static_cast<int>(launch(std::integral_constant<int, 2>{}));
+  if (R <= 3) return static_cast<int>(launch(std::integral_constant<int, 3>{}));
+  if (R <= 4) return static_cast<int>(launch(std::integral_constant<int, 4>{}));
+  if (R <= 8) return static_cast<int>(launch(std::integral_constant<int, 8>{}));
+  return static_cast<int>(launch(std::integral_constant<int, 0>{}));
 }

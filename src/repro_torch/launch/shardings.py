@@ -411,27 +411,36 @@ def _across(placements, src, dst) -> list:
 
 
 class _Remesh(torch.autograd.Function):
-    """A DTensor moved to another mesh over the same ranks in the same order
-    (the multi-pod mesh and its batch mesh): the same local shard, the
-    placements re-expressed (``_across``), and its gradient moved back the
-    same way, so autograd hands the parameter a gradient on its own mesh."""
+    """A parameter gathered to ``placements`` on its own mesh, then moved to
+    another mesh over the same ranks in the same order (the multi-pod mesh
+    and its batch mesh): the same local shard, the placements re-expressed
+    (``_across``).  Its gradient is moved back the same way and reduced
+    into the parameter's own shards over "data" first, then over "pod" on
+    those shards, so the sum across pods moves a shard, not the gathered
+    parameter."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, placements, mesh):
         from torch.distributed.tensor import DTensor
 
-        ctx.mesh, ctx.shape, ctx.stride = x.device_mesh, x.shape, x.stride()
-        return DTensor.from_local(x.to_local(), mesh, _across(x.placements, x.device_mesh, mesh),
-                                  run_check=False, shape=x.shape, stride=x.stride())
+        ctx.own, ctx.placements = x.device_mesh, tuple(x.placements)
+        gathered = x.redistribute(x.device_mesh, placements)
+        ctx.shape, ctx.stride = gathered.shape, gathered.stride()
+        return DTensor.from_local(gathered.to_local(), mesh,
+                                  _across(gathered.placements, x.device_mesh, mesh),
+                                  run_check=False, shape=gathered.shape, stride=gathered.stride())
 
     @staticmethod
     def backward(ctx, grad):
         from torch.distributed.tensor import DTensor
 
-        moved = DTensor.from_local(grad.to_local(), ctx.mesh,
-                                   _across(grad.placements, grad.device_mesh, ctx.mesh),
+        own = ctx.own
+        moved = DTensor.from_local(grad.to_local(), own,
+                                   _across(grad.placements, grad.device_mesh, own),
                                    run_check=False, shape=ctx.shape, stride=ctx.stride)
-        return moved, None
+        pod = list(axis_sizes(own)).index(POD)
+        first = [p if i == pod else ctx.placements[i] for i, p in enumerate(moved.placements)]
+        return moved.redistribute(own, first).redistribute(own, ctx.placements), None, None
 
 
 def activation_constraint_fn(mesh, whole=None):
@@ -454,7 +463,8 @@ def activation_constraint_fn(mesh, whole=None):
         Megatron-style without a choice left to DTensor's per-op solver;
         on the multi-pod mesh the gathered parameter then moves to the
         batch mesh, where the activations live (``launch.mesh.batch_mesh``),
-        and its gradient back;
+        and its gradient back, summed into the parameter's shards over
+        "data" before the sum over "pod";
       * ``split_heads``: a dimension about to be split into ``n`` groups
         is gathered over the axes whose combined size does not divide
         ``n`` (smollm's 9 heads, mixtral's 8 kv heads, RWKV's 40 on a
@@ -472,9 +482,10 @@ def activation_constraint_fn(mesh, whole=None):
       * ``merge_heads``: the same for the gradient of a merged dimension,
         which backward splits;
       * ``embedding``: the lookup in the vocab-sharded table with the
-        tokens replicated (DTensor's masked partial sum is only right when
-        its mask and the rows it masks come from the same tokens), then
-        ``constrain``;
+        tokens sharded over the data axes and whole over ``model``, so each
+        rank looks up only its rows (DTensor's masked partial sum is only
+        right when its mask and the rows it masks come from the same
+        tokens), then ``constrain``;
       * ``nll``: the cross-entropy terms in the vocab-parallel form;
       * ``ring_write``: a decode ring whose sequence is sharded takes
         each slot on the rank whose shard holds it, in place;
@@ -495,6 +506,13 @@ def activation_constraint_fn(mesh, whole=None):
     model_idx, model_size = names.index(MODEL), sizes[MODEL]
     dp_size = _axis_size(mesh, data_axes(mesh)) if dp_idx else 1
 
+    def _rows(x):
+        """x's rows sharded over the data axes and whole over the others,
+        or None where the data axes do not divide them."""
+        if x.ndim < 1 or not dp_idx or x.shape[0] % dp_size:
+            return None
+        return [Shard(0) if i in dp_idx else Replicate() for i in range(len(names))]
+
     class _Mesh(Placement):
         def constrain(self, x):
             y = self._place(x)
@@ -508,10 +526,10 @@ def activation_constraint_fn(mesh, whole=None):
 
         def _place(self, x):
             if not isinstance(x, DTensor):
-                if x.ndim < 1 or not dp_idx or x.shape[0] % dp_size:
+                want = _rows(x)
+                if want is None:
                     return x
                 # a tensor every rank built whole (positions): keep its rows
-                want = [Shard(0) if i in dp_idx else Replicate() for i in range(len(names))]
                 x = x if whole is None else whole(x)
                 return distribute_tensor(x, mesh, want, src_data_rank=None)
             if x.ndim < 2:
@@ -520,10 +538,9 @@ def activation_constraint_fn(mesh, whole=None):
             if any(p.is_partial() for p in cur):
                 cur = [Replicate() if p.is_partial() else p for p in cur]
                 x = x.redistribute(mesh, cur)
-            if dp_idx and x.shape[0] % dp_size == 0:
-                want = [Shard(0) if i in dp_idx else Replicate() for i in range(len(names))]
-                if want != cur:
-                    x = x.redistribute(mesh, want)
+            want = _rows(x)
+            if want is not None and want != cur:
+                x = x.redistribute(mesh, want)
             return x
 
         def gather(self, tree):
@@ -533,10 +550,10 @@ def activation_constraint_fn(mesh, whole=None):
                 return tree
             own = tree.device_mesh
             own_dp = [i for i, a in enumerate(axis_sizes(own)) if a in data_axes(own)]
-            if any(isinstance(tree.placements[i], Shard) for i in own_dp):
-                want = [Replicate() if i in own_dp else p for i, p in enumerate(tree.placements)]
-                tree = tree.redistribute(own, want)
-            return tree if own == mesh else _Remesh.apply(tree, mesh)
+            want = [Replicate() if i in own_dp else p for i, p in enumerate(tree.placements)]
+            if own != mesh:
+                return _Remesh.apply(tree, want, mesh)
+            return tree if want == list(tree.placements) else tree.redistribute(own, want)
 
         def split_heads(self, x, dim, n):
             if not isinstance(x, DTensor):
@@ -652,10 +669,13 @@ def activation_constraint_fn(mesh, whole=None):
             return y.sum(0), aux.sum(0) / (dp_size if split else 1)
 
         def embedding(self, tokens, table):
-            # every rank looks up every token in its vocab slice, so the
-            # masked partial sums settle over the vocab axes alone
+            # each rank looks up its own rows of the batch (sharded over the
+            # data axes, whole over the vocab axis) in its vocab slice, so
+            # the masked partial sums settle over the vocab axis alone
             if isinstance(tokens, DTensor):
-                tokens = tokens.redistribute(mesh, [Replicate()] * len(names))
+                want = _rows(tokens) or [Replicate() for _ in names]
+                if list(tokens.placements) != want:
+                    tokens = tokens.redistribute(mesh, want)
             return self.constrain(torch.nn.functional.embedding(tokens, self.gather(table)))
 
         def nll(self, logits, targets):

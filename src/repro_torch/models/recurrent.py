@@ -250,8 +250,8 @@ def rwkv6_timemix_apply(cfg: ModelConfig, p, x, *, state=None):
     dt = x.dtype
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    prev = (torch.zeros((b, 1, d), dtype=dt, device=x.device) if state is None
-            else state["prev"].to(dt))
+    # zeros shaped, and placed, as x's rows
+    prev = torch.zeros_like(x[:, :1]) if state is None else state["prev"].to(dt)
     xs = _token_shift(x, prev)
     # data-dependent shift mixes (5 lora heads: r, k, v, w, g)
     delta = xs - x
@@ -299,8 +299,7 @@ def rwkv6_channelmix_apply(cfg: ModelConfig, p, x, *, state=None):
     """x (B, S, D) -> (out, state); ``state`` (decode): {"prev": (B, 1,
     D)} fp32, written in place and returned."""
     dt = x.dtype
-    prev = (torch.zeros((x.shape[0], 1, x.shape[2]), dtype=dt, device=x.device)
-            if state is None else state["prev"].to(dt))
+    prev = torch.zeros_like(x[:, :1]) if state is None else state["prev"].to(dt)
     xs = _token_shift(x, prev)
     xk = x + (xs - x) * p["mix_k"].to(dt)
     xr = x + (xs - x) * p["mix_r"].to(dt)

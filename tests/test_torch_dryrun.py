@@ -236,6 +236,61 @@ def test_multi_pod_rank_reckons_a_16x16_rank_at_half_the_batch(arch, shape):
         assert sp["flops"] < 2 * mp["flops"] < 1.15 * sp["flops"]
 
 
+# A training step's collective bytes on the 2x16x16 mesh less those of a
+# 16x16 rank at half the batch, by kind (measured on the reduced cells;
+# see the test below for where they come from)
+TRAIN_GRADIENT_PLAN_DELTA = {
+    "smollm-135m": {"all-gather": 0, "all-reduce": 10_240 - 16_384, "reduce-scatter": 0},
+    "rwkv6-3b": {"all-gather": 1_024 - 3_072, "all-reduce": 678_912 - 1_673_344,
+                 "reduce-scatter": 0},
+}
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("smollm-135m", "train_4k"), ("rwkv6-3b", "prefill_32k"), ("rwkv6-3b", "train_4k"),
+])
+def test_multi_pod_rank_holds_and_moves_what_a_16x16_rank_does_at_half_the_batch(arch, shape):
+    """The embedding looks up only the rank's rows (ROADMAP C4: it used to
+    look up the whole global batch and all-reduce it), so a rank of the
+    2x16x16 mesh holds at its peak what a 16x16 rank holds at half the
+    global batch, byte for byte, and in prefill moves the same collective
+    bytes of every kind.  Training settles the gradients by two plans:
+    the multi-pod rank sums each gradient into its shards over "data"
+    inside ``shardings._Remesh`` and then over "pod" (smollm-135m: 23
+    fp32 all-reduces, 10,240 B; rwkv6-3b: 76, 678,912 B, and two
+    all-gathers of 1,024 B), while DTensor's plan on one pod leaves some
+    shards partial over "model" and all-reduces them before the gradient
+    norm (16 of 16,384 B; 80 of 1,673,344 B, and three all-gathers of
+    3,072 B).  Every other collective of the step is the same, so each
+    kind differs from the 16x16 rank's by exactly those bytes
+    (``TRAIN_GRADIENT_PLAN_DELTA``): no kind may grow, and the sum over
+    "pod" may not go missing."""
+    mp, half = _cell(arch, shape, True), _cell(arch, shape, False, half_batch=True)
+    assert mp["peak_bytes_per_device"] == half["peak_bytes_per_device"]
+    assert mp["temp_bytes_per_device"] == half["temp_bytes_per_device"]
+    if SHAPES[shape].kind == "prefill":
+        assert mp["collective_by_kind"] == half["collective_by_kind"]
+        return
+    delta = {kind: half["collective_by_kind"].get(kind, 0) + d
+             for kind, d in TRAIN_GRADIENT_PLAN_DELTA[arch].items()}
+    assert mp["collective_by_kind"] == delta
+
+
+def test_multi_pod_prefill_reduces_no_whole_batch_embedding():
+    """ROADMAP C4's minimal input, ``dryrun --arch rwkv6-3b --shape
+    prefill_32k --reduced --multi-pod``: its all-reduces were 285.2 MB, of
+    them 268.4 MB the whole (32, 32,768, 128) bf16 embedding, and its peak
+    809,926,144 B.  With each rank looking up its own rows no all-reduce
+    carries that tensor: each rank sums over "model" only its 1 / 32 of
+    it."""
+    r = _cell("rwkv6-3b", "prefill_32k", True)
+    spec = SHAPES["prefill_32k"]
+    cfg = reduced_config(get_config("rwkv6-3b"))
+    whole = spec.global_batch * spec.seq_len * cfg.d_model * 2  # bf16
+    assert whole == 268_435_456
+    assert r["collective_by_kind"]["all-reduce"] < whole
+
+
 def test_run_cell_counts_one_device_not_the_mesh():
     """A decode step is per-row work: twice the data ranks (2x16x16 against
     16x16, the same model axis) halve every rank's rows and FLOPs and

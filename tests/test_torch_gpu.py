@@ -339,13 +339,81 @@ def test_addition_numbers_kernel_on_a_deep_extended_ladder(cuda_device, top_leve
 
     art = _artifact(LADDERS["4096 nodes"], cuda_device)
     ids = _ids(20_011, cuda_device, seed=top_level)
-    for R in (1, 3):
+    for R in (1, 3, 8, 9):
         kw = dict(top_level=top_level, s_log2=1, max_draws=max_draws, n_replicas=R)
         got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
         assert torch.equal(got, ref.addition_numbers_ref(
             ids, art.len32_dev, art.node_of_dev, **kw))
     if top_level == 18:
         assert (got >= 0).any()
+
+
+@pytest.mark.parametrize("ladder", ["10 nodes", "4096 nodes", "10000 nodes"])
+@pytest.mark.parametrize("above", [0, 1, 2])
+@pytest.mark.parametrize("R", [1, 3, 9])
+def test_addition_numbers_kernel_with_fewer_high_levels(cuda_device, R, above, ladder):
+    """Traces that start at the table's top or one or two levels above it:
+    the launcher runs 0, 1 or 2 levels level-major (the main path's four
+    extra levels always give it its most, 3), so the kernel's paths for a
+    ladder with no high level and for the back-trace over one and two stop
+    masks in the round that ends the trace run, held exactly to the twin
+    at ``max_draws`` 128 and 2."""
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+    from test_torch_launch import high_levels
+
+    art = _artifact(LADDERS[ladder], cuda_device)
+    top = art.top_level + above
+    assert high_levels(art.n_segs, top, 3) == above
+    ids = _ids(20_011, cuda_device, seed=above + R)
+    for max_draws in (128, 2):
+        kw = dict(top_level=top, s_log2=1, max_draws=max_draws, n_replicas=R)
+        got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+        want = ref.addition_numbers_ref(ids, art.len32_dev, art.node_of_dev, **kw)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        if max_draws == 128:
+            assert (got >= 0).any()
+
+
+@pytest.mark.parametrize("n", [1, 31, 257, (1 << 16) + 13])
+@pytest.mark.parametrize("R", [1, 3, 8, 9])
+def test_addition_numbers_kernel_refill_tails_match_twin(cuda_device, R, n):
+    """The kernel's warps own runs of ids and a lane whose trace is done
+    takes the warp's next id: batches that leave one lane, part of a warp,
+    a ragged last warp and long runs per lane, at every instantiation (R =
+    1, 3, 8 in registers, 9 in scratch rows), held exactly to the twin;
+    ``max_draws`` = 2 forces -1 lanes between converged ones."""
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+
+    art = _artifact(LADDERS["4096 nodes"], cuda_device)
+    ids = _ids(n, cuda_device, seed=n + R)
+    for max_draws in (128, 2):
+        kw = dict(top_level=addition_numbers_top(art.top_level), s_log2=1,
+                  max_draws=max_draws, n_replicas=R)
+        got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+        want = ref.addition_numbers_ref(ids, art.len32_dev, art.node_of_dev, **kw)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        if max_draws == 2 and R > 1:
+            assert (got < 0).any()
+        if max_draws == 128 and n > 31:
+            assert (got >= 0).any()
+
+
+@pytest.mark.parametrize("R", [1, 3, 9])
+def test_addition_numbers_kernel_with_repeated_ids(cuda_device, R):
+    """Ids that repeat (a run of one id, the batch again reversed) give
+    each copy the same number, the twin's."""
+    from repro_torch.kernels.asura_place import addition_numbers_cuda
+
+    art = _artifact(LADDERS["4096 nodes"], cuda_device)
+    base = _ids(5_003, cuda_device, seed=R)
+    ids = torch.cat([base, base[:1].repeat(1_000), base.flip(0)])
+    kw = dict(top_level=addition_numbers_top(art.top_level), s_log2=1, max_draws=128,
+              n_replicas=R)
+    got = addition_numbers_cuda(ids, art.len32_dev, art.node_of_dev, **kw)
+    assert torch.equal(got, ref.addition_numbers_ref(ids, art.len32_dev, art.node_of_dev, **kw))
+    n = base.shape[0]
+    assert torch.equal(got[n:n + 1_000], got[:1].repeat(1_000))
+    assert torch.equal(got[n + 1_000:], got[:n].flip(0))
 
 
 def test_addition_numbers_kernel_empty_batch_and_bad_inputs(cuda_device):

@@ -11,9 +11,11 @@ that counting one bucket after the sampled index lands where
 included), that the ladder with its top K counters in registers (B3, B4,
 B8) draws exactly what a counter per level draws, that the diff
 kernels' one walk for both tables (B3, B4) gives what two walks give,
-and that the ladder which also keeps its register levels' seeds (B1, B2,
+that the ladder which also keeps its register levels' seeds (B1, B2,
 B9) draws the generator's numbers, with B2's stats vector read from it
-and summed per warp as the kernel sums it.
+and summed per warp as the kernel sums it, and that the ADDITION-NUMBER
+kernel's rounds (the levels above the table hashed level-major, their
+stops as bit masks) give each lane the sequential trace's number.
 """
 
 import numpy as np
@@ -543,3 +545,180 @@ def test_warp_summed_stats_on_ragged_batches(n):
     rows, stats = stats_warp_summed(ids, table, max_draws=128, R=3, K=4, seeds=2)
     assert rows == want_rows and stats == want_stats
     assert sum(stats[6:DEPTH_BINS]) > 0 or n < 33  # deep depths were reached
+
+
+# ---------------------------------------------------------------------------
+# a model of the ADDITION-NUMBER kernel's rounds (AdditionNumberTrace in
+# csrc/asura_lane.cuh, the launcher's high levels in csrc/asura_place.cu)
+# ---------------------------------------------------------------------------
+
+NO_K = 0x7FFFFFFF  # the reference's sentinel key (NO_K, 0)
+
+
+def high_levels(n_segs, top, k_high) -> int:
+    """The launcher's count of levels run level-major: from ``top`` down,
+    those whose stopping numbers are misses past the table (a number that
+    stops at level L >= 1 has k >= 2**(s + L - 1) >= n_segs), at most
+    ``k_high``."""
+    low = max(1, (n_segs - 1).bit_length() - S_LOG2 + 1)
+    return min(k_high, max(0, top - low + 1))
+
+
+def _nth_clear_bit(mask, nth) -> int:
+    """``__fns(~mask, 0, nth + 1)``: the position of the nth (from 0) clear bit."""
+    for b in range(32):
+        if not (mask >> b) & 1:
+            if nth == 0:
+                return b
+            nth -= 1
+    raise AssertionError("no such bit")
+
+
+def addition_number_sequential(lane_id, table, top, *, max_draws, R) -> int:
+    """The trace as the reference runs it: one number after another from a
+    counter per level, the minimum (k, f) of the unused numbers below the
+    sentinel, until R distinct nodes or the cap."""
+    len32, node_of, _ = table
+    ladder = ArrayLadder()
+    ladder.reset(top)
+    nodes, best = [], (NO_K, 0)
+    for _ in range(max_draws * max(1, R)):
+        if len(nodes) >= R:
+            break
+        k, f = _split(*ladder.next(lane_id, top))
+        if _hits(k, f, len32) and int(node_of[k]) not in nodes:
+            nodes.append(int(node_of[k]))
+        else:
+            best = min(best, (k, f))
+    return best[0] if len(nodes) >= R and best[0] != NO_K else -1
+
+
+def addition_number_rounds(lane_id, table, top, *, max_draws, R, k_round=32, k_high=3) -> int:
+    """The kernel's trace: rounds of up to ``k_round`` numbers, the high
+    levels' draws hashed level-major with their stops as bit masks, B2's
+    ladder walked only by the numbers passing them, and the high stops'
+    minimum kept per round (lowest level first), or, in the round the
+    trace ends in, over the numbers before the one that ended it, hashed
+    again."""
+    len32, node_of, _ = table
+    high = high_levels(len(len32), top, k_high)
+    seed = [_level_seed(lane_id, top - i) for i in range(high)]
+    c = [0] * high
+    ladder = TopLadder(6)
+    ladder.reset(top - high)
+    nodes, least_key, best_high = [], (NO_K, 0), None  # best_high: (level index, draw)
+    left = max_draws * max(1, R)
+
+    def keep(i, h):
+        nonlocal best_high
+        if best_high is None or i > best_high[0] or (i == best_high[0] and h < best_high[1]):
+            best_high = (i, h)
+
+    while left > 0 and len(nodes) < R:
+        n = min(k_round, left)
+        stops, least, consults, reach = [0] * high, [M32] * high, [0] * high, n
+        for i in range(high):
+            consults[i] = reach
+            for j in range(reach):
+                h = _draw_seeded(seed[i], (c[i] + j) & M32)
+                if h >= 2**31:
+                    stops[i] |= 1 << j
+                    least[i] = min(least[i], h)
+            c[i] += reach
+            reach -= bin(stops[i]).count("1")
+        ended_at = None
+        for t in range(reach):
+            k, f = _split(*ladder.next(lane_id, top - high))
+            if _hits(k, f, len32) and int(node_of[k]) not in nodes:
+                nodes.append(int(node_of[k]))
+            else:
+                least_key = min(least_key, (k, f))
+            if len(nodes) >= R:
+                ended_at = t
+                break
+        if ended_at is None:
+            left -= n
+            for i in range(high):
+                if stops[i]:
+                    keep(i, least[i])
+            continue
+        if least_key != (NO_K, 0):
+            break
+        pos = ended_at
+        for i in reversed(range(high)):
+            pos = _nth_clear_bit(stops[i], pos)
+        before, lowest, drawn = pos, -1, 0
+        for i in range(high):
+            here = bin(stops[i] & ((1 << before) - 1)).count("1")
+            if here:
+                lowest, drawn = i, before
+            before -= here
+        if lowest >= 0:
+            base = c[lowest] - consults[lowest]
+            keep(lowest, min(_draw_seeded(seed[lowest], (base + j) & M32)
+                             for j in range(drawn) if (stops[lowest] >> j) & 1))
+        break
+    if len(nodes) < R:
+        return -1
+    if least_key != (NO_K, 0):
+        return least_key[0]
+    if best_high is None:
+        return -1
+    i, h = best_high
+    k = h >> (32 - S_LOG2 - (top - i))
+    return k if k != NO_K else -1
+
+
+def test_high_levels_are_misses_past_the_table():
+    """Every level the launcher runs level-major stops its numbers past
+    the table: k >= 2**(s + L - 1) >= n_segs at each such level L."""
+    for n_segs in (1, 2, 3, 4, 5, 100, 6839, 8192, 8193, 2**30):
+        for top in range(0, 31):
+            high = high_levels(n_segs, top, 30)
+            assert high <= top
+            for i in range(high):
+                assert 2 ** (S_LOG2 + (top - i) - 1) >= n_segs
+            if high < top:  # the first level below them may hold a table hit
+                assert top - high == 0 or 2 ** (S_LOG2 + (top - high) - 1) < n_segs
+
+
+# (table top, extended trace top): the main path's four extra levels,
+# fewer, none, and a trace deep enough that most lanes do not converge
+AN_LADDERS = [(2, 6), (5, 9), (5, 7), (5, 5), (9, 13), (9, 10), (3, 18)]
+
+
+@pytest.mark.parametrize("k_round,k_high", [(32, 3), (32, 1), (32, 4), (5, 3)])
+@pytest.mark.parametrize("R", [1, 3, 9])
+@pytest.mark.parametrize("tops", AN_LADDERS)
+def test_addition_number_rounds_equal_the_sequential_trace(tops, R, k_round, k_high):
+    """The kernel's rounds give every lane the sequential trace's number,
+    -1 lanes included: rounds ended by the cap (max_draws 1 and 2) and by
+    the R-th node, lanes whose minimum is a high stop before that node
+    (R = 1 mostly), small rounds that end often and several high-level
+    counts.  The sequential model is the twin's (checked below)."""
+    table_top, top = tops
+    table = model_table(table_top, seed=table_top + R, holes=1)
+    rng = np.random.default_rng(100 * table_top + top + R)
+    for lane_id in rng.integers(0, 2**32, 60, dtype=np.uint32):
+        for max_draws in (128, 2, 1):
+            want = addition_number_sequential(int(lane_id), table, top, max_draws=max_draws, R=R)
+            got = addition_number_rounds(int(lane_id), table, top, max_draws=max_draws, R=R,
+                                         k_round=k_round, k_high=k_high)
+            assert got == want, (int(lane_id), max_draws)
+
+
+@pytest.mark.parametrize("tops", AN_LADDERS)
+def test_sequential_addition_number_is_the_twin(tops):
+    import torch
+
+    from repro_torch.kernels import ref
+
+    table_top, top = tops
+    len32, node_of, _ = table = model_table(table_top, seed=table_top, holes=1)
+    ids = np.random.default_rng(top).integers(0, 2**32, 200, dtype=np.uint32)
+    for R in (1, 3):
+        want = ref.addition_numbers_ref(
+            torch.from_numpy(ids), torch.from_numpy(len32), torch.from_numpy(node_of),
+            top_level=top, s_log2=S_LOG2, max_draws=128, n_replicas=R).tolist()
+        got = [addition_number_sequential(int(i), table, top, max_draws=128, R=R) for i in ids]
+        assert got == want
