@@ -1,0 +1,8 @@
+"""b8_roofline: kernel B8 (`hier_replicas_kernel`) on the checked call:
+its least time over the median launch's device time, in %."""
+
+from chipbench.harness.readers import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "B8", "hier_replicas_kernel")
