@@ -78,7 +78,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.u32 import as_u32
-from ..obs.trace import TraceLedger
+from ..obs.trace import TraceLedger, maybe_span
 from .asura import (
     DEFAULT_PARAMS,
     AsuraParams,
@@ -203,15 +203,16 @@ def with_device_tables(art: TableArtifact, device) -> TableArtifact:
     """``art`` with its device copies filled (one host->device upload)."""
     from ..kernels.ops import node_table_prep, tail_prep
 
-    dev = resolve_device(device)
-    cum_hi, cum_lo = tail_prep(art.len32, device=dev)
-    return dataclasses.replace(
-        art,
-        len32_dev=torch.from_numpy(np.ascontiguousarray(art.len32, np.uint32)).to(dev),
-        node_of_dev=node_table_prep(art.node_of, device=dev),
-        cum_hi_dev=cum_hi,
-        cum_lo_dev=cum_lo,
-    )
+    with maybe_span(None, "engine.tables_upload"):
+        dev = resolve_device(device)
+        cum_hi, cum_lo = tail_prep(art.len32, device=dev)
+        return dataclasses.replace(
+            art,
+            len32_dev=torch.from_numpy(np.ascontiguousarray(art.len32, np.uint32)).to(dev),
+            node_of_dev=node_table_prep(art.node_of, device=dev),
+            cum_hi_dev=cum_hi,
+            cum_lo_dev=cum_lo,
+        )
 
 
 class PlacementEngine:
@@ -303,7 +304,6 @@ class PlacementEngine:
         art = cache.get(version)
         if art is not None:
             cache.move_to_end(version)
-            self.ledger.incr("engine.lru_hits")
             return art
         with self.ledger.span("engine.build_artifact", algorithm=key,
                               version=version):
@@ -342,15 +342,16 @@ class PlacementEngine:
         return self._current(alg, lambda v: self._build_baseline_artifact(alg, v))
 
     def _build_asura_artifact(self, version: int) -> TableArtifact:
-        lengths = np.asarray(self.cluster.seg_lengths(), dtype=np.float64)
-        len32 = lengths_to_u32(lengths)
-        art = TableArtifact(
-            version=version,
-            n_segs=len(len32),
-            top_level=self.params.level_for(_upper_bound(lengths)),
-            len32=len32,
-            node_of=np.asarray(self.cluster.seg_to_node(), dtype=np.int64),
-        )
+        with maybe_span(None, "engine.tables_host"):
+            lengths = np.asarray(self.cluster.seg_lengths(), dtype=np.float64)
+            len32 = lengths_to_u32(lengths)
+            art = TableArtifact(
+                version=version,
+                n_segs=len(len32),
+                top_level=self.params.level_for(_upper_bound(lengths)),
+                len32=len32,
+                node_of=np.asarray(self.cluster.seg_to_node(), dtype=np.int64),
+            )
         if self.backend == "device":
             art = with_device_tables(art, self.device)
         return art

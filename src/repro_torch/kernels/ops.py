@@ -47,6 +47,7 @@ from ..core.asura import (
     tail_cumsum_halves,
 )
 from ..device import resolve_device
+from ..obs.trace import maybe_span
 from .asura_place import (
     addition_numbers_cuda,
     diff_nodes_cuda,
@@ -263,25 +264,26 @@ def align_replica_sets(
     ``before[b, :]``, ``src`` is the rank-matched vacated node for moved
     slots (``after[b, r]`` itself otherwise), ``src_slot`` its before-set
     position (rollback re-indexing); ``dst`` is ``after`` as int32."""
-    before = before.to(torch.int32)
-    after = after.to(torch.int32)
-    R = after.shape[1]
-    new = ~(after[:, :, None] == before[:, None, :]).any(dim=2)
-    lost = ~(before[:, :, None] == after[:, None, :]).any(dim=2)
-    # exclusive ranks as a masked sum, not a cumsum: torch's scan over a
-    # short innermost dimension takes ~10 ms per 2**20 rows on an H100,
-    # ~20x the rest of the alignment together
-    earlier = torch.ones((R, R), dtype=torch.bool, device=after.device).tril(-1)  # j < r
-    rank_new = (new[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
-    rank_lost = (lost[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
-    match = lost[:, None, :] & (rank_lost[:, None, :] == rank_new[:, :, None])
-    zero = torch.zeros((), dtype=torch.int32, device=after.device)
-    picked_src = torch.where(match, before[:, None, :], zero).sum(dim=2, dtype=torch.int32)
-    slots = torch.arange(R, dtype=torch.int32, device=after.device)
-    picked_slot = torch.where(match, slots[None, None, :], zero).sum(dim=2, dtype=torch.int32)
-    src = torch.where(new, picked_src, after)
-    src_slot = torch.where(new, picked_slot, slots[None, :])
-    return new, src, after, src_slot
+    with maybe_span(None, "ops.align_replica_sets"):
+        before = before.to(torch.int32)
+        after = after.to(torch.int32)
+        R = after.shape[1]
+        new = ~(after[:, :, None] == before[:, None, :]).any(dim=2)
+        lost = ~(before[:, :, None] == after[:, None, :]).any(dim=2)
+        # exclusive ranks as a masked sum, not a cumsum: torch's scan over a
+        # short innermost dimension takes ~10 ms per 2**20 rows on an H100,
+        # ~20x the rest of the alignment together
+        earlier = torch.ones((R, R), dtype=torch.bool, device=after.device).tril(-1)  # j < r
+        rank_new = (new[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
+        rank_lost = (lost[:, None, :] & earlier).sum(dim=2, dtype=torch.int32)
+        match = lost[:, None, :] & (rank_lost[:, None, :] == rank_new[:, :, None])
+        zero = torch.zeros((), dtype=torch.int32, device=after.device)
+        picked_src = torch.where(match, before[:, None, :], zero).sum(dim=2, dtype=torch.int32)
+        slots = torch.arange(R, dtype=torch.int32, device=after.device)
+        picked_slot = torch.where(match, slots[None, None, :], zero).sum(dim=2, dtype=torch.int32)
+        src = torch.where(new, picked_src, after)
+        src_slot = torch.where(new, picked_slot, slots[None, :])
+        return new, src, after, src_slot
 
 
 def diff_replicas_on_tables_device(

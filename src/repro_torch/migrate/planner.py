@@ -52,8 +52,16 @@ import numpy as np
 import torch
 
 from ..core.asura import addition_numbers_batch, align_replica_sets
+from ..obs.trace import maybe_span
 
 DEFAULT_CHUNK = 1 << 20  # ids per streaming chunk (fixed device memory)
+
+
+def pow2_bucket(n: int, multiple: int = 1) -> int:
+    """The length ``pad_pow2`` pads ``n`` ids to: the pow2 bucket of ``n``,
+    rounded up to a multiple of ``multiple``."""
+    target = 1 << max(0, n - 1).bit_length()
+    return target + (-target) % max(1, multiple)
 
 
 def pad_pow2(chunk, multiple: int = 1):
@@ -61,8 +69,7 @@ def pad_pow2(chunk, multiple: int = 1):
     ``multiple``).  Full pow2 chunks pass through untouched (``padded is
     chunk``); tensors pad where they lie, with no host round trip."""
     n = int(chunk.shape[0])
-    target = 1 << max(0, n - 1).bit_length()
-    target += (-target) % max(1, multiple)
+    target = pow2_bucket(n, multiple)
     if target == n:
         return chunk, n
     if isinstance(chunk, np.ndarray):
@@ -228,25 +235,31 @@ class MigrationPlanner:
         def flush(buf):
             if not buf:
                 return
-            if len(buf) == 1:
-                block = buf[0][0]
-            else:
-                block = torch.cat([as_ids(p, device) for p, _, _ in buf])
-            outs = self._diff(block, v_from, v_to, n_replicas)
-            length = int(buf[0][0].shape[0])
-            for i, (padded, n_valid, was_padded) in enumerate(buf):
-                part = [o[i * length : (i + 1) * length] for o in outs]
-                if was_padded:
-                    part[0] = _mask_tail(part[0], n_valid)
-                yield (padded, *part)
+            # the block's span closes before its first yield: a range left
+            # open across a yield would take in the caller's work
+            with maybe_span(None, "planner.block"):
+                padded = [pad_pow2(chunk) for chunk in buf]
+                if len(padded) == 1:
+                    block = padded[0][0]
+                else:
+                    block = torch.cat([as_ids(p, device) for p, _ in padded])
+                outs = self._diff(block, v_from, v_to, n_replicas)
+                length = int(padded[0][0].shape[0])
+                parts = []
+                for i, ((p, n_valid), chunk) in enumerate(zip(padded, buf)):
+                    part = [o[i * length : (i + 1) * length] for o in outs]
+                    if p is not chunk:
+                        part[0] = _mask_tail(part[0], n_valid)
+                    parts.append((p, *part))
+            yield from parts
 
         buf: list = []
         for chunk in id_chunks:
-            padded, n_valid = pad_pow2(chunk)
-            if buf and (buf[0][0].shape[0] != padded.shape[0] or len(buf) >= fuse):
+            length = pow2_bucket(int(chunk.shape[0]))
+            if buf and (pow2_bucket(int(buf[0].shape[0])) != length or len(buf) >= fuse):
                 yield from flush(buf)
                 buf = []
-            buf.append((padded, n_valid, padded is not chunk))
+            buf.append(chunk)
         yield from flush(buf)
 
     def plan_stream(self, id_chunks, v_from: int, v_to: int, *, mesh=None, fuse: int = 1):

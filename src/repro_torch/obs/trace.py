@@ -9,6 +9,13 @@ Events carry a timestamp from an injectable clock and export as JSONL or
 Prometheus-style text (optionally merged with a ``MetricsRegistry``'s
 drained device totals).  Ledgers are instance-scoped: exact tripwire
 counts never alias across objects.
+
+A span is also a profiler range: while a ``torch.profiler`` runs, it
+opens a ``record_function`` range of its own name, so its start and end
+lie on the profiler's clock beside the kernels it launched.  The port's
+layers open ``maybe_span(None, "<layer>.<what>")`` at their boundaries;
+with no profiler and no ledger that is one flag check and a shared
+no-op context.
 """
 
 from __future__ import annotations
@@ -20,10 +27,20 @@ import re
 import time
 
 import numpy as np
+from torch.autograd import profiler as _profiler
 
 DEFAULT_CAPACITY = 65536
 
 _PROM_BAD = re.compile(r"[^a-zA-Z0-9_]")
+
+_NULL = contextlib.nullcontext()
+
+
+def _range(name: str):
+    """A profiler range named ``name`` while a profiler runs, else a no-op
+    context (the profiler's own flag, a module global: no call into torch
+    when it is off)."""
+    return _profiler.record_function(name) if _profiler._is_profiler_enabled else _NULL
 
 
 def _jsonable(v):
@@ -83,12 +100,14 @@ class TraceLedger:
 
     @contextlib.contextmanager
     def span(self, name: str, **fields):
-        """Time a block; emits one ``kind="span"`` event with ``dur_s``."""
-        t0 = self._clock()
-        try:
-            yield
-        finally:
-            self.event("span", name, dur_s=float(self._clock() - t0), **fields)
+        """Time a block; emits one ``kind="span"`` event with ``dur_s`` (and,
+        under a running profiler, a range of the same name)."""
+        with _range(name):
+            t0 = self._clock()
+            try:
+                yield
+            finally:
+                self.event("span", name, dur_s=float(self._clock() - t0), **fields)
 
     def clear(self) -> None:
         self._events.clear()
@@ -163,7 +182,8 @@ def set_ledger(ledger: TraceLedger) -> TraceLedger:
 
 
 def maybe_span(ledger, name: str, **fields):
-    """``ledger.span`` when a ledger is given, else a no-op context."""
+    """``ledger.span`` when a ledger is given, else the profiler's range
+    while one runs, else a no-op context."""
     if ledger is None:
-        return contextlib.nullcontext()
+        return _range(name)
     return ledger.span(name, **fields)

@@ -59,7 +59,7 @@ from ..kernels.baselines import baseline_replicas_cuda
 from ..kernels.hierarchy import hier_place_replicas_cuda
 from ..kernels.ref import DEPTH_BINS
 from ..kernels.u32 import M32, to_u32
-from ..obs.trace import TraceLedger
+from ..obs.trace import TraceLedger, maybe_span
 from .traffic import TrafficModel, prng_key
 
 POLICIES = ("primary", "random", "pow2")
@@ -333,39 +333,42 @@ class RequestStreamDriver:
         (and slab delta) one all-reduce merges.
         ``route(ids)`` gives the (batch, R) holders and the kernel's stats
         vector (None when it has none)."""
-        ids, sel = TrafficModel.draw(
-            self._key, self._step, self._lanes, self._thresholds,
-            self.traffic.id_salt,
-        )
+        with maybe_span(None, "serve.words"):
+            ids, sel = TrafficModel.draw(
+                self._key, self._step, self._lanes, self._thresholds,
+                self.traffic.id_salt,
+            )
         owners, stats = route(ids)
-        chosen = select_replica(
-            owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
-        )
-        hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
-        hist.scatter_add_(0, chosen.long(), self._ones)
-        delta = None
-        if self._instrumented:
-            reg = self.metrics
-            slab = reg.slab()
-            # on a mesh the adds go to a delta that rides the batch's one
-            # all-reduce beside the histogram
-            delta = slab if self._sweep is None else torch.zeros_like(slab)
-            reg.add(delta, self._routed_name, self._lanes.shape[0])
-            reg.add_hist(delta, "serve.served", hist)
-            if stats is not None and self.algorithm == "asura":
-                reg.add_hist(delta, "asura.ladder_depth", stats[:DEPTH_BINS])
-                reg.add(delta, "asura.nonconverged", stats[DEPTH_BINS])
-            elif stats is not None:
-                reg.add(delta, "baseline.reprobes", stats[0])
-        if self._sweep is not None and delta is not None:
-            merged = self._sweep.all_reduce(torch.cat([hist.to(torch.int64), delta]))
-            hist = merged[: self.n_bins].to(torch.int32)
-            slab.add_(merged[self.n_bins :]).bitwise_and_(M32)
-        elif self._sweep is not None:
-            hist = self._sweep.all_reduce(hist)
-        self.counts = self.counts + hist
-        self.queue = torch.clamp(self.queue + hist - self._service, min=0)
-        self.qhist[self._step % self.max_hist] = self.queue
+        with maybe_span(None, "serve.select"):
+            chosen = select_replica(
+                owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
+            )
+        with maybe_span(None, "serve.count"):
+            hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
+            hist.scatter_add_(0, chosen.long(), self._ones)
+            delta = None
+            if self._instrumented:
+                reg = self.metrics
+                slab = reg.slab()
+                # on a mesh the adds go to a delta that rides the batch's one
+                # all-reduce beside the histogram
+                delta = slab if self._sweep is None else torch.zeros_like(slab)
+                reg.add(delta, self._routed_name, self._lanes.shape[0])
+                reg.add_hist(delta, "serve.served", hist)
+                if stats is not None and self.algorithm == "asura":
+                    reg.add_hist(delta, "asura.ladder_depth", stats[:DEPTH_BINS])
+                    reg.add(delta, "asura.nonconverged", stats[DEPTH_BINS])
+                elif stats is not None:
+                    reg.add(delta, "baseline.reprobes", stats[0])
+            if self._sweep is not None and delta is not None:
+                merged = self._sweep.all_reduce(torch.cat([hist.to(torch.int64), delta]))
+                hist = merged[: self.n_bins].to(torch.int32)
+                slab.add_(merged[self.n_bins :]).bitwise_and_(M32)
+            elif self._sweep is not None:
+                hist = self._sweep.all_reduce(hist)
+            self.counts = self.counts + hist
+            self.queue = torch.clamp(self.queue + hist - self._service, min=0)
+            self.qhist[self._step % self.max_hist] = self.queue
         self._step += 1
         self.steps_done += 1
         return ids, chosen
@@ -435,35 +438,39 @@ class RequestStreamDriver:
                 "route_batch serves host-fed batches single-device; "
                 "mesh-sharded serving goes through step()"
             )
-        ids = as_ids(datum_ids, self.device)
-        n = int(ids.shape[0])
-        padded, n_valid = pad_pow2(ids)
-        tables, statics = route_statics(self.engine, self.algorithm)
-        self._check_version()
-        key = ("route_batch", statics, int(padded.shape[0]))
-        owners_fn = self._bodies.get(key)
-        if owners_fn is None:
-            self.ledger.incr("serve.step_traces")
-            owners_fn = self._bodies[key] = replica_owners_body(statics, self.n_replicas)
-        lanes = torch.arange(padded.shape[0], dtype=torch.int64, device=self.device)
-        sel = TrafficModel.lane_words(self._key, self._step, lanes, 1)[:, 0]
-        chosen = select_replica(
-            owners_fn(padded, *tables), sel, self.counts,
-            policy=self.policy, n_replicas=self.n_replicas,
-        )
-        hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
-        hist.scatter_add_(0, chosen.long(), (lanes < n_valid).to(torch.int32))
-        if self._instrumented:
-            reg = self.metrics
-            slab = reg.slab()
-            reg.add(slab, self._routed_name, n_valid)
-            reg.add_hist(slab, "serve.served", hist)
-        self.counts = self.counts + hist
-        self.queue = torch.clamp(self.queue + hist - self._service, min=0)
-        self.qhist[self._step % self.max_hist] = self.queue
-        self._step += 1
-        self.steps_done += 1
-        return chosen[:n]
+        with maybe_span(None, "serve.route_batch"):
+            ids = as_ids(datum_ids, self.device)
+            n = int(ids.shape[0])
+            padded, n_valid = pad_pow2(ids)
+            tables, statics = route_statics(self.engine, self.algorithm)
+            self._check_version()
+            key = ("route_batch", statics, int(padded.shape[0]))
+            owners_fn = self._bodies.get(key)
+            if owners_fn is None:
+                self.ledger.incr("serve.step_traces")
+                owners_fn = self._bodies[key] = replica_owners_body(statics, self.n_replicas)
+            lanes = torch.arange(padded.shape[0], dtype=torch.int64, device=self.device)
+            with maybe_span(None, "serve.words"):
+                sel = TrafficModel.lane_words(self._key, self._step, lanes, 1)[:, 0]
+            owners = owners_fn(padded, *tables)
+            with maybe_span(None, "serve.select"):
+                chosen = select_replica(
+                    owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
+                )
+            with maybe_span(None, "serve.count"):
+                hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
+                hist.scatter_add_(0, chosen.long(), (lanes < n_valid).to(torch.int32))
+                if self._instrumented:
+                    reg = self.metrics
+                    slab = reg.slab()
+                    reg.add(slab, self._routed_name, n_valid)
+                    reg.add_hist(slab, "serve.served", hist)
+                self.counts = self.counts + hist
+                self.queue = torch.clamp(self.queue + hist - self._service, min=0)
+                self.qhist[self._step % self.max_hist] = self.queue
+            self._step += 1
+            self.steps_done += 1
+            return chosen[:n]
 
     # -- serving through a live migration window --------------------------------
 
