@@ -25,7 +25,8 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
 
   1. card name and power limit; build the CUDA kernels from the sources
      in this checkout; registers, stack frame and spill bytes (``-Xptxas
-     -v``) of B5, B6, the fan-out, B8, B1, B9, B2, B3 and B4;
+     -v``) of B5, B6, the fan-out, B8, B1, B9, B2, B3, B4, the
+     ADDITION-NUMBER kernel and TW;
   2. the fused placement kernel against its plain-torch twin on the card,
      exact equality, emit_nodes both ways: 2**20 + 13 ids on both
      clusters, and the forced tail (max_draws 0 and 1);
@@ -41,6 +42,11 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
      instrumented, 16 steps under sync-debug "error"; counts, live nodes
      and the metrics slab checked, and everything equal to a CPU driver
      (the twins) at the same seed;
+     5b. the selection-word kernel (TW, ``lane_words_cuda``) against its
+         twin on the card, n_words 1 and 2, four (seed, step) pairs, the
+         edge lanes (0, 1, 511, 2**31 - 1, 2**31, 2**31 + 12345,
+         2**32 - 1) and 2**20 + 13 lanes that cross 2**32; then its time
+         at a benchmark serving batch's 2**22 lanes beside the twin's;
   7. the two-version diff kernels (B3, B4) against their twins on the
      card, exact: the 4096-node cluster before and after adding a node of
      capacity 1.0, before and after removing one, an add that reuses the
@@ -288,8 +294,8 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
       17c. ``python -m repro_torch.launch.shardings --selftest``: 4 CPU
            gloo ranks on a 2x2 mesh under this host's torch, started
            after 17a's timed steps and run beside 17b;
-  6. (printed last) one JSON line per kernel (B1-B9, the fan-out and the
-     ADDITION-NUMBER trace): launches on the main paths (phases 4, 5, 8,
+  6. (printed last) one JSON line per kernel (B1-B9, the fan-out, the
+     ADDITION-NUMBER trace and TW): launches on the main paths (phases 4, 5, 8,
      9b-9d, 10b-10d, 11a-11d, 12a,
      13a-13b, 14a, 15a-15b, 15d, 16a, 16e, 17a), time at
      the bulk size, the twin's time, the least time the card could take
@@ -370,6 +376,7 @@ OPS_PER_DRAW = 4
 SOURCE = "src/repro_torch/kernels/csrc/asura_place.cu"
 SOURCE_BASELINES = "src/repro_torch/kernels/csrc/baselines.cu"
 SOURCE_HIER = "src/repro_torch/kernels/csrc/hierarchy.cu"
+SOURCE_TRAFFIC = "src/repro_torch/kernels/csrc/traffic.cu"
 BASELINES = ("ch", "rs", "wrh")
 # kernel -> (the TPU kernel it replaces, its CUDA source), B1-B9 in order
 REPLACES = {
@@ -389,6 +396,18 @@ FANOUT_OF = "src/repro/kernels/baselines.py:389"
 AN = "addition_numbers"  # no TPU kernel: the reference's jnp ADDITION-NUMBER trace
 AN_OF = "src/repro/kernels/ref.py:312"
 AN_CHUNK = 1 << 20  # the ids of one trace on the main path (a plan chunk, a window)
+TW = "lane_words"  # no TPU kernel: the reference draws the serving words with jax.random
+TW_OF = "src/repro/serve/traffic.py:119"
+TW_LANES = 1 << 22  # the lanes of a benchmark serving batch (chipbench's serve-ycsbc)
+# launches between one pair of CUDA events when TW is timed back to back: a
+# lone launch on an idle card also times the host's launch (~20 us), which
+# is over half of TW's own time
+TW_BACK_TO_BACK = 50
+# int32 operations of one Threefry-2x32 evaluation in csrc/traffic.cu: 20
+# rounds of an add, a funnel shift and an xor; the first key injection's
+# two adds and five more of two adds each (the round constant folded into
+# a three-input add); the third key word's two xors folded into one
+THREEFRY_OPS = 20 * 3 + 2 + 5 * 2 + 1
 # the trace's min-key update of an unused draw: k <, k ==, f <, and, or, two
 # selects
 MIN_KEY_OPS = 7
@@ -739,6 +758,7 @@ PTXAS_KERNELS = (
     ("diff_nodes", "asura_place", r"17diff_nodes_kernel"),
     ("diff_replicas", "asura_place", r"20diff_replicas_kernelI"),
     (AN, "asura_place", r"23addition_numbers_kernelI"),
+    (TW, "traffic", r"17lane_words_kernelI"),
 )
 
 
@@ -758,7 +778,7 @@ def ptxas_rows(report_of) -> list[tuple[str, str, dict]]:
             rmax = re.search(r"Li(\d+)EE", sym)
             variant = " ".join(filter(None, (
                 staged and ("staged" if staged.group(1) == "1" else "global"),
-                rmax and f"RMAX={rmax.group(1)}")))
+                rmax and f"{'n_words' if label == TW else 'RMAX'}={rmax.group(1)}")))
             rows.append((label, variant, numbers))
     return rows
 
@@ -865,7 +885,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {name: 0 for name in KERNELS + (FANOUT, AN)}
+    worst = {name: 0 for name in KERNELS + (FANOUT, AN, TW)}
     t_run = time.perf_counter()
 
     def elapsed(done: str) -> None:
@@ -1052,6 +1072,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
           f"({time.perf_counter() - t0:.1f} s on the host)")
     if profile:
         print_profile(profile_steps(torch, RequestStreamDriver(engine, **cfg).step, 4))
+    tw = phase5b(torch, dev, hold)
 
     elapsed("phases 1-5")
 
@@ -1131,7 +1152,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     elapsed("phase 17")
 
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
-    for part in (diff_work, base, hier, an_work):
+    for part in (diff_work, base, hier, an_work, tw):
         ms.update(part["ms"])
         plain.update(part["plain"])
         work.update(part["work"])
@@ -1143,8 +1164,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                   *hier["launches"], consumer_launches, mesh_launches, lm_launches,
                   train_launches, moe_launches, rec_launches, shard_launches)
     kernels = []
-    no_tpu_kernel = {FANOUT: (FANOUT_OF, SOURCE_BASELINES), AN: (AN_OF, SOURCE)}
-    for name in KERNELS + (FANOUT, AN):
+    no_tpu_kernel = {FANOUT: (FANOUT_OF, SOURCE_BASELINES), AN: (AN_OF, SOURCE),
+                     TW: (TW_OF, SOURCE_TRAFFIC)}
+    for name in KERNELS + (FANOUT, AN, TW):
         b_ms, b_by = bound(*work[name])
         launches = sum(part.get(name, 0) for part in main_paths)
         replaces, source = REPLACES.get(name) or no_tpu_kernel[name]
@@ -1162,12 +1184,22 @@ def run(seed: int, dev, profile: bool = False) -> dict:
             entry["note"] = ("no TPU counterpart: the reference computes this trace in "
                              f"jnp; R=3 on the extended ladder; plain_ms on {CHECK_IDS} ids, "
                              f"where the kernel takes {an_work['ms_small']:.4f} ms")
+        if name == TW:
+            entry["note"] = ("no TPU counterpart: the reference draws these words with "
+                             f"jax.random in jnp; n_words=1 on {TW_LANES} lanes (route_batch's "
+                             "form); n_words=2 (step()'s) beside it")
+            entry.update(tw["two_words"])
         if name in unseeded:
             entry["bound_unseeded_ms"] = bound(*unseeded[name])[0]
         if name in diff_work["two_walks"]:
             entry["bound_two_walks_ms"] = diff_work["two_walks"][name]
         kernels.append(entry)
         lib = "" if entry["library_ms"] is None else f", library {entry['library_ms']:.4f} ms"
+        if "ms_n_words_2" in entry:
+            lib += (f" ({entry['ms_in_a_row']:.4f} ms a launch in a row); n_words=2 "
+                    f"{entry['ms_n_words_2']:.4f} ms ({entry['ms_in_a_row_n_words_2']:.4f}) vs "
+                    f"bound {entry['bound_ms_n_words_2']:.4f} ms, twin "
+                    f"{entry['plain_ms_n_words_2']:.2f} ms")
         if "bound_unseeded_ms" in entry:
             lib += f", bound hashing every consult's seed {entry['bound_unseeded_ms']:.4f} ms"
         if "bound_two_walks_ms" in entry:
@@ -1177,6 +1209,51 @@ def run(seed: int, dev, profile: bool = False) -> dict:
               f"{lib}")
         require(launches > 0, f"{name} was not launched on the main paths")
     return {"kernels": kernels}
+
+
+def phase5b(torch, dev, hold) -> dict:
+    """The selection-word kernel (TW) against its twin on the card, exact;
+    then its CUDA-event time at TW_LANES lanes, n_words 1 and 2, a lone
+    launch and TW_BACK_TO_BACK launches in a row (per launch), beside the
+    twin's and the bound.  Its launches here are not the main path's."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.traffic import lane_words_cuda
+    from repro_torch.serve.traffic import fold_in, prng_key
+    from repro_torch.serve.traffic import lane_words_twin as twin
+
+    print(f"phase 5b: {TW} (TW) vs its twin on the card, n_words 1 and 2, exact; "
+          f"timed at {TW_LANES} lanes")
+    edge = torch.tensor([0, 1, 511, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1],
+                        dtype=torch.int64, device=dev)
+    # lanes crossing 2**31 and 2**32 (a mesh rank's global lanes wrap mod 2**32)
+    ragged = torch.arange(CHECK_IDS, dtype=torch.int64, device=dev) * 4099 + 2**31 - 2**20
+    lanes = torch.arange(TW_LANES, dtype=torch.int64, device=dev)
+    ms, in_row, plain, work = {}, {}, {}, {}
+    with uncounted(LAUNCHES):
+        for seed, step in ((0, 0), (7, 1), (2**31 - 1, 1000), (-5, 0)):
+            key = fold_in(prng_key(seed), step)
+            for nw in (1, 2):
+                for what, x in (("edge lanes", edge), (f"{CHECK_IDS} lanes", ragged)):
+                    hold(TW, f"seed {seed} step {step} n_words={nw} {what}",
+                         lane_words_cuda(key, x, nw), twin(key, x, nw))
+        key = fold_in(prng_key(0), 0)
+        for nw in (1, 2):
+            ms[nw] = statistics.median(cuda_ms(
+                torch, lambda: lane_words_cuda(key, lanes, nw), TIMED_CALLS))
+            in_row[nw] = statistics.median(cuda_ms(
+                torch, lambda: [lane_words_cuda(key, lanes, nw) for _ in range(TW_BACK_TO_BACK)],
+                TIMED_CALLS)) / TW_BACK_TO_BACK
+            plain[nw] = statistics.median(cuda_ms(torch, lambda: twin(key, lanes, nw), 2))
+            work[nw] = ((8 + 8 * nw) * TW_LANES, ((1 + nw) * THREEFRY_OPS + nw) * TW_LANES)
+            print(f"  n_words={nw}: {ms[nw]:.4f} ms a lone launch, {in_row[nw]:.4f} ms a launch "
+                  f"of {TW_BACK_TO_BACK} in a row (CUDA events, median of {TIMED_CALLS}), "
+                  f"bound {bound(*work[nw])[0]:.4f} ms ({bound(*work[nw])[1]}), "
+                  f"twin {plain[nw]:.2f} ms")
+    b2, by2 = bound(*work[2])
+    return {"ms": {TW: ms[1]}, "plain": {TW: plain[1]}, "work": {TW: work[1]},
+            "two_words": {"ms_in_a_row": in_row[1], "ms_n_words_2": ms[2],
+                          "ms_in_a_row_n_words_2": in_row[2], "plain_ms_n_words_2": plain[2],
+                          "bound_ms_n_words_2": b2, "bound_by_n_words_2": by2}}
 
 
 def phase7(torch, np, dev, caps, ids, hold) -> dict:

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain-torch twins.
 
-``asura_place``, ``baselines`` and ``hierarchy`` hold the wrappers
-(launch counters in ``LAUNCHES``), ``ref``, ``baselines_ref`` and
-``hierarchy_ref`` the twins, ``ops`` the table-level entry points,
+``asura_place``, ``baselines``, ``hierarchy`` and ``traffic`` hold the
+wrappers (launch counters in ``LAUNCHES``), ``ref``, ``baselines_ref`` and
+``hierarchy_ref`` the twins (``traffic``'s is ``TrafficModel.lane_words``), ``ops`` the table-level entry points,
 ``build`` the ``nvcc`` build at first use.
 Nothing is compiled at import time.
 """
@@ -25,6 +25,7 @@ from .baselines import (
 )
 from .hierarchy import hier_place_replicas_cuda
 from .hierarchy_ref import hier_place_replicas_ref
+from .traffic import lane_words_cuda
 
 __all__ = [
     "LAUNCHES",
@@ -35,6 +36,7 @@ __all__ = [
     "diff_replicas_cuda",
     "hier_place_replicas_cuda",
     "hier_place_replicas_ref",
+    "lane_words_cuda",
     "place_cuda",
     "place_fused_cuda",
     "place_replicas_cuda",

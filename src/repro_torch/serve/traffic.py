@@ -15,8 +15,10 @@ uint32)`` gives word ``j`` as ``x0 ^ x1`` of ``threefry2x32(key, (0, j))``.
 ``threefry2x32`` below is that function (20 rounds, key schedule with
 0x1BD11BDA) written once for Python ints and int64 tensors alike: the
 host computes the batch key, the device computes one fold-in and two
-words per lane.  Lanes are u32 values in int64, so lanes >= 2**31 need no
-special case.
+words per lane: on the card in one launch of a hand-written kernel
+(``kernels/csrc/traffic.cu``), on the CPU in its plain-torch twin
+``lane_words_twin``.  Lanes are u32 values in int64, so lanes >= 2**31
+need no special case.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..core.rng import fmix32_np
 from ..kernels.ref import fmix32
+from ..kernels.traffic import lane_words_cuda
 from ..kernels.u32 import M32, add32
 
 LAWS = ("uniform", "zipf", "hotset")
@@ -65,6 +68,18 @@ def prng_key(seed: int) -> tuple[int, int]:
 def fold_in(key, data):
     """``jax.random.fold_in``: threefry of the key over ``(0, data)``."""
     return threefry2x32(key[0], key[1], 0, data & M32)
+
+
+def lane_words_twin(batch_key, lanes: torch.Tensor, n_words: int) -> torch.Tensor:
+    """The plain-torch twin of ``lane_words_cuda``: (len(lanes), n_words)
+    int64 u32 words ``bits(fold_in(batch_key, lane), (n_words,))``, on the
+    lanes' device."""
+    k0, k1 = fold_in(batch_key, lanes & M32)
+    words = []
+    for j in range(n_words):
+        y0, y1 = threefry2x32(k0, k1, 0, j)
+        words.append(y0 ^ y1)
+    return torch.stack(words, dim=1)
 
 
 class TrafficModel:
@@ -140,14 +155,17 @@ class TrafficModel:
     @staticmethod
     def lane_words(root_key, step_idx: int, lanes: torch.Tensor, n_words: int = 2):
         """(len(lanes), n_words) int64 u32 words for GLOBAL lane indices:
-        ``bits(fold_in(fold_in(root_key, step), lane), (n_words,))``."""
+        ``bits(fold_in(fold_in(root_key, step), lane), (n_words,))``.
+
+        CUDA lanes go to the hand-written kernel (``lane_words_cuda``, one
+        launch, ``n_words`` 1 or 2) or raise; CPU lanes to its twin
+        ``lane_words_twin``."""
         batch_key = fold_in(root_key, int(step_idx))
-        k0, k1 = fold_in(batch_key, lanes & M32)
-        words = []
-        for j in range(n_words):
-            y0, y1 = threefry2x32(k0, k1, 0, j)
-            words.append(y0 ^ y1)
-        return torch.stack(words, dim=1)
+        if lanes.device.type == "cuda":
+            return lane_words_cuda(batch_key, lanes, n_words)
+        if lanes.device.type != "cpu":
+            raise ValueError(f"lane_words runs on cuda or cpu, not {lanes.device}")
+        return lane_words_twin(batch_key, lanes, n_words)
 
     @staticmethod
     def ranks_from_words(words: torch.Tensor, thresholds: torch.Tensor) -> torch.Tensor:

@@ -191,6 +191,47 @@ def test_step_on_card_has_no_host_sync_and_matches_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the selection-word kernel (TW): Threefry-2x32 words of the serving driver
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.traffic import lane_words_cuda  # noqa: E402
+from repro_torch.serve.traffic import TrafficModel, fold_in, prng_key  # noqa: E402
+
+EDGE_LANES = [0, 1, 511, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1]
+
+
+@pytest.mark.parametrize("n_words", [1, 2])
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, -5])
+@pytest.mark.parametrize("step", [0, 1, 1000])
+def test_lane_words_kernel_equals_its_twin(cuda_device, seed, step, n_words):
+    ragged = torch.arange((1 << 20) + 3, dtype=torch.int64) * 4099 + 2**31 - 2**20
+    for lanes in (torch.tensor(EDGE_LANES, dtype=torch.int64), ragged,
+                  torch.empty(0, dtype=torch.int64)):
+        want = TrafficModel.lane_words(prng_key(seed), step, lanes, n_words)
+        before = LAUNCHES["lane_words"]
+        got = TrafficModel.lane_words(prng_key(seed), step, lanes.to(cuda_device), n_words)
+        assert LAUNCHES["lane_words"] == before + (1 if lanes.numel() else 0)
+        assert got.dtype == torch.int64 and got.shape == (lanes.shape[0], n_words)
+        assert torch.equal(got.cpu(), want)
+        direct = lane_words_cuda(fold_in(prng_key(seed), step), lanes.to(cuda_device), n_words)
+        assert torch.equal(direct.cpu(), want)
+
+
+def test_lane_words_kernel_launches_once_per_route_batch_and_step(cuda_device):
+    cfg = dict(policy="pow2", law="zipf", batch=4096, n_keys=10_000, seed=3)
+    gpu = RequestStreamDriver(PlacementEngine(make_uniform_cluster(24), device=cuda_device),
+                              **cfg)
+    cpu = RequestStreamDriver(PlacementEngine(make_uniform_cluster(24), device="cpu"), **cfg)
+    ids = _ids(3000, cuda_device, seed=5)
+    for serve in (lambda d, x: d.route_batch(x), lambda d, x: d.step()):
+        before = LAUNCHES["lane_words"]
+        got = serve(gpu, ids)
+        assert LAUNCHES["lane_words"] == before + 1
+        assert torch.equal(got.cpu(), serve(cpu, ids.cpu()))
+    assert torch.equal(gpu.counts.cpu(), cpu.counts)
+
+
+# ---------------------------------------------------------------------------
 # the two-version diff kernels (B3, B4) and the migration path on the card
 # ---------------------------------------------------------------------------
 

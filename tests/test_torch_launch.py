@@ -216,6 +216,17 @@ def test_top_ladder_draws_what_a_counter_per_level_draws(K):
             assert seq_g == seq_w
 
 
+def test_build_names_the_selection_word_source_and_resolves_it_without_nvcc(monkeypatch):
+    assert build.SOURCES == ("asura_place", "baselines", "hierarchy", "traffic")
+    assert build.source_files("traffic") == [build.CSRC / "traffic.cu"]
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    path = build.library_path("traffic")
+    assert path.parent == build.BUILD_DIR and path.name.startswith("traffic-")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+
+
 def test_parse_ptxas_reads_registers_stack_and_spills():
     log = """ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113lookup_kernelINS_8ChLookupEEEvT_PKjPix' for 'sm_90a'

@@ -73,6 +73,60 @@ def test_threefry_words_match_jax(seed, step):
     assert np.array_equal(got.numpy(), want.astype(np.int64))
 
 
+@pytest.mark.parametrize("seed,step", [(-5, 0), (0, 1000)])
+def test_one_word_a_lane_matches_jax_on_a_ragged_range(seed, step):
+    """The n_words=1 form ``route_batch`` and ``sample_ranks`` use, over
+    lanes that cross 2**31 and 2**32 (a mesh rank's global lanes)."""
+    lanes = np.arange(2**31 - 700, 2**31 + 301, dtype=np.int64)
+    lanes = np.concatenate([lanes, lanes + 2**31 - 300])
+    want = np.asarray(JTraffic.lane_words(
+        jax.random.PRNGKey(seed), jnp.int32(step), jnp.asarray(lanes.astype(np.uint32)), 1))
+    got = TrafficModel.lane_words(prng_key(seed), step, torch.from_numpy(lanes), 1)
+    assert got.shape == (lanes.shape[0], 1)
+    assert np.array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_cpu_lanes_take_the_twin_and_launch_no_kernel():
+    from repro_torch.kernels import LAUNCHES
+
+    before = LAUNCHES["lane_words"]  # 0 in a process that has no card
+    _, td, _, _ = _pair(policy="pow2", law="zipf", **CFG)
+    td.step()
+    td.superstep(2)
+    td.route_batch(np.arange(700, dtype=np.uint32))
+    TrafficModel(100).sample_ranks(1, 300, batch=128, device="cpu")
+    assert LAUNCHES["lane_words"] == before
+
+
+def test_lane_words_refuses_a_device_that_is_neither_cuda_nor_cpu():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TrafficModel.lane_words(prng_key(0), 0, torch.arange(4, device="meta"), 1)
+
+
+@pytest.mark.parametrize("case", ["int32 lanes", "2-D lanes", "strided lanes", "three words",
+                                  "key over u32", "cpu lanes", "not a tensor"])
+def test_lane_words_cuda_checks_its_operands_before_any_launch(case):
+    from repro_torch.kernels import LAUNCHES, lane_words_cuda
+
+    key, lanes, n_words = fold_in(prng_key(0), 0), torch.arange(8, dtype=torch.int64), 1
+    error, before = ValueError, LAUNCHES["lane_words"]
+    if case == "int32 lanes":
+        lanes, error = lanes.to(torch.int32), TypeError
+    elif case == "2-D lanes":
+        lanes = lanes.view(2, 4)
+    elif case == "strided lanes":
+        lanes = lanes[::2]
+    elif case == "three words":
+        n_words = 3
+    elif case == "key over u32":
+        key = (key[0], 2**32)
+    elif case == "not a tensor":
+        lanes, error = list(range(8)), TypeError
+    with pytest.raises(error):
+        lane_words_cuda(key, lanes, n_words)
+    assert LAUNCHES["lane_words"] == before
+
+
 def test_prng_key_and_fold_in_match_jax():
     for seed in (0, 3, 2**31 - 1, -5):
         key = jax.random.PRNGKey(seed)
