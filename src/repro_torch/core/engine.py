@@ -189,8 +189,9 @@ def with_baseline_device_tables(art: BaselineArtifact, device) -> BaselineArtifa
     """``art`` with its lane-padded device tables (one host->device upload)."""
     from ..kernels.baselines import TABLE_PREP
 
-    keys_dev, vals_dev = TABLE_PREP[art.algorithm](art.keys, art.vals, device=device)
-    return dataclasses.replace(art, keys_dev=keys_dev, vals_dev=vals_dev)
+    with maybe_span(None, "engine.ring_upload"):
+        keys_dev, vals_dev = TABLE_PREP[art.algorithm](art.keys, art.vals, device=device)
+        return dataclasses.replace(art, keys_dev=keys_dev, vals_dev=vals_dev)
 
 
 def _check_algorithm(algorithm: str) -> str:
@@ -370,8 +371,9 @@ class PlacementEngine:
         node_ids = sorted(weights)
         if alg == "ch":
             # the paper's CH setup: V virtual nodes per node, unweighted
-            keys, vals = build_ring(node_ids, self._virtual_nodes)
-            vals = vals.astype(np.int32)
+            with maybe_span(None, "engine.ring_host"):
+                keys, vals = build_ring(node_ids, self._virtual_nodes)
+                vals = vals.astype(np.int32)
         elif alg == "wrh":
             keys = np.asarray(node_ids, dtype=np.uint32)
             vals = np.asarray([weights[n] for n in node_ids], dtype=np.float32)
@@ -673,9 +675,10 @@ class PlacementEngine:
             return self.place_replica_pairs_device(datum_ids, n_replicas)
         art = self._device_artifact(alg)
         if alg != "asura":
-            return baseline_place_replicas_on_table_device(
-                alg, datum_ids, art.keys_dev, art.vals_dev, n_replicas=n_replicas,
-            )
+            with maybe_span(None, "engine.baseline_replicas"):
+                return baseline_place_replicas_on_table_device(
+                    alg, datum_ids, art.keys_dev, art.vals_dev, n_replicas=n_replicas,
+                )
         return place_replicas_on_table_device(
             datum_ids, art.len32_dev, art.node_of_dev, n_replicas,
             top_level=art.top_level, params=self.params, emit_nodes=True,

@@ -7,7 +7,11 @@
   * outputs and state are bit-equal with the profiler on and off;
   * with no profiler and no ledger a span calls no ``record_function`` and
     records no ledger event; ledger events keep their shape either way;
-  * the engine keeps no count of cache hits.
+  * the engine keeps no count of cache hits;
+  * a baseline engine's table build opens ``engine.ring_host`` (CH's ring)
+    and ``engine.ring_upload``, its fan-out ``engine.baseline_replicas``;
+    off, they call no ``record_function``, and on the card they add no
+    launch and no host sync, on or off.
 """
 
 import numpy as np
@@ -24,11 +28,13 @@ from repro_torch.serve import RequestStreamDriver
 CAPS = [0.5, 1.5, 1.0, 2.0, 0.75, 1.25, 1.0, 0.6, 1.9, 1.1, 0.8, 1.4]
 SPANS = ("serve.route_batch", "serve.words", "serve.select", "serve.count",
          "engine.build_artifact", "engine.tables_host", "engine.tables_upload",
-         "planner.block", "ops.align_replica_sets", "test.consumer")
+         "planner.block", "ops.align_replica_sets", "test.consumer",
+         "engine.ring_host", "engine.ring_upload", "engine.baseline_replicas")
+BASELINES = ("ch", "rs", "wrh")
 
 
-def _engine():
-    return PlacementEngine(make_cluster(CAPS, device="cpu"), device="cpu")
+def _engine(algorithm="asura"):
+    return PlacementEngine(make_cluster(CAPS, device="cpu"), device="cpu", algorithm=algorithm)
 
 
 def _driver(policy="pow2"):
@@ -126,6 +132,31 @@ def test_a_fused_plan_opens_one_block_per_fused_block_and_closes_it_before_yield
                                          "test.consumer"])
 
 
+@pytest.mark.parametrize("algorithm", BASELINES)
+def test_a_baseline_table_build_opens_its_ring_spans_inside_build_artifact(algorithm):
+    eng = _engine(algorithm)
+    _, ranges = _traced(eng.artifact)
+    names = ["engine.build_artifact"] + (["engine.ring_host"] if algorithm == "ch" else []) \
+        + ["engine.ring_upload"]
+    assert [r[0] for r in ranges] == names
+    build, *inner = ranges
+    assert all(_inside(r, build) for r in inner)
+    assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))  # siblings, in order
+    _, again = _traced(eng.artifact)
+    assert again == []
+
+
+@pytest.mark.parametrize("algorithm", BASELINES)
+def test_a_baseline_fanout_opens_its_span_once_per_call(algorithm):
+    eng = _engine(algorithm)
+    eng.artifact()
+    ids = _ids()
+    _, ranges = _traced(lambda: [eng.place_replica_nodes_device(ids, 3) for _ in range(2)])
+    assert [r[0] for r in ranges] == ["engine.baseline_replicas"] * 2
+    _, asura = _traced(lambda: _engine().place_replica_nodes_device(ids, 3))
+    assert "engine.baseline_replicas" not in [r[0] for r in asura]
+
+
 # -- the same results with the profiler on and off ------------------------------
 
 
@@ -152,9 +183,17 @@ def _plan_run():
     return outs + [art.len32_dev, art.node_of_dev, art.cum_hi_dev, art.cum_lo_dev]
 
 
-@pytest.mark.parametrize("kind", ["route_batch", "step", "plan"])
+def _ring_run():
+    eng = _engine("ch")
+    art = eng.artifact()
+    outs = [eng.place_replica_nodes_device(_ids(300, seed=s), 3) for s in range(3)]
+    return outs + [art.keys_dev, art.vals_dev]
+
+
+@pytest.mark.parametrize("kind", ["route_batch", "step", "plan", "ring"])
 def test_outputs_and_state_are_bit_equal_with_the_profiler_on_and_off(kind):
-    run = _plan_run if kind == "plan" else (lambda: _serve_run(kind))
+    runs = {"plan": _plan_run, "ring": _ring_run}
+    run = runs.get(kind, lambda: _serve_run(kind))
     off = run()
     on, ranges = _traced(run)
     assert ranges
@@ -189,6 +228,47 @@ def test_with_no_profiler_and_no_ledger_a_span_calls_no_record_function(monkeypa
         pass
     assert len(ledger.events()) == before
     assert len(d.ledger.events()) == steps
+
+
+@pytest.mark.parametrize("algorithm", BASELINES)
+def test_with_no_profiler_a_baseline_engine_calls_no_record_function(monkeypatch, algorithm):
+    def refuse(name, *a, **k):
+        raise AssertionError(f"record_function({name!r}) called with no profiler running")
+
+    monkeypatch.setattr(obs_trace._profiler, "record_function", refuse)
+    eng = _engine(algorithm)
+    eng.place_replica_nodes_device(_ids(), 3)
+    eng.cluster.add_node(len(CAPS), 1.0)
+    eng.place_replica_nodes_device(_ids(), 3)
+    assert eng.uploads == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profiled", [False, True], ids=["off", "profiled"])
+def test_on_the_card_the_fanout_span_adds_no_launch_and_no_sync(profiled):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    import contextlib
+
+    from repro_torch.kernels import LAUNCHES
+
+    dev = torch.device("cuda")
+    eng = PlacementEngine(make_cluster(CAPS, device=dev), device=dev, algorithm="ch")
+    ids = _ids(1 << 16).to(dev)
+    eng.place_replica_nodes_device(ids, 3)
+    torch.cuda.synchronize()
+    before = LAUNCHES["baseline_replicas"]
+    ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
+        else contextlib.nullcontext()
+    with ctx:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(3):
+                eng.place_replica_nodes_device(ids, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert LAUNCHES["baseline_replicas"] == before + 3
 
 
 # -- the ledger's events keep their shape ----------------------------------------
