@@ -398,6 +398,10 @@ AN_OF = "src/repro/kernels/ref.py:312"
 AN_CHUNK = 1 << 20  # the ids of one trace on the main path (a plan chunk, a window)
 TW = "lane_words"  # no TPU kernel: the reference draws the serving words with jax.random
 TW_OF = "src/repro/serve/traffic.py:119"
+# B4 with the per-slot alignment of its two sets as its epilogue: the
+# reference's diff_replicas_pallas, then its jnp _align_replica_sets
+B4A = "diff_replicas_aligned"
+B4A_OF = "src/repro/kernels/asura_place.py:669 + src/repro/kernels/ops.py:399"
 TW_LANES = 1 << 22  # the lanes of a benchmark serving batch (chipbench's serve-ycsbc)
 # launches between one pair of CUDA events when TW is timed back to back: a
 # lone launch on an idle card also times the host's launch (~20 us), which
@@ -766,7 +770,8 @@ def ptxas_rows(report_of) -> list[tuple[str, str, dict]]:
     """(label, variant, ptxas numbers) of every instantiation of the
     PTXAS_KERNELS, from ``report_of(library) -> build.parse_ptxas``
     output; the variant names the slots' template bound (RMAX; 0 keeps
-    them in rows) and, for B8, the staged or global branch."""
+    them in rows), for B8 the staged or global branch and for B4 the
+    alignment epilogue ("align")."""
     import re
 
     rows = []
@@ -775,10 +780,11 @@ def ptxas_rows(report_of) -> list[tuple[str, str, dict]]:
             if not re.search(pattern, sym):
                 continue
             staged = re.search(r"ILb([01])E", sym)
-            rmax = re.search(r"Li(\d+)EE", sym)
+            rmax = re.search(r"Li(\d+)E(Lb[01]E)?E", sym)
             variant = " ".join(filter(None, (
                 staged and ("staged" if staged.group(1) == "1" else "global"),
-                rmax and f"{'n_words' if label == TW else 'RMAX'}={rmax.group(1)}")))
+                rmax and f"{'n_words' if label == TW else 'RMAX'}={rmax.group(1)}",
+                rmax and rmax.group(2) == "Lb1E" and "align")))
             rows.append((label, variant, numbers))
     return rows
 
@@ -885,7 +891,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {name: 0 for name in KERNELS + (FANOUT, AN, TW)}
+    worst = {name: 0 for name in KERNELS + (FANOUT, AN, TW, B4A)}
     t_run = time.perf_counter()
 
     def elapsed(done: str) -> None:
@@ -1089,9 +1095,10 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                          profile=profile)
     mig_launches = big.pop("launches")
     print(f"  launches {mig_launches}")
-    require(mig_launches["diff_nodes"] > 0 and mig_launches["diff_replicas"] > 0
+    require(mig_launches["diff_nodes"] > 0 and mig_launches[B4A] > 0
             and mig_launches["place_replicas"] > 0 and mig_launches[AN] > 0,
-            "the migration path did not launch B2, B3, B4 and the ADDITION-NUMBER kernel")
+            "the migration path did not launch B2, B3, the aligned B4 and the "
+            "ADDITION-NUMBER kernel")
     print(f"phase 8b: the same sequence at {SMALL_TRACKED} tracked ids, batch "
           f"{SMALL_BATCH}, on the card and on the CPU")
     t0 = time.perf_counter()
@@ -1165,10 +1172,12 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                   train_launches, moe_launches, rec_launches, shard_launches)
     kernels = []
     no_tpu_kernel = {FANOUT: (FANOUT_OF, SOURCE_BASELINES), AN: (AN_OF, SOURCE),
-                     TW: (TW_OF, SOURCE_TRAFFIC)}
-    for name in KERNELS + (FANOUT, AN, TW):
+                     TW: (TW_OF, SOURCE_TRAFFIC), B4A: (B4A_OF, SOURCE)}
+    for name in KERNELS + (FANOUT, AN, TW, B4A):
         b_ms, b_by = bound(*work[name])
-        launches = sum(part.get(name, 0) for part in main_paths)
+        # B4's launches in either form: the main paths' replica diffs align
+        counted = (name, B4A) if name == "diff_replicas" else (name,)
+        launches = sum(part.get(k, 0) for part in main_paths for k in counted)
         replaces, source = REPLACES.get(name) or no_tpu_kernel[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1189,6 +1198,11 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                              f"jax.random in jnp; n_words=1 on {TW_LANES} lanes (route_batch's "
                              "form); n_words=2 (step()'s) beside it")
             entry.update(tw["two_words"])
+        if name == B4A:
+            entry["note"] = ("B4 with the per-slot alignment as its epilogue, R=3 on the add; "
+                             "plain_ms B4's twin then ops.align_replica_sets")
+            entry["b4_ms"] = ms["diff_replicas"]
+            entry["two_step_ms"] = diff_work["two_step"]
         if name in unseeded:
             entry["bound_unseeded_ms"] = bound(*unseeded[name])[0]
         if name in diff_work["two_walks"]:
@@ -1204,6 +1218,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
             lib += f", bound hashing every consult's seed {entry['bound_unseeded_ms']:.4f} ms"
         if "bound_two_walks_ms" in entry:
             lib += f", two-walk bound {entry['bound_two_walks_ms']:.4f} ms"
+        if "two_step_ms" in entry:
+            lib += (f"; B4 alone {entry['b4_ms']:.4f} ms, B4 then ops.align_replica_sets "
+                    f"{entry['two_step_ms']:.4f} ms")
         print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
               f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms"
               f"{lib}")
@@ -1257,11 +1274,13 @@ def phase5b(torch, dev, hold) -> dict:
 
 
 def phase7(torch, np, dev, caps, ids, hold) -> dict:
-    """B3 and B4 against their twins on the card; then their times, twin
+    """B3 and B4 against their twins on the card, B4's aligned launch
+    against B4 then ``ops.align_replica_sets``; then their times, twin
     times and work at 2**24 ids on the add event."""
     from repro_torch.core import AsuraParams, PlacementEngine, make_cluster
     from repro_torch.kernels import asura_place as ap
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import align_replica_sets
 
     n = len(caps)
     victim = n // 2
@@ -1292,7 +1311,8 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
         (f"scale-out {n} -> {n + SCALE_OUT} nodes", caps, AsuraParams(),
          lambda c: scale_out(np, c)),
     ]
-    print(f"phase 7: diff_nodes_cuda / diff_replicas_cuda vs twins, {ids.shape[0]} ids, exact")
+    print(f"phase 7: diff_nodes_cuda / diff_replicas_cuda vs twins, {ids.shape[0]} ids, exact; "
+          "diff_replicas_aligned_cuda vs ops.align_replica_sets of diff_replicas_cuda")
     arts = {}
     for name, cc, params, event in cases:
         arts[name] = (event_artifacts(cc, params, event), params)
@@ -1339,6 +1359,12 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
                  ref.diff_replicas_fused_ref(sub, *rtabs, n_replicas=R, **kw))
             if a is b:
                 require(torch.equal(got[0], got[1]), f"{name} R={R}: the two rows differ")
+            aligned = ap.diff_replicas_aligned_cuda(sub, *rtabs, n_replicas=R, **kw)
+            require(aligned[0].dtype == torch.bool
+                    and all(t.is_contiguous() and t.shape == (sub.shape[0], R) for t in aligned),
+                    f"{name} R={R}: aligned outputs of the wrong form")
+            hold(B4A, f"{name} R={R}", torch.stack([t.to(torch.int32) for t in aligned]),
+                 torch.stack([t.to(torch.int32) for t in align_replica_sets(got[0], got[1])]))
 
     # times at 2**24 ids on the add event, and the work this data needs
     (a, b), params = arts["add"]
@@ -1359,6 +1385,15 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
             torch, lambda: ref.diff_fused_ref(bulk, *tabs, **kw), 2))
         out["plain"]["diff_replicas"] = statistics.median(cuda_ms(
             torch, lambda: ref.diff_replicas_fused_ref(bulk, *rtabs, n_replicas=3, **kw), 2))
+        out["ms"][B4A] = statistics.median(cuda_ms(
+            torch, lambda: ap.diff_replicas_aligned_cuda(bulk, *rtabs, n_replicas=3, **kw),
+            TIMED_CALLS))
+        out["two_step"] = statistics.median(cuda_ms(
+            torch, lambda: align_replica_sets(*ap.diff_replicas_cuda(
+                bulk, *rtabs, n_replicas=3, **kw)), TIMED_CALLS))
+        out["plain"][B4A] = statistics.median(cuda_ms(
+            torch, lambda: align_replica_sets(*ref.diff_replicas_fused_ref(
+                bulk, *rtabs, n_replicas=3, **kw)), 2))
         # one walk of the deeper ladder serves both tables: its consulted
         # levels are at least the larger table's; every draw of each table
         # is tested (and B4's hits gathered) and each table's tail resolved
@@ -1387,9 +1422,14 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
                   f"{levels3} levels of {seeds[3][-1]} distinct / {draws3} draws")
     nodes_bytes = 4 * BULK_IDS + 2 * 4 * BULK_IDS + 16 * segs
     replicas_bytes = 4 * BULK_IDS + 2 * 4 * 3 * BULK_IDS + 8 * segs
+    # the aligned launch writes moved (1 B) and src, dst, src_slot (4 B
+    # each) a slot, and its epilogue compares each slot with the other set
+    aligned_bytes = 4 * BULK_IDS + 13 * 3 * BULK_IDS + 8 * segs
+    aligned_ops = rep_ops + 2 * 3 * 3 * BULK_IDS
     out["unseeded"] = {}
     for name, R, nbytes, ops in (("diff_nodes", 1, nodes_bytes, fused_ops),
-                                 ("diff_replicas", 3, replicas_bytes, rep_ops)):
+                                 ("diff_replicas", 3, replicas_bytes, rep_ops),
+                                 (B4A, 3, aligned_bytes, aligned_ops)):
         new, old = ladder_ops(max(levels[R]), max(seeds[R]))
         out["work"][name] = (nbytes, ops + new)
         out["unseeded"][name] = (nbytes, ops + old)
@@ -1398,9 +1438,10 @@ def phase7(torch, np, dev, caps, ids, hold) -> dict:
         "diff_nodes": bound(nodes_bytes, fused_ops + OPS_PER_LEVEL * sum(levels[1]))[0],
         "diff_replicas": bound(replicas_bytes, rep_ops + OPS_PER_LEVEL * sum(levels[3]))[0],
     }
-    for k in ("diff_nodes", "diff_replicas"):
+    for k in ("diff_nodes", "diff_replicas", B4A):
         print(f"  {k:15s} median {out['ms'][k]:.4f} ms over {TIMED_CALLS} calls on "
               f"{BULK_IDS} ids (R=3 for replicas), twin {out['plain'][k]:.2f} ms")
+    print(f"  B4 then ops.align_replica_sets: median {out['two_step']:.4f} ms")
     return out
 
 
@@ -2664,7 +2705,7 @@ def phase11(torch, np, dev, caps, seed) -> dict:
     consumers(torch, np, dev, caps, seed, **full)
     launches = dict(LAUNCHES)
     print(f"  phase 11 main path: launches {launches}, {time.perf_counter() - t0:.1f} s")
-    for name in ("place_fused", "place_replicas", "diff_nodes", "diff_replicas", "ch_place",
+    for name in ("place_fused", "place_replicas", "diff_nodes", B4A, "ch_place",
                  "rs_place", "wrh_place", "hier_replicas"):
         require(launches[name] > 0, f"the consumers did not launch {name}")
     print(f"phase 11e: the sequence at {CUT_IDS} ids on {CUT_NODES} nodes, QUICK durability, "
@@ -2873,7 +2914,7 @@ def phase12(torch, np, dev, caps, seed, bulk) -> dict:
             dist.destroy_process_group()
     launches = dict(LAUNCHES)
     print(f"  phase 12a main path: launches {launches}, {time.perf_counter() - t0:.1f} s")
-    for name in ("place_fused", "place_replicas", "diff_nodes", "diff_replicas", "ch_place",
+    for name in ("place_fused", "place_replicas", "diff_nodes", B4A, "ch_place",
                  "rs_place", "wrh_place", "baseline_replicas", "hier_replicas"):
         require(launches[name] > 0, f"the mesh path did not launch {name}")
 

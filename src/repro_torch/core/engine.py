@@ -816,8 +816,8 @@ class PlacementEngine:
         self, datum_ids, v_from: int, v_to: int, n_replicas: int
     ):
         """Two-version REPLICA-SET diff -> ``(moved, src, dst, src_slot)``,
-        each (batch, R) on the engine's device, no host sync: both sets in
-        one launch, then the per-slot alignment (``moved`` iff the slot's
+        each (batch, R) on the engine's device, no host sync: both sets and
+        their per-slot alignment in one launch (``moved`` iff the slot's
         owner changed; ``src`` the vacated v-side node; ``src_slot`` its
         v-set position).  Hierarchical engines diff the NODE planes of the
         two-level placement (node ids are globally unique);

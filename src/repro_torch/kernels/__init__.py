@@ -11,6 +11,7 @@ from .asura_place import (
     LAUNCHES,
     addition_numbers_cuda,
     diff_nodes_cuda,
+    diff_replicas_aligned_cuda,
     diff_replicas_cuda,
     place_cuda,
     place_fused_cuda,
@@ -33,6 +34,7 @@ __all__ = [
     "baseline_replicas_cuda",
     "ch_place_cuda",
     "diff_nodes_cuda",
+    "diff_replicas_aligned_cuda",
     "diff_replicas_cuda",
     "hier_place_replicas_cuda",
     "hier_place_replicas_ref",

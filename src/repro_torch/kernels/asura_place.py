@@ -6,13 +6,17 @@ and no caller of its own uses it); ``place_fused_cuda`` replaces
 ``place_fused_pallas``; ``place_replicas_cuda`` replaces ``place_replicas_pallas`` and also emits
 the serving path's stats vector; ``diff_nodes_cuda`` and
 ``diff_replicas_cuda`` replace ``diff_nodes_pallas`` and
-``diff_replicas_pallas`` (the migration planner's two-version diffs).
+``diff_replicas_pallas`` (the migration planner's two-version diffs);
+``diff_replicas_aligned_cuda`` is the latter's kernel with the per-slot
+alignment of its two sets (the reference's jnp ``_align_replica_sets``)
+as its epilogue, so the sets never reach memory.
 ``addition_numbers_cuda`` replaces no TPU kernel: it is the section 2.D
 ADDITION-NUMBER trace, which the reference computes in jnp
 (``kernels/ref.py`` ``addition_numbers_ref``), for the planner's
-add-node prefilter.  All six:
+add-node prefilter.  All seven:
 
-  * take the plain-torch twin (``ref.py``) only for CPU tensors; for CUDA
+  * take the plain-torch twin (``ref.py``; the aligned diff also
+    ``ops.align_replica_sets``) only for CPU tensors; for CUDA
     tensors they launch the kernel or raise -- no fallback;
   * check device, dtype, contiguity and shape first (ids and tables are
     ``uint32`` tensors, the seg->node map ``int32``);
@@ -34,7 +38,7 @@ import torch
 from . import build, ref
 
 LAUNCHES = {"place": 0, "place_fused": 0, "place_replicas": 0, "diff_nodes": 0,
-            "diff_replicas": 0, "addition_numbers": 0}
+            "diff_replicas": 0, "diff_replicas_aligned": 0, "addition_numbers": 0}
 
 
 def reset_launches() -> None:
@@ -56,6 +60,8 @@ def _lib() -> ctypes.CDLL:
     lib.asura_diff_nodes.restype = i32
     lib.asura_diff_replicas.argtypes = [p] * 6 + [i64] + [i32] * 7 + [p]
     lib.asura_diff_replicas.restype = i32
+    lib.asura_diff_replicas_aligned.argtypes = [p] * 10 + [i64] + [i32] * 7 + [p]
+    lib.asura_diff_replicas_aligned.restype = i32
     lib.asura_addition_numbers.argtypes = [p] * 5 + [i64] + [i32] * 5 + [p]
     lib.asura_addition_numbers.restype = i32
     return lib
@@ -299,6 +305,23 @@ def diff_nodes_cuda(
     return out
 
 
+def _check_diff_replicas(ids, len32_a, node_a, len32_b, node_b, top_a, top_b, s_log2,
+                         max_draws, n_replicas) -> tuple[int, int, int]:
+    """B4's operand checks -> (n_segs_a, n_segs_b, R)."""
+    dev = ids.device
+    _check("ids", ids, torch.uint32, dev)
+    n_segs_a = _check_table("a", dev, len32_a, node_a)
+    n_segs_b = _check_table("b", dev, len32_b, node_b)
+    _check_ladder(n_segs_a, top_a, s_log2, max_draws)
+    _check_ladder(n_segs_b, top_b, s_log2, max_draws)
+    R = int(n_replicas)
+    if R < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    if max_draws * R >= 2**31:  # the kernel counts draws in int32, as the reference does
+        raise ValueError(f"max_draws * n_replicas must be < 2**31, got {max_draws} * {R}")
+    return n_segs_a, n_segs_b, R
+
+
 def diff_replicas_cuda(
     ids: torch.Tensor,
     len32_a: torch.Tensor,
@@ -316,16 +339,8 @@ def diff_replicas_cuda(
     (primary first, -1 for unfilled slots): index 0 under table A
     (version v), index 1 under table B (v+1)."""
     dev = ids.device
-    _check("ids", ids, torch.uint32, dev)
-    n_segs_a = _check_table("a", dev, len32_a, node_a)
-    n_segs_b = _check_table("b", dev, len32_b, node_b)
-    _check_ladder(n_segs_a, top_a, s_log2, max_draws)
-    _check_ladder(n_segs_b, top_b, s_log2, max_draws)
-    R = int(n_replicas)
-    if R < 1:
-        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-    if max_draws * R >= 2**31:  # the kernel counts draws in int32, as the reference does
-        raise ValueError(f"max_draws * n_replicas must be < 2**31, got {max_draws} * {R}")
+    n_segs_a, n_segs_b, R = _check_diff_replicas(
+        ids, len32_a, node_a, len32_b, node_b, top_a, top_b, s_log2, max_draws, n_replicas)
     if dev.type == "cpu":
         return ref.diff_replicas_fused_ref(
             ids, len32_a, node_a, len32_b, node_b, top_a=top_a, top_b=top_b,
@@ -345,6 +360,55 @@ def diff_replicas_cuda(
     _raise_on(rc, "asura_diff_replicas")
     LAUNCHES["diff_replicas"] += 1
     return out
+
+
+def diff_replicas_aligned_cuda(
+    ids: torch.Tensor,
+    len32_a: torch.Tensor,
+    node_a: torch.Tensor,
+    len32_b: torch.Tensor,
+    node_b: torch.Tensor,
+    *,
+    top_a: int,
+    top_b: int,
+    s_log2: int = 1,
+    max_draws: int = 128,
+    n_replicas: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two-version replica placement aligned per slot -> ``(moved, src,
+    dst, src_slot)``, each a contiguous (n, R) tensor (``moved`` bool, the
+    rest int32): exactly ``ops.align_replica_sets`` of
+    ``diff_replicas_cuda``'s two sets, computed in the same launch, so the
+    sets never reach memory.  The operands are ``diff_replicas_cuda``'s."""
+    dev = ids.device
+    n_segs_a, n_segs_b, R = _check_diff_replicas(
+        ids, len32_a, node_a, len32_b, node_b, top_a, top_b, s_log2, max_draws, n_replicas)
+    if dev.type == "cpu":
+        from .ops import align_replica_sets  # ops imports this module
+
+        sets = ref.diff_replicas_fused_ref(
+            ids, len32_a, node_a, len32_b, node_b, top_a=top_a, top_b=top_b,
+            s_log2=s_log2, max_draws=max_draws, n_replicas=R,
+        )
+        return align_replica_sets(sets[0], sets[1])
+    if dev.type != "cuda":
+        raise ValueError(f"diff_replicas_aligned_cuda runs on cuda or cpu, not {dev}")
+    n = ids.shape[0]
+    moved = torch.empty((n, R), dtype=torch.bool, device=dev)
+    src, dst, src_slot = (torch.empty((n, R), dtype=torch.int32, device=dev) for _ in range(3))
+    if n == 0:
+        return moved, src, dst, src_slot
+    # R > 8: each lane keeps its before set in its own row of this
+    before = torch.empty((n, R), dtype=torch.int32, device=dev) if R > 8 else None
+    rc = _lib().asura_diff_replicas_aligned(
+        ids.data_ptr(), len32_a.data_ptr(), node_a.data_ptr(),
+        len32_b.data_ptr(), node_b.data_ptr(), moved.data_ptr(), src.data_ptr(),
+        dst.data_ptr(), src_slot.data_ptr(), None if before is None else before.data_ptr(),
+        n, n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws, R, _stream(dev),
+    )
+    _raise_on(rc, "asura_diff_replicas_aligned")
+    LAUNCHES["diff_replicas_aligned"] += 1
+    return moved, src, dst, src_slot
 
 
 def addition_numbers_cuda(

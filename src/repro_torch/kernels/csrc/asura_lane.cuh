@@ -542,14 +542,13 @@ struct AdditionNumberTrace {
 // against both tables in one walk of the deeper ladder, as B3's body
 // above: each table tests and counts only its own numbers, against
 // max_draws * max(1, R), and keeps its own node set; the lane stops when
-// each table holds R nodes or reached its cap.  ``row_hi`` / ``row_lo``
-// are the tables' R-entry output rows, -1 for unfilled slots.
+// each table holds R nodes or reached its cap.  ``set_hi`` / ``set_lo``
+// take the tables' picks in pick order (RMAX == 0: in their rows).
 template <int RMAX, class Ladder>
-__device__ __forceinline__ void diff_replicas_lane_with(
+__device__ __forceinline__ void diff_replicas_walk(
     uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
-    int s_log2, int max_draws, int R, int32_t* row_hi, int32_t* row_lo) {
+    int s_log2, int max_draws, int R, NodeSet<RMAX>& set_hi, NodeSet<RMAX>& set_lo) {
   ladder.reset(id, hi.top_level);
-  NodeSet<RMAX> set_hi(row_hi), set_lo(row_lo);
   const int cap = max_draws * (R > 1 ? R : 1);  // < 2**31: the wrapper checks
   int left_hi = cap, left_lo = cap;
   while (left_hi > 0 || left_lo > 0) {
@@ -569,6 +568,16 @@ __device__ __forceinline__ void diff_replicas_lane_with(
       }
     }
   }
+}
+
+// B4's walk with both sets written out: ``row_hi`` / ``row_lo`` are the
+// tables' R-entry output rows, -1 for unfilled slots.
+template <int RMAX, class Ladder>
+__device__ __forceinline__ void diff_replicas_lane_with(
+    uint32_t id, Ladder& ladder, const DiffTable& hi, const DiffTable& lo,
+    int s_log2, int max_draws, int R, int32_t* row_hi, int32_t* row_lo) {
+  NodeSet<RMAX> set_hi(row_hi), set_lo(row_lo);
+  diff_replicas_walk<RMAX>(id, ladder, hi, lo, s_log2, max_draws, R, set_hi, set_lo);
   set_hi.write(row_hi, R);
   set_lo.write(row_lo, R);
 }

@@ -20,8 +20,11 @@
 //       (2, n) nodes, the migration planner's (src, dst);
 //   * asura_diff_replicas  <- diff_replicas_pallas (body
 //       _diff_replicas_kernel): B2's replica placement the same way ->
-//       (2, n, R) replica-node sets (the per-slot alignment is plain
-//       torch outside).
+//       (2, n, R) replica-node sets;
+//   * asura_diff_replicas_aligned <- the same, with the reference's
+//       per-slot alignment of the two sets (_align_replica_sets, jnp
+//       outside its kernels) as the launch's epilogue -> (moved, src,
+//       dst, src_slot), each (n, R): the sets never reach memory.
 //
 // And one kernel with no TPU counterpart:
 //   * asura_addition_numbers: the section 2.D ADDITION NUMBER of each id,
@@ -54,7 +57,10 @@
 // level's seed one more fmix32 (~9; ~2.4 distinct levels per id at R = 1).
 // That is ~50 int32 ops against 8 bytes: at 16.7 T int32 ops/s against
 // 3.35 TB/s the ALU bound is ~2x the memory bound, so the kernel is
-// operation-bound and the ids stream through once.
+// operation-bound and the ids stream through once.  B4 with its alignment
+// epilogue is too: ~207 int32 ops of walk per id at R = 3 on the
+// 10,000-node tables, plus the epilogue's ~2R^2 compares, against 4 B in
+// and 13R B out per id (moved 1 B, src, dst and src_slot 4 B each).
 //
 // The lane bodies live in asura_lane.cuh, shared with hierarchy.cu (B8).
 //
@@ -216,22 +222,135 @@ place_replicas_kernel(const uint32_t* __restrict__ ids,
   }
 }
 
-// B4: each id's R-replica node set under ``hi`` and ``lo`` in one walk;
-// out_hi / out_lo are the (n, R) halves of the (2, n, R) int32 output.
-// RMAX > 0 keeps both sets in registers; RMAX == 0 (R > 8) in the lane's
-// own output rows.
+// B4's alignment epilogue (ALIGN): the four (n, R) outputs of
+// ops.align_replica_sets, each at row i * R, and where the sets live.
+struct AlignedRows {
+  uint8_t* moved;     // 0 / 1, read as torch.bool
+  int32_t* src;
+  int32_t* dst;       // the after set; R > 8 keeps it here during the walk
+  int32_t* src_slot;
+  int32_t* before;    // R > 8: the before sets' (n, R) scratch, else null
+  bool hi_before;     // the table with the higher top is A (version v)
+};
+
+// One id's per-slot alignment, exactly as ops.align_replica_sets computes
+// it on its before set b and after set a (R entries each, -1 for unfilled
+// slots): slot r is new (moved) where a[r] is not in b; the k-th new slot,
+// in slot order, takes the k-th lost before-slot (b[j] not in a) as its
+// source and source slot, or 0 and 0 where there is none (the plain
+// version's sum over no match); a slot not new is its own source.  Sets in
+// registers (R <= RMAX <= 8): the lost slots as a bit mask, ~2R^2 compares.
 template <int RMAX>
+__device__ __forceinline__ void align_registers(const int32_t (&b)[RMAX],
+                                                const int32_t (&a)[RMAX], int R,
+                                                const AlignedRows& al, int64_t row) {
+  uint32_t lost = 0u;
+#pragma unroll
+  for (int j = 0; j < RMAX; ++j) {
+    bool held = false;
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) held |= r < R && a[r] == b[j];
+    if (j < R && !held) lost |= 1u << j;
+  }
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    if (r < R) {
+      bool held = false;
+#pragma unroll
+      for (int j = 0; j < RMAX; ++j) held |= j < R && b[j] == a[r];
+      int32_t src = a[r], slot = r;
+      if (!held) {
+        src = 0;
+        slot = 0;
+        if (lost != 0u) {
+          slot = __ffs(lost) - 1;
+          lost &= lost - 1u;
+#pragma unroll
+          for (int j = 0; j < RMAX; ++j) {
+            if (j == slot) src = b[j];
+          }
+        }
+      }
+      al.moved[row + r] = held ? 0 : 1;
+      al.src[row + r] = src;
+      al.dst[row + r] = a[r];
+      al.src_slot[row + r] = slot;
+    }
+  }
+}
+
+// The same for sets in rows (R > 8): ``a`` is dst's row, which holds it
+// already; the lost slots are found in order as the new slots need them.
+__device__ __forceinline__ void align_rows(const int32_t* b, const int32_t* a, int R,
+                                           const AlignedRows& al, int64_t row) {
+  int next = 0;  // the first before-slot not yet tested for lost
+  for (int r = 0; r < R; ++r) {
+    bool held = false;
+    for (int j = 0; j < R && !held; ++j) held = b[j] == a[r];
+    int32_t src = a[r], slot = r;
+    if (!held) {
+      src = 0;
+      slot = 0;
+      for (; next < R; ++next) {
+        bool kept = false;
+        for (int k = 0; k < R && !kept; ++k) kept = a[k] == b[next];
+        if (!kept) {
+          src = b[next];
+          slot = next++;
+          break;
+        }
+      }
+    }
+    al.moved[row + r] = held ? 0 : 1;
+    al.src[row + r] = src;
+    al.src_slot[row + r] = slot;
+  }
+}
+
+// B4: each id's R-replica node set under ``hi`` and ``lo`` in one walk.
+// Without ALIGN out_hi / out_lo are the (n, R) halves of the (2, n, R)
+// int32 output; RMAX > 0 keeps both sets in registers, RMAX == 0 (R > 8)
+// in the lane's own output rows.  With ALIGN the sets go to no memory of
+// their own: the epilogue writes their per-slot alignment (``al``) from
+// the registers, or for R > 8 from the rows of dst (after) and the
+// scratch (before).
+template <int RMAX, bool ALIGN>
 __global__ void __launch_bounds__(kThreads)
 diff_replicas_kernel(const uint32_t* __restrict__ ids, DiffTable hi, DiffTable lo,
                      int32_t* __restrict__ out_hi, int32_t* __restrict__ out_lo,
-                     int64_t n, int s_log2, int max_draws, int R) {
+                     AlignedRows al, int64_t n, int s_log2, int max_draws, int R) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   uint32_t deep[kMaxLevels];
   port_lane::TopLadder<kDiffReplicasTopCounters> ladder;
   ladder.deep = deep;
-  port_lane::diff_replicas_lane_with<RMAX>(ids[i], ladder, hi, lo, s_log2, max_draws,
-                                           R, out_hi + i * R, out_lo + i * R);
+  if constexpr (!ALIGN) {
+    port_lane::diff_replicas_lane_with<RMAX>(ids[i], ladder, hi, lo, s_log2, max_draws,
+                                             R, out_hi + i * R, out_lo + i * R);
+  } else {
+    const int64_t row = i * R;
+    int32_t* const b_row = RMAX == 0 ? al.before + row : nullptr;
+    int32_t* const a_row = RMAX == 0 ? al.dst + row : nullptr;
+    port_lane::NodeSet<RMAX> set_hi(al.hi_before ? b_row : a_row);
+    port_lane::NodeSet<RMAX> set_lo(al.hi_before ? a_row : b_row);
+    port_lane::diff_replicas_walk<RMAX>(ids[i], ladder, hi, lo, s_log2, max_draws, R,
+                                        set_hi, set_lo);
+    if constexpr (RMAX == 0) {
+      set_hi.write(nullptr, R);  // -1 in the unfilled slots of both rows
+      set_lo.write(nullptr, R);
+      align_rows(b_row, a_row, R, al, row);
+    } else {
+      int32_t b[RMAX], a[RMAX];
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        const int32_t h = r < set_hi.found ? set_hi.node[r] : -1;
+        const int32_t l = r < set_lo.found ? set_lo.node[r] : -1;
+        b[r] = al.hi_before ? h : l;
+        a[r] = al.hi_before ? l : h;
+      }
+      align_registers<RMAX>(b, a, R, al, row);
+    }
+  }
 }
 
 // The ADDITION-NUMBER trace: each id's number, or -1.  Persistent warps:
@@ -398,12 +517,14 @@ extern "C" int asura_diff_nodes(const void* ids, const void* len32_a,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
-                                   const void* node_a, const void* len32_b,
-                                   const void* node_b, void* out, int64_t n,
-                                   int n_segs_a, int n_segs_b, int top_a,
-                                   int top_b, int s_log2, int max_draws, int R,
-                                   void* stream) {
+// B4 on tables A and B, the higher top's walk leading: the sets to
+// row_a / row_b (without ALIGN), or their alignment to ``al``.
+template <bool ALIGN>
+static int diff_replicas(const void* ids, const void* len32_a, const void* node_a,
+                  const void* len32_b, const void* node_b, int32_t* row_a,
+                  int32_t* row_b, AlignedRows al, int64_t n, int n_segs_a,
+                  int n_segs_b, int top_a, int top_b, int s_log2, int max_draws,
+                  int R, void* stream) {
   const dim3 grid = grid_for(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* i = static_cast<const uint32_t*>(ids);
@@ -412,14 +533,14 @@ extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
   const DiffTable b{static_cast<const uint32_t*>(len32_b), nullptr, nullptr,
                     static_cast<const int32_t*>(node_b), n_segs_b, top_b};
   DiffTable hi, lo;
-  auto* row_a = static_cast<int32_t*>(out);
-  auto* row_b = row_a + n * R;
   const bool a_hi = order_tables(a, b, hi, lo);
   int32_t* o_hi = a_hi ? row_a : row_b;
   int32_t* o_lo = a_hi ? row_b : row_a;
-#define ASURA_DIFF_REPLICAS(RM)                                                \
-  diff_replicas_kernel<RM><<<grid, kThreads, 0, s>>>(i, hi, lo, o_hi, o_lo, n, \
-                                                     s_log2, max_draws, R)
+  al.hi_before = a_hi;
+#define ASURA_DIFF_REPLICAS(RM)                                                   \
+  diff_replicas_kernel<RM, ALIGN><<<grid, kThreads, 0, s>>>(i, hi, lo, o_hi, o_lo, \
+                                                            al, n, s_log2,        \
+                                                            max_draws, R)
   // R = 3, the deployments' replication, gets sets of its own size: 7 %
   // faster than RMAX = 4 on the card (PERF.md section 6)
   if (R <= 1) {
@@ -437,6 +558,34 @@ extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
   }
 #undef ASURA_DIFF_REPLICAS
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int asura_diff_replicas(const void* ids, const void* len32_a,
+                                   const void* node_a, const void* len32_b,
+                                   const void* node_b, void* out, int64_t n,
+                                   int n_segs_a, int n_segs_b, int top_a,
+                                   int top_b, int s_log2, int max_draws, int R,
+                                   void* stream) {
+  auto* row_a = static_cast<int32_t*>(out);
+  return diff_replicas<false>(ids, len32_a, node_a, len32_b, node_b, row_a, row_a + n * R,
+                              AlignedRows{}, n, n_segs_a, n_segs_b, top_a, top_b, s_log2,
+                              max_draws, R, stream);
+}
+
+// moved (n, R) uint8, src / dst / src_slot (n, R) int32; before_buf: (n, R)
+// int32 scratch, used (and required) only when R > 8.
+extern "C" int asura_diff_replicas_aligned(const void* ids, const void* len32_a,
+                                           const void* node_a, const void* len32_b,
+                                           const void* node_b, void* moved, void* src,
+                                           void* dst, void* src_slot, void* before_buf,
+                                           int64_t n, int n_segs_a, int n_segs_b,
+                                           int top_a, int top_b, int s_log2,
+                                           int max_draws, int R, void* stream) {
+  const AlignedRows al{static_cast<uint8_t*>(moved), static_cast<int32_t*>(src),
+                       static_cast<int32_t*>(dst), static_cast<int32_t*>(src_slot),
+                       static_cast<int32_t*>(before_buf), false};
+  return diff_replicas<true>(ids, len32_a, node_a, len32_b, node_b, nullptr, nullptr, al, n,
+                             n_segs_a, n_segs_b, top_a, top_b, s_log2, max_draws, R, stream);
 }
 
 // The warps of addition_numbers_kernel<RMAX> the current device holds at

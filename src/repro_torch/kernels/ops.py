@@ -12,8 +12,10 @@ Two tiers, as in the reference:
 
 The migration planner's two-version diffs (``diff_nodes_on_tables_device``,
 ``diff_replicas_on_tables_device``) place every id under two tables in
-one launch; the per-slot replica alignment after it is plain torch, as
-the reference leaves it outside its Pallas kernels.  The ADDITION NUMBER
+one launch; the replica diff's launch also aligns the two sets per slot
+(the reference leaves that alignment outside its Pallas kernels, and
+``align_replica_sets`` here is its plain-torch form, which CPU tables and
+the hierarchical diff run).  The ADDITION NUMBER
 trace (``addition_numbers_on_table_device``), jnp in the reference, is one
 launch of its own kernel.
 
@@ -51,7 +53,7 @@ from ..obs.trace import maybe_span
 from .asura_place import (
     addition_numbers_cuda,
     diff_nodes_cuda,
-    diff_replicas_cuda,
+    diff_replicas_aligned_cuda,
     place_fused_cuda,
     place_replicas_cuda,
 )
@@ -303,15 +305,14 @@ def diff_replicas_on_tables_device(
     device, no host sync.
 
     Every id's full R-replica set is placed under table A (v) and table B
-    (v+1) in one launch, then the two sets are aligned per slot
-    (``align_replica_sets``): a row moves exactly when its slot's owner
-    changed -- the section-5 minimal replica mass."""
-    sets = diff_replicas_cuda(
+    (v+1) and the two sets are aligned per slot in one launch (on CPU
+    tables the twin, then ``align_replica_sets``): a row moves exactly when
+    its slot's owner changed -- the section-5 minimal replica mass."""
+    return diff_replicas_aligned_cuda(
         as_ids(datum_ids, len32_a.device), len32_a, node_a, len32_b, node_b,
         top_a=top_a, top_b=top_b, s_log2=params.s_log2,
         max_draws=params.max_draws, n_replicas=n_replicas,
     )
-    return align_replica_sets(sets[0], sets[1])
 
 
 def addition_numbers_top(

@@ -296,6 +296,83 @@ def test_diff_replicas_kernel_matches_twin(cuda_device, case, R):
     assert torch.equal(got, ref.diff_replicas_fused_ref(ids, *tabs, **kw))
 
 
+from repro_torch.kernels.asura_place import diff_replicas_aligned_cuda  # noqa: E402
+from repro_torch.kernels.ops import align_replica_sets  # noqa: E402
+
+
+@pytest.mark.parametrize("R", [1, 3, 9, 12])
+@pytest.mark.parametrize("case,max_draws",
+                         [(c, 128) for c in DIFF_CASES] + [("add", 1), ("top", 1)])
+def test_diff_replicas_aligned_kernel_matches_the_two_step(cuda_device, case, max_draws, R):
+    """B4 with its alignment epilogue equals B4 then ``ops.align_replica_sets``
+    on the card and the plain version on the CPU, bit for bit, in one launch
+    of its own; max_draws=1 leaves -1 slots and new slots with no
+    rank-matched lost slot."""
+    eng, v0, v1 = _diff_event(case, cuda_device, AsuraParams(max_draws=max_draws))
+    a, b = eng._device_artifact_for(v0), eng._device_artifact_for(v1)
+    tabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
+    kw = dict(top_a=a.top_level, top_b=b.top_level, s_log2=1, max_draws=max_draws,
+              n_replicas=R)
+    ids = _ids(100_003, cuda_device, seed=R + max_draws)
+    before = dict(LAUNCHES)
+    got = diff_replicas_aligned_cuda(ids, *tabs, **kw)
+    assert LAUNCHES["diff_replicas_aligned"] == before["diff_replicas_aligned"] + 1
+    assert LAUNCHES["diff_replicas"] == before["diff_replicas"]
+    assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
+    assert all(t.is_contiguous() and t.shape == (ids.shape[0], R) for t in got)
+    sets = diff_replicas_cuda(ids, *tabs, **kw)
+    host = diff_replicas_aligned_cuda(ids.cpu(), *(t.cpu() for t in tabs), **kw)
+    for g, c, h in zip(got, align_replica_sets(sets[0], sets[1]), host):
+        assert torch.equal(g, c) and torch.equal(g.cpu(), h)
+    if max_draws == 1 and R > 1:
+        lost = ~(sets[0][:, :, None] == sets[1][:, None, :]).any(dim=2)
+        assert (sets < 0).any()
+        assert (got[0].sum(dim=1) > lost.sum(dim=1)).any()
+
+
+def test_diff_replicas_aligned_kernel_takes_an_empty_id_vector(cuda_device):
+    eng, v0, v1 = _diff_event("add", cuda_device)
+    a, b = eng._device_artifact_for(v0), eng._device_artifact_for(v1)
+    before = dict(LAUNCHES)
+    got = diff_replicas_aligned_cuda(
+        _ids(0, cuda_device), a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev,
+        top_a=a.top_level, top_b=b.top_level, n_replicas=3)
+    assert [t.shape for t in got] == [(0, 3)] * 4 and got[0].dtype == torch.bool
+    assert all(t.device.type == "cuda" for t in got) and LAUNCHES == before
+
+
+def test_fused_replica_plan_on_card_aligns_inside_b4_with_no_host_sync(cuda_device):
+    """A fused ``plan_replicas_stream`` on the card opens ``planner.block``
+    with no ``ops.align_replica_sets`` inside, makes one aligned B4 launch
+    a block and no host sync, and yields the CPU plan's tuples."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, v0, v1 = _diff_event("add", cuda_device)
+    planner = MigrationPlanner(eng)
+    ids = _ids(900, cuda_device, seed=3)
+    chunks = [ids[i : i + 128] for i in range(0, 900, 128)]  # 7 of 128, 1 of 4
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        list(planner.plan_replicas_stream(chunks, v0, v1, 3, fuse=4))
+    names = [e.name for e in prof.events()]
+    assert names.count("planner.block") == 3 and "ops.align_replica_sets" not in names
+    before = dict(LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(planner.plan_replicas_stream(chunks, v0, v1, 3, fuse=4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert LAUNCHES["diff_replicas_aligned"] == before["diff_replicas_aligned"] + 3
+    assert LAUNCHES["diff_replicas"] == before["diff_replicas"]
+    host_eng, h0, h1 = _diff_event("add", torch.device("cpu"))
+    want = list(MigrationPlanner(host_eng).plan_replicas_stream(
+        [c.cpu() for c in chunks], h0, h1, 3, fuse=4))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert torch.equal(x.cpu(), y)
+
+
 def _window(device, R):
     router = Router({i: 1.0 for i in range(8)}, device=device)
     sessions = np.arange(20_000, dtype=np.uint32)

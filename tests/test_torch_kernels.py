@@ -572,6 +572,105 @@ def test_diff_replicas_wrapper_rejects_a_draw_cap_past_int32():
                            max_draws=2**30, n_replicas=2)
 
 
+# ---------------------------------------------------------------------------
+# B4 with the alignment as its epilogue: the wrapper's checks and CPU route
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.asura_place import diff_replicas_aligned_cuda  # noqa: E402
+from test_torch_launch import ALIGN_ROWS, align_epilogue, align_rows_random  # noqa: E402
+
+
+def _aligned_operands(case="add"):
+    """(ids, B4's four tables, their tops) around one diff event."""
+    _, te, v0, v1 = _diff_event(case)
+    a, b = te._device_artifact_for(v0), te._device_artifact_for(v1)
+    tabs = (a.len32_dev, a.node_of_dev, b.len32_dev, b.node_of_dev)
+    return tabs, dict(top_a=a.top_level, top_b=b.top_level)
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("ids int64", TypeError, "ids must be torch.uint32"),
+    ("node table int64", TypeError, "node_a must be torch.int32"),
+    ("table on another device", ValueError, "len32_b is on meta"),
+    ("ids not contiguous", ValueError, "ids must be contiguous"),
+    ("no replicas", ValueError, "n_replicas must be >= 1"),
+    ("draw cap past int32", ValueError, "max_draws \\* n_replicas"),
+    ("meta device", ValueError, "runs on cuda or cpu, not meta"),
+])
+def test_diff_replicas_aligned_wrapper_checks_its_operands(fault, error, match):
+    tabs, kw = _aligned_operands()
+    args = [_t(_ids(64)), *tabs]
+    kw.update(n_replicas=3)
+    if fault == "ids int64":
+        args[0] = args[0].to(torch.int64)
+    elif fault == "node table int64":
+        args[2] = args[2].to(torch.int64)
+    elif fault == "table on another device":
+        args[3] = args[3].to("meta")
+    elif fault == "ids not contiguous":
+        args[0] = torch.stack([args[0], args[0]], 1)[:, 0]
+    elif fault == "no replicas":
+        kw.update(n_replicas=0)
+    elif fault == "draw cap past int32":
+        kw.update(max_draws=2**30, n_replicas=2)
+    elif fault == "meta device":
+        args = [t.to("meta") for t in args]
+    before = dict(LAUNCHES)
+    with pytest.raises(error, match=match):
+        diff_replicas_aligned_cuda(*args, **kw)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("R", [1, 3, 12])
+@pytest.mark.parametrize("case", DIFF_CASES)
+def test_diff_replicas_aligned_cpu_route_is_the_two_step(case, R):
+    """On CPU tables the aligned wrapper returns the twin's sets aligned by
+    ``ops.align_replica_sets`` -- what the flat replica diff computed in two
+    steps -- and the flat diff returns it; neither counts a launch."""
+    tabs, kw = _aligned_operands(case)
+    ids = _t(_ids(1024, seed=R + len(case)))
+    before = dict(LAUNCHES)
+    got = diff_replicas_aligned_cuda(ids, *tabs, n_replicas=R, **kw)
+    sets = diff_replicas_cuda(ids, *tabs, n_replicas=R, **kw)
+    want = ops.align_replica_sets(sets[0], sets[1])
+    flat = ops.diff_replicas_on_tables_device(ids, *tabs, n_replicas=R, **kw)
+    assert got[0].dtype == torch.bool and all(t.shape == (1024, R) for t in got)
+    for g, w, f in zip(got, want, flat):
+        assert g.dtype == w.dtype == f.dtype and torch.equal(g, w) and torch.equal(f, w)
+    assert "diff_replicas_aligned" in LAUNCHES and LAUNCHES == before
+
+
+def _hold_alignments(before, after):
+    """The port's plain alignment, its host spec, the reference's host spec
+    and jnp twin, and the epilogue's model (both forms) agree on every row."""
+    R = after.shape[1]
+    t = [x.numpy() for x in ops.align_replica_sets(_t(before), _t(after))]
+    assert t[0].dtype == np.bool_ and np.array_equal(t[2], after)
+    for moved, src, src_slot in (align_replica_sets(before, after), jax_align(before, after)):
+        for got, want in ((moved, t[0]), (src, t[1]), (src_slot, t[3])):
+            assert np.array_equal(got, want)
+    j_dev = jops._align_replica_sets(jnp.asarray(before), jnp.asarray(after), n_replicas=R)
+    for got, want in zip(t, j_dev):
+        assert np.array_equal(got, np.asarray(want))
+    for rows in (False, True):
+        model = [align_epilogue(b, a, rows=rows) for b, a in zip(before.tolist(), after.tolist())]
+        for f in range(4):
+            assert np.array_equal(np.array([m[f] for m in model]), t[f])
+
+
+@pytest.mark.parametrize("name", list(ALIGN_ROWS))
+def test_align_replica_sets_on_adversarial_rows_matches_reference(name):
+    """Rows the kernel's epilogue has to reproduce: everything or nothing
+    moved, common nodes permuted, -1 slots filled or left, more new slots
+    than lost ones."""
+    _hold_alignments(*(np.array([row], dtype=np.int32) for row in ALIGN_ROWS[name]))
+
+
+@pytest.mark.parametrize("R", [1, 3, 5, 9, 12])
+def test_align_replica_sets_on_random_partial_rows_matches_reference(R):
+    _hold_alignments(*align_rows_random(R, 500, 100 + R))
+
+
 def test_align_replica_sets_matches_reference():
     """The port's host spec and device twin of the per-slot alignment equal
     the reference's, on sets with shared, moved and reordered members."""

@@ -365,6 +365,89 @@ def test_joint_walk_equals_two_walks_b4(tops, max_draws, R):
 
 
 # ---------------------------------------------------------------------------
+# a model of B4's alignment epilogue (align_registers / align_rows in
+# csrc/asura_place.cu), held to the plain alignment (ops.align_replica_sets)
+# ---------------------------------------------------------------------------
+
+
+def align_epilogue(b, a, *, rows=False):
+    """One lane of B4's alignment epilogue on its before set ``b`` and after
+    set ``a`` (R ints each, -1 for unfilled slots) -> (moved, src, dst,
+    src_slot) lists.  ``rows`` False: the register form (the lost slots as a
+    bit mask, each new slot taking the lowest left); True: the row form of
+    R > 8 (the next lost slot found by scanning on from the last)."""
+    R = len(a)
+    lost = sum(1 << j for j in range(R) if b[j] not in a)
+    nxt = 0
+    moved, src, slot = [], [], []
+    for r in range(R):
+        held = a[r] in b
+        s, t = a[r], r
+        if not held:
+            s, t = 0, 0
+            if not rows and lost:
+                t = (lost & -lost).bit_length() - 1
+                lost &= lost - 1
+                s = b[t]
+            while rows and nxt < R:
+                nxt += 1
+                if b[nxt - 1] not in a:
+                    s, t = b[nxt - 1], nxt - 1
+                    break
+        moved.append(not held)
+        src.append(s)
+        slot.append(t)
+    return moved, src, list(a), slot
+
+
+# (before, after) rows, R = 4, that the epilogue has to align as the plain
+# version does: -1 marks an unfilled slot (a lane out of draws), so a set
+# may hold it more than once and a row may gain more new slots than it
+# loses (those take source 0, slot 0, the plain version's empty sum)
+ALIGN_ROWS = {
+    "all moved": ([1, 2, 3, 4], [5, 6, 7, 8]),
+    "none moved": ([1, 2, 3, 4], [1, 2, 3, 4]),
+    "common nodes permuted": ([1, 2, 3, 4], [4, 3, 1, 2]),
+    "one in, the rest shifted": ([1, 2, 3, 4], [2, 3, 4, 9]),
+    "node 0 vacated": ([0, 1, 2, 3], [4, 1, 2, 3]),
+    "several -1s": ([1, -1, -1, -1], [2, 1, -1, -1]),
+    "-1s filled": ([1, 2, -1, -1], [3, 1, 4, 2]),
+    "-1s left": ([3, 1, 4, 2], [1, -1, 2, -1]),
+    "more new slots than lost": ([1, 2, -1, -1], [3, 4, 5, -1]),
+    "all -1 before": ([-1, -1, -1, -1], [1, 2, 3, 4]),
+    "all -1 after": ([1, 2, 3, 4], [-1, -1, -1, -1]),
+}
+
+
+def align_rows_random(R, n, seed):
+    """(before, after), each (n, R) int32: rows of distinct nodes out of R +
+    3, each filled up to a random slot and -1 after it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        sets = np.stack([rng.permutation(R + 3)[:R] for _ in range(n)]).astype(np.int32)
+        filled = rng.integers(0, R + 1, n)
+        sets[np.arange(R)[None, :] >= filled[:, None]] = -1
+        out.append(sets)
+    return out
+
+
+@pytest.mark.parametrize("rows", [False, True])
+def test_alignment_epilogue_model_equals_the_plain_alignment(rows):
+    import torch
+
+    from repro_torch.kernels.ops import align_replica_sets
+
+    cases = [(np.array([b], np.int32), np.array([a], np.int32)) for b, a in ALIGN_ROWS.values()]
+    cases += [align_rows_random(R, 300, R) for R in (1, 2, 3, 5, 8, 9, 12)]
+    for before, after in cases:
+        want = align_replica_sets(torch.from_numpy(before), torch.from_numpy(after))
+        want = [list(zip(*(t[i].tolist() for t in want))) for i in range(len(before))]
+        for i, (b, a) in enumerate(zip(before.tolist(), after.tolist())):
+            assert list(zip(*align_epilogue(b, a, rows=rows))) == want[i], (b, a)
+
+
+# ---------------------------------------------------------------------------
 # a NumPy model of B1 / B2 / B9's ladder, which also keeps its top
 # levels' seeds (TopLadder<K, S> in csrc/asura_lane.cuh), and of B2's
 # stats vector read from it and summed per warp (place_replicas_kernel in
