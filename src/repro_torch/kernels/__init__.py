@@ -2,8 +2,8 @@
 
 ``asura_place``, ``baselines``, ``hierarchy`` and ``traffic`` hold the
 wrappers (launch counters in ``LAUNCHES``), ``ref``, ``baselines_ref`` and
-``hierarchy_ref`` the twins (``traffic``'s is ``TrafficModel.lane_words``), ``ops`` the table-level entry points,
-``build`` the ``nvcc`` build at first use.
+``hierarchy_ref`` the twins (``traffic``'s is ``serve/traffic.py::lane_words_twin``),
+``ops`` the table-level entry points, ``build`` the ``nvcc`` build at first use.
 Nothing is compiled at import time.
 """
 

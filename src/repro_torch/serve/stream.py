@@ -50,6 +50,7 @@ as in the reference.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -106,34 +107,26 @@ def replica_owners_body(statics: tuple, n_replicas: int, emit_stats: bool = Fals
             )
         _, top_level, max_top, s_pad, s_log2, max_draws = statics
 
-        def owners(ids, *tables):
-            if ids.dtype != torch.uint32:
-                ids = to_u32(ids)
+        def kernel(ids, *tables):
             return hier_place_replicas_cuda(
                 ids, *tables, top_level=top_level, max_top=max_top, s_pad=s_pad,
                 s_log2=s_log2, max_draws=max_draws, n_replicas=n_replicas,
             )[1].T  # (batch, R) node plane
-
-        return owners
-    if alg != "asura":
-        def owners(ids, keys, vals):
-            if ids.dtype != torch.uint32:
-                ids = to_u32(ids)
-            return baseline_replicas_cuda(
-                alg, ids, keys, vals, n_replicas=n_replicas, emit_stats=emit_stats,
-            )
-
-        return owners
-    _, top_level, s_log2, max_draws = statics
-
-    def owners(ids, len32, node_of):
-        if ids.dtype != torch.uint32:
-            ids = to_u32(ids)
-        return place_replicas_cuda(
-            ids, len32, node_of, top_level=top_level, s_log2=s_log2,
+    elif alg != "asura":
+        kernel = partial(baseline_replicas_cuda, alg, n_replicas=n_replicas,
+                         emit_stats=emit_stats)
+    else:
+        _, top_level, s_log2, max_draws = statics
+        kernel = partial(
+            place_replicas_cuda, top_level=top_level, s_log2=s_log2,
             max_draws=max_draws, n_replicas=n_replicas, emit_nodes=True,
             emit_stats=emit_stats,
         )
+
+    def owners(ids, *tables):
+        if ids.dtype != torch.uint32:
+            ids = to_u32(ids)
+        return kernel(ids, *tables)
 
     return owners
 
@@ -311,15 +304,6 @@ class RequestStreamDriver:
 
     # -- the batch body -------------------------------------------------------
 
-    def _body(self, statics: tuple):
-        body = self._bodies.get(statics)
-        if body is None:
-            self.ledger.incr("serve.step_traces")
-            body = self._bodies[statics] = replica_owners_body(
-                statics, self.n_replicas, emit_stats=self._instrumented
-            )
-        return body
-
     def _kernel_route(self, owners_fn, tables):
         """``ids -> (owners, stats or None)`` through the replica kernel."""
         if self._instrumented:
@@ -329,23 +313,31 @@ class RequestStreamDriver:
     def _serve_batch(self, route):
         """generate -> route -> select -> count for stream position
         ``self._step``; returns the batch's ids (u32 values in int64) and
-        the chosen nodes -- this rank's lanes on a mesh, whose histogram
-        (and slab delta) one all-reduce merges.
-        ``route(ids)`` gives the (batch, R) holders and the kernel's stats
-        vector (None when it has none)."""
+        the chosen nodes.  ``route(ids)`` gives the (batch, R) holders and
+        the kernel's stats vector (None when it has none)."""
         with maybe_span(None, "serve.words"):
             ids, sel = TrafficModel.draw(
                 self._key, self._step, self._lanes, self._thresholds,
                 self.traffic.id_salt,
             )
         owners, stats = route(ids)
+        return ids, self._select_count(owners, sel, self._lanes.shape[0], stats)
+
+    def _select_count(self, owners, sel, n_routed: int, stats, lanes=None):
+        """select -> count for stream position ``self._step``, then advance
+        it -> the chosen nodes: this rank's lanes on a mesh, whose histogram
+        (and slab delta) one all-reduce merges.  A host-fed batch passes its
+        ``lanes``: those at or past ``n_routed`` are pad and weigh 0; every
+        lane of a generated batch weighs 1.  ``stats`` is the kernel's stats
+        vector, or None."""
         with maybe_span(None, "serve.select"):
             chosen = select_replica(
                 owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
             )
         with maybe_span(None, "serve.count"):
             hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
-            hist.scatter_add_(0, chosen.long(), self._ones)
+            hist.scatter_add_(0, chosen.long(), self._ones if lanes is None
+                              else (lanes < n_routed).to(torch.int32))
             delta = None
             if self._instrumented:
                 reg = self.metrics
@@ -353,7 +345,7 @@ class RequestStreamDriver:
                 # on a mesh the adds go to a delta that rides the batch's one
                 # all-reduce beside the histogram
                 delta = slab if self._sweep is None else torch.zeros_like(slab)
-                reg.add(delta, self._routed_name, self._lanes.shape[0])
+                reg.add(delta, self._routed_name, n_routed)
                 reg.add_hist(delta, "serve.served", hist)
                 if stats is not None and self.algorithm == "asura":
                     reg.add_hist(delta, "asura.ladder_depth", stats[:DEPTH_BINS])
@@ -371,29 +363,39 @@ class RequestStreamDriver:
             self.qhist[self._step % self.max_hist] = self.queue
         self._step += 1
         self.steps_done += 1
-        return ids, chosen
+        return chosen
 
-    def _route(self):
-        """(body, tables) for the cluster's current version."""
+    def _route(self, bucket: int | None = None):
+        """(owners function, tables) for the cluster's current version, whose
+        load bins are checked on the host once.  One binding per (routing
+        configuration, ``emit_stats``, pow2 bucket) counts in
+        ``step_traces``: a generated batch (``bucket=None``) routes with the
+        kernel's stats vector when instrumented, a host-fed bucket without
+        it (pad lanes would count phantom work)."""
         tables, statics = route_statics(self.engine, self.algorithm)
-        self._check_version()
-        return self._body(statics), tables
-
-    def _check_version(self) -> None:
-        """A new version is checked on the host once: a node id outside the
-        ``n_bins`` load planes raises here (the reference drops its counts
-        silently; on the card an out-of-range scatter would be a
-        device-side fault)."""
         if self.engine.cluster.version != self._checked_version:
             art = (self.engine.hier_artifact() if self.engine.hierarchical
                    else self.engine.artifact(self.algorithm))
-            top = top_node(art)
-            if top >= self.n_bins:
-                raise ValueError(
-                    f"node id {top} is outside this driver's {self.n_bins} load "
-                    "bins; build the driver with a larger n_bins"
-                )
+            self._check_bins(art)
             self._checked_version = art.version
+        emit_stats = self._instrumented and bucket is None
+        key = (statics, emit_stats, bucket)
+        if key not in self._bodies:
+            self.ledger.incr("serve.step_traces")
+            self._bodies[key] = replica_owners_body(statics, self.n_replicas, emit_stats=emit_stats)
+        return self._bodies[key], tables
+
+    def _check_bins(self, art) -> None:
+        """A node id of ``art`` outside the ``n_bins`` load planes raises
+        here (the reference drops its counts silently; on the card an
+        out-of-range scatter would be a device-side fault)."""
+        top = top_node(art)
+        if top >= self.n_bins:
+            raise ValueError(
+                f"node id {top} of version {art.version} is outside this "
+                f"driver's {self.n_bins} load bins; build the driver with a "
+                "larger n_bins"
+            )
 
     def _whole(self, chosen: torch.Tensor) -> torch.Tensor:
         """The whole batch's chosen nodes: on a mesh, every rank's lanes
@@ -426,10 +428,9 @@ class RequestStreamDriver:
         Ids are pow2-bucketed (``migrate.planner.pad_pow2``) and pad lanes
         never touch a counter.  The selection words come from the stream
         position, as a generated batch's do.  The batch routes without the
-        kernel's stats vector (pad lanes would count phantom work), so only
-        the routed and served metrics accumulate.  One binding per
-        (routing configuration, bucket) counts in ``step_traces``, as the
-        reference traces once per padded shape."""
+        kernel's stats vector, so only the routed and served metrics
+        accumulate.  One binding per (routing configuration, bucket) counts
+        in ``step_traces``, as the reference traces once per padded shape."""
         from ..kernels.ops import as_ids
         from ..migrate.planner import pad_pow2
 
@@ -442,35 +443,12 @@ class RequestStreamDriver:
             ids = as_ids(datum_ids, self.device)
             n = int(ids.shape[0])
             padded, n_valid = pad_pow2(ids)
-            tables, statics = route_statics(self.engine, self.algorithm)
-            self._check_version()
-            key = ("route_batch", statics, int(padded.shape[0]))
-            owners_fn = self._bodies.get(key)
-            if owners_fn is None:
-                self.ledger.incr("serve.step_traces")
-                owners_fn = self._bodies[key] = replica_owners_body(statics, self.n_replicas)
+            owners_fn, tables = self._route(int(padded.shape[0]))
             lanes = torch.arange(padded.shape[0], dtype=torch.int64, device=self.device)
             with maybe_span(None, "serve.words"):
                 sel = TrafficModel.lane_words(self._key, self._step, lanes, 1)[:, 0]
             owners = owners_fn(padded, *tables)
-            with maybe_span(None, "serve.select"):
-                chosen = select_replica(
-                    owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
-                )
-            with maybe_span(None, "serve.count"):
-                hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
-                hist.scatter_add_(0, chosen.long(), (lanes < n_valid).to(torch.int32))
-                if self._instrumented:
-                    reg = self.metrics
-                    slab = reg.slab()
-                    reg.add(slab, self._routed_name, n_valid)
-                    reg.add_hist(slab, "serve.served", hist)
-                self.counts = self.counts + hist
-                self.queue = torch.clamp(self.queue + hist - self._service, min=0)
-                self.qhist[self._step % self.max_hist] = self.queue
-            self._step += 1
-            self.steps_done += 1
-            return chosen[:n]
+            return self._select_count(owners, sel, n_valid, None, lanes)[:n]
 
     # -- serving through a live migration window --------------------------------
 
@@ -492,13 +470,7 @@ class RequestStreamDriver:
         key = (migration.v_from, migration.v_to)
         if self._checked_window != key:
             for v in key:
-                top = int(self.engine.artifact_for(v, "asura").node_of.max())
-                if top >= self.n_bins:
-                    raise ValueError(
-                        f"node id {top} of version {v} is outside this driver's "
-                        f"{self.n_bins} load bins; build the driver with a "
-                        "larger n_bins"
-                    )
+                self._check_bins(self.engine.artifact_for(v, "asura"))
             self._checked_window = key
         return lambda ids: (migration.route_replicas_device(ids), None)
 

@@ -35,12 +35,13 @@ CAPS = [0.5, 1.5, 1.0, 2.0, 0.75, 1.25, 1.0, 0.6, 1.9, 1.1, 0.8, 1.4]
 CFG = dict(batch=512, n_keys=1000, n_replicas=3, seed=5)
 
 
-def _pair(**kw):
-    """(reference driver, port driver on the CPU) on the same cluster."""
+def _pair(instrumented=True, **kw):
+    """(reference driver, port driver on the CPU, their registries or
+    None) on the same cluster."""
     ref_c = j_make_cluster(CAPS)
     ref_c.remove_node(4)  # a dead node: its bin stays in the layout
     c = convert.cluster_from_reference_json(ref_c.to_json())
-    jm, tm = JMetrics(), MetricsRegistry(device="cpu")
+    jm, tm = (JMetrics(), MetricsRegistry(device="cpu")) if instrumented else (None, None)
     jd = JDriver(JEngine(ref_c, backend="ref"), metrics=jm, **kw)
     td = RequestStreamDriver(PlacementEngine(c, device="cpu"), metrics=tm, **kw)
     return jd, td, jm, tm
@@ -358,15 +359,22 @@ def test_metrics_size_set_slab_and_bucket_add_match_reference():
     assert tm.slab() is fresh
 
 
-@pytest.mark.parametrize("instrumented", [True, False])
-def test_route_batch_matches_reference(instrumented):
-    jd, td, jm, tm = _pair(policy="pow2", law="zipf", **CFG)
-    if not instrumented:
-        ref_c = j_make_cluster(CAPS)
-        ref_c.remove_node(4)
-        jd = JDriver(JEngine(ref_c, backend="ref"), **CFG)
-        td = RequestStreamDriver(PlacementEngine(
-            convert.cluster_from_reference_json(ref_c.to_json()), device="cpu"), **CFG)
+# a two-level cluster: 3 failure domains of 4 nodes each
+TOPO = {d: {100 + 4 * d + i: 1.0 + 0.25 * i + 0.5 * (d % 2) for i in range(4)}
+        for d in range(3)}
+
+
+@pytest.mark.parametrize(
+    "kind,instrumented",
+    [("asura", True), ("asura", False), ("ch", True), ("ch", False), ("hier", False)],
+    ids=["True", "False", "ch-True", "ch-False", "hier-False"],
+)
+def test_route_batch_matches_reference(kind, instrumented):
+    kw = dict(policy="pow2", law="zipf", **CFG)
+    if kind == "hier":
+        jd, td = JRouter(TOPO).stream_driver(**kw), Router(TOPO, device="cpu").stream_driver(**kw)
+    else:
+        jd, td, jm, tm = _pair(instrumented, algorithm=kind, **kw)
     rng = np.random.default_rng(3)
     td.step()
     jd.step()
@@ -381,7 +389,7 @@ def test_route_batch_matches_reference(instrumented):
     if instrumented:
         _assert_same_state(jd, td, jm, tm)
     # 1000 and 700 share the 1024 bucket; 1 is its own
-    assert td.step_traces == 1 + 2
+    assert td.step_traces == jd.step_traces == 1 + 2
     td.route_batch(torch.arange(600, dtype=torch.int64))
     assert td.step_traces == 3
 
