@@ -26,7 +26,7 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
   1. card name and power limit; build the CUDA kernels from the sources
      in this checkout; registers, stack frame and spill bytes (``-Xptxas
      -v``) of B5, B6, the fan-out, B8, B1, B9, B2, B3, B4, the
-     ADDITION-NUMBER kernel and TW;
+     ADDITION-NUMBER kernel, TW, SC and the bin update;
   2. the fused placement kernel against its plain-torch twin on the card,
      exact equality, emit_nodes both ways: 2**20 + 13 ids on both
      clusters, and the forced tail (max_draws 0 and 1);
@@ -47,6 +47,14 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
          edge lanes (0, 1, 511, 2**31 - 1, 2**31, 2**31 + 12345,
          2**32 - 1) and 2**20 + 13 lanes that cross 2**32; then its time
          at a benchmark serving batch's 2**22 lanes beside the twin's;
+     5c. the select-and-count kernel (SC, ``select_count_cuda``) and the
+         bin update (``count_update_cuda``) against their twins on the
+         card: every policy at R = 1, 3 and 5, -1 slots and fully invalid
+         rows, pad lanes, a strided word column, a transposed owners plane,
+         a 10,001-bin plane in shared memory and a 69,955-bin one beyond
+         it, a batch with 30 % of its lanes on one record; then SC's time
+         at a benchmark serving batch's 2**22 lanes (R = 3, pow2, 10,001
+         bins) beside the twin's and the traffic bound, and the update's;
   7. the two-version diff kernels (B3, B4) against their twins on the
      card, exact: the 4096-node cluster before and after adding a node of
      capacity 1.0, before and after removing one, an add that reuses the
@@ -295,7 +303,7 @@ cluster.  Phases (each passes or raises; any failure exits non-zero):
            gloo ranks on a 2x2 mesh under this host's torch, started
            after 17a's timed steps and run beside 17b;
   6. (printed last) one JSON line per kernel (B1-B9, the fan-out, the
-     ADDITION-NUMBER trace and TW): launches on the main paths (phases 4, 5, 8,
+     ADDITION-NUMBER trace, TW and SC): launches on the main paths (phases 4, 5, 8,
      9b-9d, 10b-10d, 11a-11d, 12a,
      13a-13b, 14a, 15a-15b, 15d, 16a, 16e, 17a), time at
      the bulk size, the twin's time, the least time the card could take
@@ -403,6 +411,15 @@ TW_OF = "src/repro/serve/traffic.py:119"
 B4A = "diff_replicas_aligned"
 B4A_OF = "src/repro/kernels/asura_place.py:669 + src/repro/kernels/ops.py:399"
 TW_LANES = 1 << 22  # the lanes of a benchmark serving batch (chipbench's serve-ycsbc)
+SC = "select_count"  # no TPU kernel: the reference's jnp select + histogram in one jit
+SC_OF = "src/repro/serve/stream.py:667"
+SOURCE_SERVE = "src/repro_torch/kernels/csrc/serve.cu"
+SC_BINS = 10_001  # the load planes of the benchmark's 10,000-node cluster
+# int32 operations of one SC lane at R = 3, pow2, estimated from the code:
+# two u32 remainders by a runtime R (~20 each), the slot and address
+# arithmetic, the two load compares and selects, the ballot, the match,
+# the leader test and the shared add
+SC_OPS = 60
 # launches between one pair of CUDA events when TW is timed back to back: a
 # lone launch on an idle card also times the host's launch (~20 us), which
 # is over half of TW's own time
@@ -763,6 +780,8 @@ PTXAS_KERNELS = (
     ("diff_replicas", "asura_place", r"20diff_replicas_kernelI"),
     (AN, "asura_place", r"23addition_numbers_kernelI"),
     (TW, "traffic", r"17lane_words_kernelI"),
+    (SC, "serve", r"19select_count_kernelI"),
+    ("count_update", "serve", r"19count_update_kernel"),
 )
 
 
@@ -891,7 +910,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     def ids_on(n: int):
         return torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32)).to(dev)
 
-    worst = {name: 0 for name in KERNELS + (FANOUT, AN, TW, B4A)}
+    worst = {name: 0 for name in KERNELS + (FANOUT, AN, TW, B4A, SC)}
     t_run = time.perf_counter()
 
     def elapsed(done: str) -> None:
@@ -1047,6 +1066,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     print(f"  launches {serve_launches}, uploads {engine.uploads}, "
           f"step_traces {driver.step_traces}")
     require(serve_launches["place_replicas"] > 0, "serving did not launch the replica kernel")
+    require(serve_launches[SC] == serve_launches["count_update"] == SERVE_STEPS,
+            f"serving launched SC {serve_launches[SC]} and the bin update "
+            f"{serve_launches['count_update']} times in {SERVE_STEPS} steps")
     require(engine.uploads == 1, f"engine uploaded {engine.uploads} tables")
     counts = driver.load_counts()
     require(int(counts.sum()) == SERVE_STEPS * SERVE_BATCH, f"counts sum {counts.sum()}")
@@ -1079,6 +1101,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     if profile:
         print_profile(profile_steps(torch, RequestStreamDriver(engine, **cfg).step, 4))
     tw = phase5b(torch, dev, hold)
+    sc = phase5c(torch, np, dev, hold)
 
     elapsed("phases 1-5")
 
@@ -1159,7 +1182,7 @@ def run(seed: int, dev, profile: bool = False) -> dict:
     elapsed("phase 17")
 
     # -- B3-B9 and the fan-out: times, twins, work ----------------------------
-    for part in (diff_work, base, hier, an_work, tw):
+    for part in (diff_work, base, hier, an_work, tw, sc):
         ms.update(part["ms"])
         plain.update(part["plain"])
         work.update(part["work"])
@@ -1172,8 +1195,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                   train_launches, moe_launches, rec_launches, shard_launches)
     kernels = []
     no_tpu_kernel = {FANOUT: (FANOUT_OF, SOURCE_BASELINES), AN: (AN_OF, SOURCE),
-                     TW: (TW_OF, SOURCE_TRAFFIC), B4A: (B4A_OF, SOURCE)}
-    for name in KERNELS + (FANOUT, AN, TW, B4A):
+                     TW: (TW_OF, SOURCE_TRAFFIC), B4A: (B4A_OF, SOURCE),
+                     SC: (SC_OF, SOURCE_SERVE)}
+    for name in KERNELS + (FANOUT, AN, TW, B4A, SC):
         b_ms, b_by = bound(*work[name])
         # B4's launches in either form: the main paths' replica diffs align
         counted = (name, B4A) if name == "diff_replicas" else (name,)
@@ -1198,6 +1222,11 @@ def run(seed: int, dev, profile: bool = False) -> dict:
                              f"jax.random in jnp; n_words=1 on {TW_LANES} lanes (route_batch's "
                              "form); n_words=2 (step()'s) beside it")
             entry.update(tw["two_words"])
+        if name == SC:
+            entry["note"] = ("no TPU counterpart: the reference selects and counts in one jit "
+                             f"of jnp ops; R=3, pow2, {TW_LANES} lanes, {SC_BINS} bins; the bin "
+                             "update beside it")
+            entry.update(sc["update"])
         if name == B4A:
             entry["note"] = ("B4 with the per-slot alignment as its epilogue, R=3 on the add; "
                              "plain_ms B4's twin then ops.align_replica_sets")
@@ -1221,6 +1250,9 @@ def run(seed: int, dev, profile: bool = False) -> dict:
         if "two_step_ms" in entry:
             lib += (f"; B4 alone {entry['b4_ms']:.4f} ms, B4 then ops.align_replica_sets "
                     f"{entry['two_step_ms']:.4f} ms")
+        if "update_ms" in entry:
+            lib += (f" ({entry['ms_in_a_row']:.4f} ms a launch in a row); the bin update "
+                    f"{entry['update_ms']:.4f} ms, its twin {entry['update_plain_ms']:.4f} ms")
         print(f"phase 6: {name}: 0 mismatches, {launches} launches on the main paths, "
               f"{ms[name]:.4f} ms vs bound {b_ms:.4f} ms ({b_by}), twin {plain[name]:.2f} ms"
               f"{lib}")
@@ -1271,6 +1303,102 @@ def phase5b(torch, dev, hold) -> dict:
             "two_words": {"ms_in_a_row": in_row[1], "ms_n_words_2": ms[2],
                           "ms_in_a_row_n_words_2": in_row[2], "plain_ms_n_words_2": plain[2],
                           "bound_ms_n_words_2": b2, "bound_by_n_words_2": by2}}
+
+
+def sc_operands(torch, np, dev, n: int, R: int, n_bins: int, seed: int,
+                holes: bool = False, hot: float = 0.0):
+    """(owners, words, counts) on ``dev`` for SC: (n, R) int32 nodes below
+    ``n_bins`` (with ``holes`` 15 % -1 slots and 2 % fully invalid rows;
+    ``hot`` of the lanes on the first lane's record), (n,) int64 u32 words,
+    (n_bins,) int32 start-of-batch counts with ties."""
+    rng = np.random.default_rng(seed)
+    owners = rng.integers(0, n_bins, (n, R)).astype(np.int32)
+    if holes:
+        owners[rng.random((n, R)) < 0.15] = -1
+        owners[rng.random(n) < 0.02] = -1
+    if hot:
+        owners[rng.random(n) < hot] = owners[0]
+    words = rng.integers(0, 2**32, n, dtype=np.uint32).astype(np.int64)
+    counts = rng.integers(0, 50, n_bins).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (owners, words, counts))
+
+
+def phase5c(torch, np, dev, hold) -> dict:
+    """SC and the bin update against their twins on the card, exact; then
+    SC's CUDA-event time at TW_LANES lanes, R = 3, pow2, SC_BINS bins (a
+    lone launch and TW_BACK_TO_BACK in a row, per launch), beside the
+    twin's and the traffic bound; the update's time at SC_BINS bins.  Its
+    launches here are not the main path's."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.serve import count_update_cuda, select_count_cuda
+    from repro_torch.serve.stream import POLICIES, count_update_twin, select_count_twin
+
+    print(f"phase 5c: {SC} (SC) and count_update vs their twins on the card, exact; "
+          f"timed at {TW_LANES} lanes")
+    plane_bins = 232_448 // 4 + 11_843  # past an H100 block's shared memory
+    with uncounted(LAUNCHES):
+        for policy in POLICIES:
+            for R in (1, 3, 5):
+                for what, n_bins, kw in (
+                    ("dense", SC_BINS, {}), ("holes, pad", SC_BINS, dict(holes=True)),
+                    ("30% on one record", SC_BINS, dict(hot=0.3)),
+                    ("global bins", plane_bins, dict(holes=True)),
+                ):
+                    owners, words, counts = sc_operands(torch, np, dev, CHECK_IDS, R, n_bins,
+                                                        R, **kw)
+                    n_valid = CHECK_IDS - (1000 if what.endswith("pad") else 0)
+                    start = (counts % 7).contiguous()
+                    want_hist = start.clone()
+                    args = dict(policy=policy, n_replicas=R, n_valid=n_valid)
+                    want = select_count_twin(owners, words, counts, want_hist, **args)
+                    for form, o, w in (
+                        ("", owners, words),
+                        (", strided words, (R, n) owners", owners.T.contiguous().T,
+                         torch.stack([words, words], 1)[:, 1]),
+                    ):
+                        hist = start.clone()
+                        got = select_count_cuda(o, w, counts, hist, **args)
+                        hold(SC, f"{policy} R={R} {what}{form}", got, want)
+                        hold(SC, f"  its histogram", hist, want_hist)
+        hist = torch.randint(0, 1000, (SC_BINS,), dtype=torch.int32, device=dev)
+        counts = torch.randint(0, 2**31 - 1, (SC_BINS,), dtype=torch.int32, device=dev)
+        queue = torch.randint(0, 800, (SC_BINS,), dtype=torch.int32, device=dev)
+        service = torch.full((SC_BINS,), 420, dtype=torch.int32, device=dev)
+        rows = torch.zeros((2, SC_BINS), dtype=torch.int32, device=dev)
+        want = count_update_twin(hist.clone(), counts, queue, service, rows[0])
+        got = count_update_cuda(hist, counts, queue, service, rows[1])
+        hold(SC, "count_update counts", got[0], want[0])
+        hold(SC, "count_update queue and its ring row", torch.stack([got[1], rows[1]]),
+             torch.stack([want[1], rows[0]]))
+        require(not bool(hist.any()), "count_update left the histogram non-zero")
+
+        owners, words, counts = sc_operands(torch, np, dev, TW_LANES, 3, SC_BINS, 0, hot=0.038)
+        hist = torch.zeros(SC_BINS, dtype=torch.int32, device=dev)
+        args = dict(policy="pow2", n_replicas=3, n_valid=TW_LANES)
+        ms = statistics.median(cuda_ms(
+            torch, lambda: select_count_cuda(owners, words, counts, hist, **args), TIMED_CALLS))
+        in_row = statistics.median(cuda_ms(
+            torch, lambda: [select_count_cuda(owners, words, counts, hist, **args)
+                            for _ in range(TW_BACK_TO_BACK)], TIMED_CALLS)) / TW_BACK_TO_BACK
+        plain = statistics.median(cuda_ms(
+            torch, lambda: select_count_twin(owners, words, counts, hist, **args), TIMED_CALLS))
+        work = ((3 * 4 + 8 + 4) * TW_LANES, SC_OPS * TW_LANES)
+        queue = torch.zeros(SC_BINS, dtype=torch.int32, device=dev)
+        service = torch.full((SC_BINS,), 420, dtype=torch.int32, device=dev)
+        update = statistics.median(cuda_ms(
+            torch, lambda: count_update_cuda(hist, counts, queue, service, rows[1]),
+            TIMED_CALLS))
+        update_plain = statistics.median(cuda_ms(
+            torch, lambda: count_update_twin(hist, counts, queue, service, rows[0]),
+            TIMED_CALLS))
+    print(f"  SC: {ms:.4f} ms a lone launch, {in_row:.4f} ms a launch of {TW_BACK_TO_BACK} "
+          f"in a row (CUDA events, median of {TIMED_CALLS}), bound {bound(*work)[0]:.4f} ms "
+          f"({bound(*work)[1]}), twin {plain:.4f} ms; shared plane {4 * SC_BINS} B dynamic")
+    print(f"  count_update: {update:.4f} ms a lone launch at {SC_BINS} bins, twin "
+          f"{update_plain:.4f} ms")
+    return {"ms": {SC: ms}, "plain": {SC: plain}, "work": {SC: work},
+            "update": {"ms_in_a_row": in_row, "update_ms": update,
+                       "update_plain_ms": update_plain, "shared_plane_bytes": 4 * SC_BINS}}
 
 
 def phase7(torch, np, dev, caps, ids, hold) -> dict:

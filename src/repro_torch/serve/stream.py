@@ -16,10 +16,17 @@ The port of the reference's ``RequestStreamDriver`` on one card.  One
      routes through its jnp twins, the port routes through the kernels,
      and the result is the same bit for bit;
   3. select: ``primary``, ``random`` or ``pow2`` (power-of-two-choices
-     against the start-of-batch per-node counters);
-  4. count: a scatter-add histogram into a preallocated zeros tensor
-     (``bincount`` would read its max on the host), the queue recurrence
-     ``q' = max(q + arrivals - service, 0)`` and the queue-history ring.
+     against the start-of-batch per-node counters), and the batch's
+     per-node histogram in the same pass: on the card one launch of the
+     hand-written kernel SC (``select_count_cuda``, a block-private
+     histogram in shared memory), on the CPU its twin ``select_count_twin``
+     (``select_replica``, then a scatter-add into the driver's zeroed
+     histogram; ``bincount`` would read its max on the host);
+  4. count: the counts, the queue recurrence ``q' = max(q + arrivals -
+     service, 0)`` and the queue-history ring from that histogram, which
+     is handed back zeroed (``count_update_cuda`` on the card, one launch;
+     ``count_update_twin`` on the CPU).  ``counts`` and ``queue`` are new
+     tensors every batch: a caller may keep an earlier batch's.
 
 Nothing in ``step()`` reads a device value on the host: the stream
 position is a host int (the batch key is folded in on the host), and the
@@ -59,6 +66,7 @@ from ..kernels.asura_place import place_replicas_cuda
 from ..kernels.baselines import baseline_replicas_cuda
 from ..kernels.hierarchy import hier_place_replicas_cuda
 from ..kernels.ref import DEPTH_BINS
+from ..kernels.serve import count_update_cuda, select_count_cuda
 from ..kernels.u32 import M32, to_u32
 from ..obs.trace import TraceLedger, maybe_span
 from .traffic import TrafficModel, prng_key
@@ -169,6 +177,47 @@ def select_replica(owners, sel, counts, *, policy: str, n_replicas: int):
     return torch.where(chosen >= 0, chosen, prim)
 
 
+def select_count_twin(owners, sel, counts, hist, *, policy: str, n_replicas: int,
+                      n_valid: int) -> torch.Tensor:
+    """The plain-torch twin of ``select_count_cuda``: ``select_replica``,
+    then 1 added to ``hist[chosen]`` for each lane below ``n_valid`` (the
+    pad lanes of a host-fed batch weigh 0) -> the chosen nodes."""
+    chosen = select_replica(owners, sel, counts, policy=policy, n_replicas=n_replicas)
+    lanes = torch.arange(chosen.shape[0], device=chosen.device)
+    hist.scatter_add_(0, chosen.long(), (lanes < n_valid).to(torch.int32))
+    return chosen
+
+
+def count_update_twin(hist, counts, queue, service, qrow):
+    """The plain-torch twin of ``count_update_cuda`` -> (counts + hist,
+    max(queue + hist - service, 0)), new tensors; the queue also goes into
+    ``qrow`` and ``hist`` is zeroed, in place."""
+    queue = torch.clamp(queue + hist - service, min=0)
+    counts = counts + hist
+    qrow.copy_(queue)
+    hist.zero_()
+    return counts, queue
+
+
+def select_count(owners, sel, counts, hist, *, policy: str, n_replicas: int, n_valid: int):
+    """SC for CUDA tensors (one launch), its twin for CPU ones."""
+    kw = dict(policy=policy, n_replicas=n_replicas, n_valid=n_valid)
+    if owners.device.type == "cuda":
+        return select_count_cuda(owners, sel, counts, hist, **kw)
+    if owners.device.type != "cpu":
+        raise ValueError(f"select_count runs on cuda or cpu, not {owners.device}")
+    return select_count_twin(owners, sel, counts, hist, **kw)
+
+
+def count_update(hist, counts, queue, service, qrow):
+    """The bin update for CUDA tensors (one launch), its twin for CPU ones."""
+    if hist.device.type == "cuda":
+        return count_update_cuda(hist, counts, queue, service, qrow)
+    if hist.device.type != "cpu":
+        raise ValueError(f"count_update runs on cuda or cpu, not {hist.device}")
+    return count_update_twin(hist, counts, queue, service, qrow)
+
+
 class RequestStreamDriver:
     """Stateful batched serving simulator bound to one ``PlacementEngine``.
 
@@ -178,7 +227,8 @@ class RequestStreamDriver:
       * ``counts`` -- (n_bins,) cumulative served requests per node,
       * ``queue``  -- (n_bins,) current queue depth per node
         (``service_rate`` requests drain per node per step),
-      * ``qhist``  -- (max_hist, n_bins) queue-depth ring (p99).
+      * ``qhist``  -- (max_hist, n_bins) queue-depth ring (p99), updated
+        in place; ``counts`` and ``queue`` are new tensors every batch.
 
     ``step_traces`` counts bindings of the one-batch body to a routing
     configuration (a new table version binds anew) -- the tripwire that
@@ -251,7 +301,6 @@ class RequestStreamDriver:
         # this rank's GLOBAL lanes (all of them on one card)
         lo, hi = (0, self.batch) if self._sweep is None else self._sweep.bounds(self.batch)
         self._lanes = torch.arange(lo, hi, dtype=torch.int64, device=dev)
-        self._ones = torch.ones(hi - lo, dtype=torch.int32, device=dev)
         self._thresholds = self.traffic.thresholds_on(dev)
         self.ledger = TraceLedger()  # instance-scoped tripwire counts
         self.metrics = metrics
@@ -299,6 +348,8 @@ class RequestStreamDriver:
         self.queue = torch.zeros(self.n_bins, dtype=torch.int32, device=dev)
         self.qhist = torch.zeros((self.max_hist, self.n_bins), dtype=torch.int32,
                                  device=dev)
+        # the batch's histogram: SC adds into it, the bin update zeroes it
+        self._hist = torch.zeros(self.n_bins, dtype=torch.int32, device=dev)
         self._step = 0
         self.steps_done = 0
 
@@ -323,21 +374,19 @@ class RequestStreamDriver:
         owners, stats = route(ids)
         return ids, self._select_count(owners, sel, self._lanes.shape[0], stats)
 
-    def _select_count(self, owners, sel, n_routed: int, stats, lanes=None):
+    def _select_count(self, owners, sel, n_valid: int, stats):
         """select -> count for stream position ``self._step``, then advance
         it -> the chosen nodes: this rank's lanes on a mesh, whose histogram
-        (and slab delta) one all-reduce merges.  A host-fed batch passes its
-        ``lanes``: those at or past ``n_routed`` are pad and weigh 0; every
-        lane of a generated batch weighs 1.  ``stats`` is the kernel's stats
-        vector, or None."""
+        (and slab delta) one all-reduce merges.  Lanes at or past
+        ``n_valid`` are a host-fed batch's pad and weigh 0.  ``stats`` is
+        the kernel's stats vector, or None.  The histogram is seen before
+        the bin update where it has to be: added to the slab when
+        instrumented, all-reduced on a mesh."""
+        hist = self._hist
         with maybe_span(None, "serve.select"):
-            chosen = select_replica(
-                owners, sel, self.counts, policy=self.policy, n_replicas=self.n_replicas
-            )
+            chosen = select_count(owners, sel, self.counts, hist, policy=self.policy,
+                                  n_replicas=self.n_replicas, n_valid=n_valid)
         with maybe_span(None, "serve.count"):
-            hist = torch.zeros(self.n_bins, dtype=torch.int32, device=self.device)
-            hist.scatter_add_(0, chosen.long(), self._ones if lanes is None
-                              else (lanes < n_routed).to(torch.int32))
             delta = None
             if self._instrumented:
                 reg = self.metrics
@@ -345,7 +394,7 @@ class RequestStreamDriver:
                 # on a mesh the adds go to a delta that rides the batch's one
                 # all-reduce beside the histogram
                 delta = slab if self._sweep is None else torch.zeros_like(slab)
-                reg.add(delta, self._routed_name, n_routed)
+                reg.add(delta, self._routed_name, n_valid)
                 reg.add_hist(delta, "serve.served", hist)
                 if stats is not None and self.algorithm == "asura":
                     reg.add_hist(delta, "asura.ladder_depth", stats[:DEPTH_BINS])
@@ -354,13 +403,14 @@ class RequestStreamDriver:
                     reg.add(delta, "baseline.reprobes", stats[0])
             if self._sweep is not None and delta is not None:
                 merged = self._sweep.all_reduce(torch.cat([hist.to(torch.int64), delta]))
-                hist = merged[: self.n_bins].to(torch.int32)
+                hist.copy_(merged[: self.n_bins])
                 slab.add_(merged[self.n_bins :]).bitwise_and_(M32)
             elif self._sweep is not None:
-                hist = self._sweep.all_reduce(hist)
-            self.counts = self.counts + hist
-            self.queue = torch.clamp(self.queue + hist - self._service, min=0)
-            self.qhist[self._step % self.max_hist] = self.queue
+                self._sweep.all_reduce(hist)
+            self.counts, self.queue = count_update(
+                hist, self.counts, self.queue, self._service,
+                self.qhist[self._step % self.max_hist],
+            )
         self._step += 1
         self.steps_done += 1
         return chosen
@@ -448,7 +498,7 @@ class RequestStreamDriver:
             with maybe_span(None, "serve.words"):
                 sel = TrafficModel.lane_words(self._key, self._step, lanes, 1)[:, 0]
             owners = owners_fn(padded, *tables)
-            return self._select_count(owners, sel, n_valid, None, lanes)[:n]
+            return self._select_count(owners, sel, n_valid, None)[:n]
 
     # -- serving through a live migration window --------------------------------
 

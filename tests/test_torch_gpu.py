@@ -232,6 +232,161 @@ def test_lane_words_kernel_launches_once_per_route_batch_and_step(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the select-and-count kernel (SC) and the bin update
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.serve import count_update_cuda, select_count_cuda  # noqa: E402
+from repro_torch.serve.stream import (  # noqa: E402
+    POLICIES,
+    count_update_twin,
+    select_count_twin,
+)
+
+SC_LANES = (1 << 18) + 13
+SC_CASES = ["dense", "holes", "pad", "strided words", "transposed owners", "global bins",
+            "zipf hot", "empty"]
+PLANE_BINS = 232_448 // 4  # an H100 block's shared memory holds this many int32 bins
+
+
+def _sc_operands(case, R, seed):
+    """(owners, sel, counts, hist, n_valid) on the CPU for one SC case."""
+    rng = np.random.default_rng(seed)
+    n = 0 if case == "empty" else SC_LANES
+    n_bins = PLANE_BINS + 11_843 if case == "global bins" else 10_001
+    owners = rng.integers(0, n_bins, (n, R)).astype(np.int32)
+    if case in ("holes", "pad"):
+        owners[rng.random((n, R)) < 0.15] = -1  # unfilled slots
+        owners[rng.random(n) < 0.02] = -1  # fully invalid rows
+    if case == "zipf hot":  # >= 25 % of the lanes ask for one record
+        hot = rng.random(n) < 0.3
+        owners[hot] = owners[0]
+    sel = torch.from_numpy(rng.integers(0, 2**32, n, dtype=np.uint32).astype(np.int64))
+    counts = rng.integers(0, 50, n_bins).astype(np.int32)
+    counts[rng.random(n_bins) < 0.2] = 7  # ties between the two candidates
+    hist = rng.integers(0, 5, n_bins).astype(np.int32)  # SC adds into it
+    n_valid = n - 1000 if case == "pad" else n
+    return torch.from_numpy(owners), sel, torch.from_numpy(counts), torch.from_numpy(hist), \
+        n_valid
+
+
+@pytest.mark.parametrize("case", SC_CASES)
+@pytest.mark.parametrize("R", [1, 2, 3, 5])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_select_count_kernel_equals_its_twin(cuda_device, policy, R, case):
+    owners, sel, counts, hist, n_valid = _sc_operands(case, R, seed=R + len(case))
+    kw = dict(policy=policy, n_replicas=R, n_valid=n_valid)
+    want_hist = hist.clone()
+    want = select_count_twin(owners, sel, counts, want_hist, **kw)
+    d_owners = owners.to(cuda_device)
+    if case == "transposed owners":  # the hierarchical kernel's (R, n) node plane
+        d_owners = owners.T.contiguous().to(cuda_device).T
+    d_sel = sel.to(cuda_device)
+    if case == "strided words":  # a generated batch's word 1 of its (n, 2) words
+        d_sel = torch.stack([torch.zeros_like(sel), sel], 1).to(cuda_device)[:, 1]
+        assert d_sel.stride(0) == 2
+    d_hist = hist.to(cuda_device)
+    before = LAUNCHES["select_count"]
+    got = select_count_cuda(d_owners, d_sel, counts.to(cuda_device), d_hist, **kw)
+    assert LAUNCHES["select_count"] == before + (1 if owners.shape[0] else 0)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(d_hist.cpu(), want_hist)
+    if case == "zipf hot":
+        assert (owners == owners[0]).all(1).float().mean() >= 0.25
+
+
+def test_count_update_kernel_equals_its_twin(cuda_device):
+    rng = np.random.default_rng(11)
+    n_bins = 10_001
+    hist = rng.integers(0, 1000, n_bins).astype(np.int32)
+    counts = rng.integers(0, 2**31 - 1, n_bins).astype(np.int32)  # the sum wraps
+    queue = rng.integers(0, 400, n_bins).astype(np.int32)
+    queue[:5] = 2**31 - 10  # the queue's sum wraps
+    service = np.full(n_bins, 420, dtype=np.int32)
+    cpu = [torch.from_numpy(a.copy()) for a in (hist, counts, queue, service)]
+    qhist = torch.zeros((4, n_bins), dtype=torch.int32)
+    want = count_update_twin(*cpu, qhist[2])
+    card = [torch.from_numpy(a).to(cuda_device) for a in (hist, counts, queue, service)]
+    d_qhist = torch.zeros((4, n_bins), dtype=torch.int32, device=cuda_device)
+    before = LAUNCHES["count_update"]
+    got = count_update_cuda(*card, d_qhist[2])
+    assert LAUNCHES["count_update"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(d_qhist.cpu(), qhist)
+    assert not card[0].any() and not cpu[0].any()  # handed back zeroed
+    assert got[0].data_ptr() != card[1].data_ptr() and got[1].data_ptr() != card[2].data_ptr()
+
+
+def _serve_on(device, instrumented, path):
+    """A driver on ``device`` after ``path``'s batches -> (results, driver,
+    registry)."""
+    reg = MetricsRegistry(device=device) if instrumented else None
+    if path == "serve_migrating":
+        router, mig, drv = _window(device, 3)
+        drv = router.stream_driver(batch=1024, n_keys=1 << 14, n_replicas=3, policy="pow2",
+                                   seed=5, n_bins=9, metrics=reg)
+        mig.round()
+        out = [x for _ in range(2) for x in drv.serve_migrating(mig)]
+        out += list(drv.superstep_migrating(mig, 2))
+        return out, drv, reg
+    engine = PlacementEngine(make_uniform_cluster(24), device=device)
+    drv = RequestStreamDriver(engine, policy="pow2", law="zipf", batch=4096, n_keys=10_000,
+                              seed=7, metrics=reg)
+    if path == "route_batch":
+        out = [drv.route_batch(_ids(n, device, seed=n)) for n in (3000, 4096, 1)]
+    elif path == "step":
+        out = [drv.step() for _ in range(3)]
+    else:
+        out = [drv.superstep(3)]
+    return out, drv, reg
+
+
+@pytest.mark.parametrize("instrumented", [False, True])
+@pytest.mark.parametrize("path", ["route_batch", "step", "superstep", "serve_migrating"])
+def test_serving_paths_on_card_equal_the_cpu_driver(cuda_device, path, instrumented):
+    before = LAUNCHES["select_count"]
+    got, gd, greg = _serve_on(cuda_device, instrumented, path)
+    assert LAUNCHES["select_count"] == before + gd.steps_done
+    want, cd, creg = _serve_on(torch.device("cpu"), instrumented, path)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for name in ("counts", "queue", "qhist"):
+        assert torch.equal(getattr(gd, name).cpu(), getattr(cd, name)), name
+    if instrumented:
+        a, b = greg.snapshot(), creg.snapshot()
+        assert a.keys() == b.keys()
+        for name in a:
+            assert np.array_equal(np.asarray(a[name]), np.asarray(b[name])), name
+
+
+def test_route_batch_launches_select_count_once(cuda_device):
+    drv = RequestStreamDriver(PlacementEngine(make_uniform_cluster(24), device=cuda_device),
+                              batch=4096, n_keys=10_000, seed=3)
+    ids = _ids(3000, cuda_device, seed=5)
+    drv.route_batch(ids)
+    before = dict(LAUNCHES)
+    drv.route_batch(ids)
+    assert LAUNCHES["select_count"] == before["select_count"] + 1
+    assert LAUNCHES["count_update"] == before["count_update"] + 1
+
+
+def test_counts_and_queue_held_on_card_are_unchanged_by_the_next_batch(cuda_device):
+    drv = RequestStreamDriver(PlacementEngine(make_uniform_cluster(24), device=cuda_device),
+                              batch=4096, n_keys=10_000, seed=3)
+    ids = _ids(4096, cuda_device, seed=6)
+    drv.route_batch(ids)
+    held = (drv.counts, drv.queue)
+    copies = [t.clone() for t in held]
+    drv.route_batch(ids)
+    drv.step()
+    for t, c in zip(held, copies):
+        assert torch.equal(t, c)
+    assert not torch.equal(drv.counts, held[0])
+
+
+# ---------------------------------------------------------------------------
 # the two-version diff kernels (B3, B4) and the migration path on the card
 # ---------------------------------------------------------------------------
 

@@ -217,8 +217,9 @@ def test_top_ladder_draws_what_a_counter_per_level_draws(K):
 
 
 def test_build_names_the_selection_word_source_and_resolves_it_without_nvcc(monkeypatch):
-    assert build.SOURCES == ("asura_place", "baselines", "hierarchy", "traffic")
+    assert build.SOURCES == ("asura_place", "baselines", "hierarchy", "traffic", "serve")
     assert build.source_files("traffic") == [build.CSRC / "traffic.cu"]
+    assert build.source_files("serve") == [build.CSRC / "serve.cu"]
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     path = build.library_path("traffic")

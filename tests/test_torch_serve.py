@@ -168,6 +168,197 @@ def test_select_replica_matches_reference(policy):
 
 
 # ---------------------------------------------------------------------------
+# select and count: the kernel SC's rule, its twin and its wrapper's checks
+# ---------------------------------------------------------------------------
+
+_BIG = 2**31 - 1
+
+
+def _sc_lane(row, w, counts, policy, R):
+    """One lane of ``csrc/serve.cu``'s ``pick``, in Python ints: the u32
+    slot arithmetic and the load of a candidate (2**31 - 1 for -1)."""
+    def load(x):
+        return int(counts[x]) if 0 <= x < len(counts) else _BIG
+
+    chosen = -1
+    if policy != "primary" and R > 1:
+        s = w % R
+        chosen = int(row[s])
+        if policy == "pow2":
+            other = int(row[(s + 1 + (w >> 16) % (R - 1)) % R])
+            if load(other) < load(chosen):
+                chosen = other
+    return chosen if chosen >= 0 else max(int(row[0]), 0)
+
+
+@pytest.mark.parametrize("R", [1, 2, 3, 5])
+@pytest.mark.parametrize("policy", POLICIES)
+def test_select_count_twin_matches_the_reference_and_the_kernels_lane_rule(policy, R):
+    """The twin equals the reference's ``select_replica`` then a bincount
+    of the lanes below ``n_valid``, added into the histogram it is given;
+    the kernel's per-lane rule (modelled in Python) picks the same nodes,
+    -1 slots, fully invalid rows and ties included."""
+    from repro_torch.serve.stream import select_count_twin
+
+    rng = np.random.default_rng(R)
+    n, n_bins, n_valid = 1500, 40, 1300
+    owners = rng.integers(0, n_bins, (n, R)).astype(np.int32)
+    owners[rng.random((n, R)) < 0.15] = -1
+    owners[rng.random(n) < 0.03] = -1
+    sel = rng.integers(0, 2**32, n, dtype=np.uint32)
+    counts = rng.integers(0, 6, n_bins).astype(np.int32)  # many ties
+    start = rng.integers(0, 9, n_bins).astype(np.int32)
+    hist = torch.from_numpy(start.copy())
+    got = select_count_twin(torch.from_numpy(owners), torch.from_numpy(sel.astype(np.int64)),
+                            torch.from_numpy(counts), hist, policy=policy, n_replicas=R,
+                            n_valid=n_valid)
+    want = np.asarray(j_select(jnp.asarray(owners), jnp.asarray(sel), jnp.asarray(counts),
+                               policy=policy, n_replicas=R))
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(hist.numpy(), start + np.bincount(want[:n_valid], minlength=n_bins))
+    model = [_sc_lane(owners[i], int(sel[i]), counts, policy, R) for i in range(n)]
+    assert np.array_equal(np.asarray(model), want)
+
+
+def test_count_update_twin_wraps_clamps_and_hands_the_histogram_back_zeroed():
+    from repro_torch.serve.stream import count_update_twin
+
+    hist = torch.tensor([3, 0, 10, 1], dtype=torch.int32)
+    counts = torch.tensor([1, 2, 2**31 - 5, 0], dtype=torch.int32)
+    queue = torch.tensor([5, 0, 1, 2**31 - 1], dtype=torch.int32)
+    service = torch.full((4,), 4, dtype=torch.int32)
+    qhist = torch.zeros((3, 4), dtype=torch.int32)
+    held = (counts, queue)
+    new_counts, new_queue = count_update_twin(hist, counts, queue, service, qhist[1])
+    assert new_counts.tolist() == [4, 2, -(2**31) + 5, 1]
+    assert new_queue.tolist() == [4, 0, 7, 2**31 - 4]  # 2**31 - 1 + 1 wraps, - 4 wraps back
+    assert qhist[1].tolist() == new_queue.tolist() and not qhist[0].any()
+    assert not hist.any()
+    assert held[0].tolist() == [1, 2, 2**31 - 5, 0] and held[1].tolist() == [5, 0, 1, 2**31 - 1]
+
+
+@pytest.mark.parametrize("path", ["step", "superstep", "route_batch", "instrumented step"])
+def test_counts_and_queue_held_after_a_batch_are_unchanged_after_the_next(path):
+    """``counts`` and ``queue`` are new tensors every batch: a caller that
+    keeps batch k's still reads batch k's after batch k + 1."""
+    _, td, _, _ = _pair(instrumented=path.startswith("instrumented"), policy="pow2",
+                        law="zipf", **CFG)
+    ids = np.arange(700, dtype=np.uint32) * 7919
+
+    def serve():
+        if path == "route_batch":
+            td.route_batch(ids)
+        elif path == "superstep":
+            td.superstep(2)
+        else:
+            td.step()
+
+    serve()
+    held = (td.counts, td.queue)
+    copies = [t.clone() for t in held]
+    serve()
+    for t, c in zip(held, copies):
+        assert torch.equal(t, c)
+    assert td.counts is not held[0] and td.queue is not held[1]
+    assert not torch.equal(td.counts, held[0])
+
+
+def test_cpu_select_and_count_add_no_launch():
+    from repro_torch.kernels import LAUNCHES
+
+    before = {k: LAUNCHES[k] for k in ("select_count", "count_update")}  # 0 without a card
+    _, td, _, _ = _pair(policy="pow2", law="zipf", **CFG)
+    td.step()
+    td.superstep(2)
+    td.route_batch(np.arange(700, dtype=np.uint32))
+    assert {k: LAUNCHES[k] for k in before} == before
+
+
+def test_select_count_refuses_a_device_that_is_neither_cuda_nor_cpu():
+    from repro_torch.serve.stream import count_update, select_count
+
+    meta = dict(device="meta", dtype=torch.int32)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        select_count(torch.empty((4, 3), **meta), torch.empty(4, device="meta",
+                     dtype=torch.int64), torch.empty(5, **meta), torch.empty(5, **meta),
+                     policy="pow2", n_replicas=3, n_valid=4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        count_update(*(torch.empty(5, **meta) for _ in range(5)))
+
+
+SC_BAD = ["int64 owners", "1-D owners", "owners of another R", "not a tensor", "int32 words",
+          "short words", "words on another device", "int64 counts", "short hist",
+          "strided counts", "no bins", "R = 0", "n_valid -1", "n_valid past n",
+          "unknown policy", "cpu operands"]
+
+
+@pytest.mark.parametrize("case", SC_BAD)
+def test_select_count_cuda_checks_its_operands_before_any_launch(case):
+    from repro_torch.kernels import LAUNCHES, select_count_cuda
+
+    owners = torch.zeros((8, 3), dtype=torch.int32)
+    sel = torch.zeros(8, dtype=torch.int64)
+    counts, hist = torch.zeros(10, dtype=torch.int32), torch.zeros(10, dtype=torch.int32)
+    kw = dict(policy="pow2", n_replicas=3, n_valid=8)
+    error, before = ValueError, LAUNCHES["select_count"]
+    if case == "int64 owners":
+        owners, error = owners.long(), TypeError
+    elif case == "1-D owners":
+        owners = owners[:, 0]
+    elif case == "owners of another R":
+        kw["n_replicas"] = 2
+    elif case == "not a tensor":
+        owners, error = owners.tolist(), TypeError
+    elif case == "int32 words":
+        sel, error = sel.int(), TypeError
+    elif case == "short words":
+        sel = sel[:7]
+    elif case == "words on another device":
+        sel = sel.to("meta")
+    elif case == "int64 counts":
+        counts, error = counts.long(), TypeError
+    elif case == "short hist":
+        hist = hist[:9]
+    elif case == "strided counts":
+        counts = torch.zeros(20, dtype=torch.int32)[::2]
+    elif case == "no bins":
+        counts, hist = counts[:0], hist[:0]
+    elif case == "R = 0":
+        owners, kw["n_replicas"] = owners[:, :0], 0
+    elif case == "n_valid -1":
+        kw["n_valid"] = -1
+    elif case == "n_valid past n":
+        kw["n_valid"] = 9
+    elif case == "unknown policy":
+        kw["policy"] = "least"
+    with pytest.raises(error):
+        select_count_cuda(owners, sel, counts, hist, **kw)
+    assert LAUNCHES["select_count"] == before
+
+
+@pytest.mark.parametrize("case", ["int64 hist", "short queue", "2-D counts", "strided row",
+                                  "not a tensor", "cpu operands"])
+def test_count_update_cuda_checks_its_operands_before_any_launch(case):
+    from repro_torch.kernels import LAUNCHES, count_update_cuda
+
+    ops = [torch.zeros(10, dtype=torch.int32) for _ in range(5)]
+    error, before = ValueError, LAUNCHES["count_update"]
+    if case == "int64 hist":
+        ops[0], error = ops[0].long(), TypeError
+    elif case == "short queue":
+        ops[2] = ops[2][:9]
+    elif case == "2-D counts":
+        ops[1] = ops[1].view(2, 5)
+    elif case == "strided row":
+        ops[4] = torch.zeros((10, 2), dtype=torch.int32)[:, 0]
+    elif case == "not a tensor":
+        ops[3], error = ops[3].tolist(), TypeError
+    with pytest.raises(error):
+        count_update_cuda(*ops)
+    assert LAUNCHES["count_update"] == before
+
+
+# ---------------------------------------------------------------------------
 # the serving driver
 # ---------------------------------------------------------------------------
 
